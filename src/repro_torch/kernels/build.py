@@ -3,7 +3,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point ``<name>`` and compiles on
 its own into ``build/repro_torch/lib<name>-<hash>.so`` under the checkout
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds).
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
 """
@@ -20,7 +21,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNEL_SOURCES = ("flash_decode_paged", "sparse_prefill_paged")
+KERNEL_SOURCES = ("flash_decode_paged", "flash_decode_contig",
+                  "sparse_prefill_paged", "sparse_prefill_contig",
+                  "flash_attention", "sparse_decode")
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
@@ -41,7 +44,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [
+        CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

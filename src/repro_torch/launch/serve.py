@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         [--smoke] [--device cuda|cpu] [--budget 512] [--requests 8] \
-        [--prompt-lens 300,1010,3500] [--profile]
+        [--prompt-lens 300,1010,3500] [--cache-layout paged|contiguous] \
+        [--decode-worklist packed|padded] [--profile]
 
 Weights are random, drawn from ``--seed``; the sparsity profile is the
 synthetic one.  Prompts have the lengths ``--prompt-lens`` gives, else
 ``--requests`` lengths drawn from [32, 128).  Budget, sequence length and
-slots default to ``EngineConfig()``'s.  The default device is CUDA; ``--device cpu`` runs every
+slots, the cache layout and the decode work list default to
+``EngineConfig()``'s.  The default device is CUDA; ``--device cpu`` runs every
 kernel's plain PyTorch version.  ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
@@ -38,6 +40,10 @@ def main(argv=None) -> list:
     ap.add_argument("--budget", type=int, default=defaults.budget_per_head)
     ap.add_argument("--max-seq", type=int, default=defaults.max_seq_len)
     ap.add_argument("--slots", type=int, default=defaults.num_slots)
+    ap.add_argument("--cache-layout", default=defaults.cache_layout,
+                    choices=("paged", "contiguous"))
+    ap.add_argument("--decode-worklist", default=defaults.decode_worklist,
+                    choices=("packed", "padded"))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -55,7 +61,9 @@ def main(argv=None) -> list:
     eng = Engine(cfg, init_params(cfg, seed=args.seed, device=device),
                  EngineConfig(budget_per_head=args.budget,
                               max_seq_len=args.max_seq,
-                              num_slots=args.slots),
+                              num_slots=args.slots,
+                              cache_layout=args.cache_layout,
+                              decode_worklist=args.decode_worklist),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)

@@ -1,14 +1,19 @@
-"""S-HPLB serving engine: plan-driven sparse chunked prefill + cost-packed
-budgeted decode over a paged KV pool, with continuous batching.
+"""S-HPLB serving engine: plan-driven sparse chunked prefill + budgeted
+decode over a paged KV pool or a contiguous slot cache, with continuous
+batching.
 
-The main-path subset of the reference's ``serving/engine.py``: what its
-``Engine`` runs with a default ``EngineConfig`` — sparse attention planned by
-S-HPLB (per-head budgets + head permutation), the paged pool, chunked
-prefill whose per-chunk work lists are slices of the prompt bucket's lists,
-and packed decode work lists padded to pow2 item buckets.  Host planning is
-numpy; device state (permuted params, pool) lives on ``device``, which
-defaults to CUDA.  Other ``EngineConfig`` options raise
-``NotImplementedError``.
+The subset of the reference's ``serving/engine.py`` that the port runs:
+sparse attention planned by S-HPLB (per-head budgets + head permutation),
+chunked prefill whose per-chunk work lists are slices of the prompt
+bucket's lists, and decode over either cost-packed work lists padded to pow2
+item buckets (``decode_worklist="packed"``, the default) or the padded
+per-slot block-id grid (``"padded"``, the step-invariant baseline).  The
+KV cache is the paged pool (``cache_layout="paged"``, the default) or the
+contiguous slot cache (``"contiguous"``, the parity baseline: chunks build
+in a one-sequence staging cache merged into the slot row at the final
+chunk).  Host planning is numpy; device state (permuted params, cache)
+lives on ``device``, which defaults to CUDA.  Other ``EngineConfig``
+options raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,20 +66,22 @@ class EngineConfig:
     prefix_cache: bool = False
 
     def check_supported(self) -> None:
-        """Raise ``NotImplementedError`` for options outside the ported
-        main path."""
-        wanted = {"attention": "sparse", "prefill_buckets": "pow2",
-                  "prefill_mode": "chunked", "cache_layout": "paged",
-                  "kv_dtype": "bf16", "decode_worklist": "packed",
-                  "num_model_shards": 1, "seq_shards": 1,
-                  "replan_every": None, "drift_threshold": None,
-                  "preemption": False, "prefix_cache": False}
-        for name, value in wanted.items():
+        """Raise ``NotImplementedError`` for options the port does not run
+        yet."""
+        ported = {"attention": ("sparse",), "prefill_buckets": ("pow2",),
+                  "prefill_mode": ("chunked",),
+                  "cache_layout": ("paged", "contiguous"),
+                  "kv_dtype": ("bf16",),
+                  "decode_worklist": ("packed", "padded"),
+                  "num_model_shards": (1,), "seq_shards": (1,),
+                  "replan_every": (None,), "drift_threshold": (None,),
+                  "preemption": (False,), "prefix_cache": (False,)}
+        for name, values in ported.items():
             got = getattr(self, name)
-            if got != value:
+            if got not in values:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={got!r} is not ported yet "
-                    f"(the port runs {name}={value!r})")
+                    f"(the port runs {name} in {values!r})")
 
 
 class Engine:
@@ -100,7 +107,7 @@ class Engine:
             raise ValueError("sparse attention needs a sparsity profile")
         ecfg = engine_cfg
         if ecfg.max_seq_len % ecfg.block:
-            raise ValueError("the paged layout needs max_seq_len % block "
+            raise ValueError("chunked prefill needs max_seq_len % block "
                              "== 0")
         # attention tiles must match the work-list granularity: items
         # address tiles in units of engine_cfg.block
@@ -116,13 +123,24 @@ class Engine:
             floor=ecfg.floor, allocator=ecfg.allocator,
             partitioner=ecfg.partitioner)
         self.params = self._permute_params(params)
-        nblocks = (ecfg.num_kv_blocks
-                   or ecfg.num_slots * (ecfg.max_seq_len // ecfg.block))
-        self.kv = PagedKVCache(
-            lambda n: tfm.init_paged_cache(cfg, n, ecfg.block,
-                                           device=self.device),
-            num_blocks=nblocks, block=ecfg.block,
-            table_width=ecfg.max_seq_len // ecfg.block)
+        self.paged = ecfg.cache_layout == "paged"
+        if self.paged:
+            nblocks = (ecfg.num_kv_blocks
+                       or ecfg.num_slots * (ecfg.max_seq_len // ecfg.block))
+            self.kv = PagedKVCache(
+                lambda n: tfm.init_paged_cache(cfg, n, ecfg.block,
+                                               device=self.device),
+                num_blocks=nblocks, block=ecfg.block,
+                table_width=ecfg.max_seq_len // ecfg.block)
+        else:
+            # every slot reserves a max_seq_len row; chunks build in a
+            # one-sequence staging cache (the scheduler prefills one
+            # sequence at a time), so decode never sees a mid-prefill row
+            self.kv = None
+            self.cache = tfm.init_cache(cfg, ecfg.num_slots,
+                                        ecfg.max_seq_len, device=self.device)
+            self._staging = tfm.init_cache(cfg, 1, ecfg.max_seq_len,
+                                           device=self.device)
         self._batcher: ContinuousBatcher | None = None
         # host planning memos: prompt-bucket work lists, chunk slices and
         # their item caps, decode selections per resident block count, and
@@ -341,13 +359,24 @@ class Engine:
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :c] = tokens
         items = self._chunk_worklists(prompt_len, q_offset, bucket)
-        table = torch.from_numpy(self._table_for_slot(slot)).to(self.device)
-        logits = tfm.prefill_chunk_paged(
-            self.params, self.kv.pool, torch.from_numpy(toks).to(self.device),
-            table, q_offset, self.cfg, kv_len=q_offset + c,
-            sparse_items=items, last_index=c - 1)
+        toks = torch.from_numpy(toks).to(self.device)
+        if self.paged:
+            table = torch.from_numpy(self._table_for_slot(slot)).to(
+                self.device)
+            logits = tfm.prefill_chunk_paged(
+                self.params, self.kv.pool, toks, table, q_offset, self.cfg,
+                kv_len=q_offset + c, sparse_items=items, last_index=c - 1)
+        else:
+            logits = tfm.prefill_chunk(
+                self.params, self._staging, toks, 0, q_offset, self.cfg,
+                kv_len=q_offset + c, sparse_items=items, last_index=c - 1)
         if not is_final:
             return None
+        if not self.paged:
+            # one copy lands the staged sequence in its slot row; stale
+            # staging rows past it are masked by position, like bucket
+            # padding
+            self.cache[:, :, slot] = self._staging[:, :, 0]
         return int(sample(logits, sampling)[0])
 
     def decode_slots(self, slots, tokens, positions,
@@ -361,31 +390,55 @@ class Engine:
         tok_all[list(slots)] = tokens
         pos_all[list(slots)] = positions
         act_all[list(slots)] = True   # padding rows must not write KV
-        # -1 rows for unbound slots route their writes into the trash block
-        table = np.full((ecfg.num_slots, self.kv.table_width), -1, np.int32)
-        for s in slots:
-            table[s] = self._table_for_slot(s)
-        items, real = self._plan_for(self._nb_sig(pos_all))
         dev = self.device
-        logits = tfm.decode_step_paged(
-            self.params, self.kv.pool, torch.from_numpy(tok_all).to(dev),
-            torch.from_numpy(pos_all).to(dev),
-            torch.from_numpy(table).to(dev), self.cfg, packed_items=items,
-            active=torch.from_numpy(act_all).to(dev))
+        if ecfg.decode_worklist == "packed":
+            items, real = self._plan_for(self._nb_sig(pos_all))
+            grid = items.shape[0] * items.shape[1]
+            work = {"packed_items": items}
+        else:
+            # padded baseline: every slot's position-aware selection at the
+            # plan's max-budget width, refreshed at block boundaries
+            bids = np.stack([self._decode_ids_for_nblocks(n)
+                             for n in self._nb_sig(pos_all)], axis=1)
+            real, grid = int((bids >= 0).sum()), int(bids.size)
+            work = {"block_ids": torch.from_numpy(bids).to(dev)}
+        args = (torch.from_numpy(tok_all).to(dev),
+                torch.from_numpy(pos_all).to(dev))
+        act = torch.from_numpy(act_all).to(dev)
+        if self.paged:
+            # -1 rows for unbound slots route their writes into the trash
+            # block
+            table = np.full((ecfg.num_slots, self.kv.table_width), -1,
+                            np.int32)
+            for s in slots:
+                table[s] = self._table_for_slot(s)
+            logits = tfm.decode_step_paged(
+                self.params, self.kv.pool, *args,
+                torch.from_numpy(table).to(dev), self.cfg, active=act,
+                **work)
+        else:
+            logits = tfm.decode_step(self.params, self.cache, *args,
+                                     self.cfg, active=act, **work)
         st = self.decode_stats
         st["ticks"] += 1
         st["real_items"] += real
-        st["grid_items"] += items.shape[0] * items.shape[1]
+        st["grid_items"] += grid
         return sample(logits, sampling).cpu().numpy()[list(slots)]
 
     # -- serving loop ---------------------------------------------------------
     def make_batcher(self) -> ContinuousBatcher:
-        """A ContinuousBatcher sharing this engine's pool allocator."""
+        """A ContinuousBatcher for this engine.  Paged: it shares the pool's
+        allocator, so admission and the device pool count the same blocks.
+        Contiguous: its allocator is private accounting over
+        ``num_slots * max_seq_len / block`` blocks."""
+        ecfg = self.ecfg
         self._batcher = ContinuousBatcher(
-            num_slots=self.ecfg.num_slots, num_blocks=self.kv.num_blocks,
-            max_seq_len=self.ecfg.max_seq_len, block=self.ecfg.block,
-            token_budget=self.ecfg.prefill_chunk_tokens,
-            allocator=self.kv.alloc)
+            num_slots=ecfg.num_slots,
+            num_blocks=(self.kv.num_blocks if self.paged else
+                        ecfg.num_slots * (ecfg.max_seq_len // ecfg.block)),
+            max_seq_len=ecfg.max_seq_len, block=ecfg.block,
+            token_budget=ecfg.prefill_chunk_tokens,
+            allocator=self.kv.alloc if self.paged else None)
         return self._batcher
 
     def step_fns(self, sampling: SamplingParams = SamplingParams()):

@@ -63,6 +63,18 @@ def test_port_imports_with_jax_and_reference_blocked(blocked_import):
     assert got["n"] >= 20 and got["jax"] == []
 
 
+def test_blocked_import_covers_every_kernel_module():
+    """Each kernel wrapper module, and each CUDA source `build` compiles,
+    is part of the port that imports without JAX."""
+    from repro_torch.kernels import build
+    mods = set(_modules())
+    for name in ("flash_decode", "sparse_prefill", "flash_attn",
+                 "sparse_decode", "ops", "build"):
+        assert f"repro_torch.kernels.{name}" in mods
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
+        build.KERNEL_SOURCES)
+
+
 def test_no_source_imports_jax_or_the_reference():
     bad = []
     for path in SOURCES:
