@@ -8,13 +8,17 @@ Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA, print the card's ``name, power.limit``;
 2. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together), print ``ptxas``'s register
+   and spill lines, and count the tensor-core instructions (HMMA/HGMMA in
+   ``cuobjdump -sass``) of the bf16 prefill and flash-attention kernels:
+   none fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it (SmolLM-135M: 9 heads, 3 KV heads,
    head_dim 64, ``max_seq_len`` 4096, 8 rows, budget 512), with the stated
    tolerances; kernel, plain-version and library (SDPA) times, and each
    kernel's bound.  The paged and contiguous decode and prefill kernels
-   must also agree bit for bit on equal cache contents;
+   must also agree bit for bit on equal cache contents, and the prefill
+   kernels over the engine's run starts with their one-CTA-per-item grid;
 4. library path: ``ops.flash_attention`` and ``ops.sparse_decode``, the
    only entry points of the dense and legacy kernels, launch them;
 5. serve: the full-width SmolLM-135M with seeded random bf16 weights
@@ -57,6 +61,9 @@ SERVES = (("paged", "packed"), ("contiguous", "packed"),
 SERVE_KERNELS = {
     "paged": ("flash_decode_paged", "sparse_prefill_paged"),
     "contiguous": ("flash_decode_contig", "sparse_prefill_contig")}
+# the libraries whose bf16 kernels must run on tensor cores
+TENSOR_CORE_LIBS = ("sparse_prefill_paged", "sparse_prefill_contig",
+                    "flash_attention")
 REPLACES = {
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:510",
     "sparse_prefill_paged": "src/repro/kernels/sparse_prefill.py:111",
@@ -165,6 +172,33 @@ def measure(results, name, kernel, plain, library, nbytes, bf16_flops,
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by,
                      "library_ms": library_ms}
+
+
+def tensor_core_counts(kbuild) -> None:
+    """Count HMMA/HGMMA instructions per kernel function in the SASS of the
+    built prefill and flash-attention libraries (``cuobjdump -sass``); fail
+    if a bf16 kernel has none, so a scalar body cannot pass as the
+    tensor-core one."""
+    cuobjdump = Path(kbuild.nvcc()).with_name("cuobjdump")
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(kbuild.library_path(name))],
+            capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass {name}: {sass.stderr.strip()}")
+        counts, func = {}, None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :", 1)[1].strip()
+                counts[func] = 0
+            elif func is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[func] += 1
+        bf16 = {f: n for f, n in counts.items() if "nv_bfloat16" in f}
+        other = sum(n for f, n in counts.items() if f not in bf16)
+        print(f"tensor-core instructions in {name}: bf16 kernels "
+              f"{sorted(bf16.values())}, other kernels {other}")
+        if not bf16 or min(bf16.values()) == 0:
+            fail(f"{name}: a bf16 kernel has no tensor-core instruction")
 
 
 def random_table(gen, rows: int, nblocks, pool_blocks: int, width: int):
@@ -323,11 +357,23 @@ def prefill_mask(items, table, q_off, C, kv_len, T):
     return mask, tiles, nvalid
 
 
+def run_lengths(items):
+    """The valid items (tiles) of each run of a prefill work list."""
+    import numpy as np
+    from repro_torch.core.worklist import F_FIRST, F_VALID
+    it = items.cpu().numpy()
+    starts = np.flatnonzero(it[:, F_FIRST] == 1)
+    valid = np.concatenate([[0], np.cumsum(it[:, F_VALID] == 1)])
+    ends = np.append(starts[1:], len(it))
+    return [int(n) for n in valid[ends] - valid[starts]]
+
+
 def check_prefill(eng, gen, dev, results):
     """The paged (#2) and contiguous sparse prefill kernels on a 256-token
-    chunk of a 2304-token prompt at q_offset 0 and 2048, bf16 and f32; the
-    contiguous form reads the slot row [Hkv, 4096, D] in place, and the
-    two layouts agree bit for bit."""
+    chunk of a 2304-token prompt at q_offset 0 and 2048, bf16 and f32, over
+    the engine's run starts; the contiguous form reads the slot row [Hkv,
+    4096, D] in place, the two layouts agree bit for bit, and so do the
+    run-start and one-CTA-per-item grids."""
     import torch
     from repro_torch.kernels.sparse_prefill import (
         sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
@@ -342,29 +388,53 @@ def check_prefill(eng, gen, dev, results):
     q = torch.randn((H, C, D), generator=gen).to(dev, torch.bfloat16)
     errs, timed = {}, {}
     for q_offset in (0, 2048):
-        items = eng._chunk_worklists(prompt, q_offset, C)[0].contiguous()
+        items, runs = (t[0].contiguous()
+                       for t in eng._chunk_worklists(prompt, q_offset, C))
         kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_offset,
                   kv_len=q_offset + C)
-        timed[q_offset] = (items, kw)
+        timed[q_offset] = (items, dict(kw, runs=runs))
         for dtype, atol in ((torch.bfloat16, BF16_ATOL),
                             (torch.float32, F32_ATOL)):
             tag = f"q_offset={q_offset},{str(dtype)[6:]}"
             qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
-            got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw)
+            got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw,
+                                         runs=runs)
+            if not torch.equal(got_p, sparse_prefill_paged(
+                    qd, pk, pv, items, table, **kw)):
+                fail(f"the prefill kernel's run-start and per-item grids "
+                     f"differ ({tag})")
             errs["paged", tag] = check(
                 "sparse_prefill_paged", tag, got_p,
                 worklist_attention_paged(qd, pk, pv, items, table, **kw),
                 atol)
-            got_c = sparse_prefill_attention(qd, ck, cv, items, **kw)
+            got_c = sparse_prefill_attention(qd, ck, cv, items, **kw,
+                                             runs=runs)
             errs["contig", tag] = check(
                 "sparse_prefill_contig", tag, got_c,
                 worklist_attention(qd, ck, cv, items, **kw), atol)
             if not torch.equal(got_p, got_c):
                 fail(f"the contiguous and paged prefill kernels differ "
                      f"({tag})")
-            print(f"prefill[{tag}]: contiguous == paged, bit for bit")
+            print(f"prefill[{tag}]: contiguous == paged, run starts == "
+                  f"per item, bit for bit")
 
+    # the kernel is bound by each CTA's serial chain of tiles: time it at
+    # both offsets beside the longest run's tile count
+    for q_offset, (items, kw) in timed.items():
+        per_item = {k: v for k, v in kw.items() if k != "runs"}
+        grids = {"run starts": kw, "per item": per_item}
+        ms = {g: [] for g in grids}
+        for g in ("run starts", "per item", "per item", "run starts"):
+            ms[g].append(time_ms(lambda: sparse_prefill_paged(
+                q, kp, vp, items, table, **grids[g]), graph=True))
+        print(f"sparse_prefill_paged at q_offset {q_offset}: longest run "
+              f"{max(run_lengths(items))} tiles; run-start grid "
+              f"{2 * int((kw['runs'] >= 0).sum())} CTAs "
+              f"{' / '.join(f'{t:.4f}' for t in ms['run starts'])} ms, "
+              f"per-item grid {2 * items.shape[0]} CTAs "
+              f"{' / '.join(f'{t:.4f}' for t in ms['per item'])} ms")
     items, kw = timed[2048]
+    plain_kw = {k: v for k, v in kw.items() if k != "runs"}
     mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C, T)
     mask_t = torch.from_numpy(mask[None]).to(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -373,16 +443,18 @@ def check_prefill(eng, gen, dev, results):
     # unmasked (query, key) pairs only; both products on bf16 inputs at
     # the tensor rate (p may be rounded to bf16 within the bf16 tolerance)
     flops = 2 * D * int(mask.sum())
-    base = 2 * q.numel() * 2 + len(tiles) * 2 * BLK * D * 2 + items.numel() * 4
+    base = (2 * q.numel() * 2 + len(tiles) * 2 * BLK * D * 2
+            + (items.numel() + kw["runs"].numel()) * 4)
     note = f" (chunk {C} at q_offset 2048, {nvalid} tiles)"
     measure(results, "sparse_prefill_paged",
             lambda: sparse_prefill_paged(q, kp, vp, items, table, **kw),
-            lambda: worklist_attention_paged(q, kp, vp, items, table, **kw),
+            lambda: worklist_attention_paged(q, kp, vp, items, table,
+                                             **plain_kw),
             library, base + table.numel() * 4, 2 * flops, 0,
             errs["paged", "q_offset=2048,bfloat16"], note)
     measure(results, "sparse_prefill_contig",
             lambda: sparse_prefill_attention(q, kc, vc, items, **kw),
-            lambda: worklist_attention(q, kc, vc, items, **kw),
+            lambda: worklist_attention(q, kc, vc, items, **plain_kw),
             library, base, 2 * flops, 0,
             errs["contig", "q_offset=2048,bfloat16"], note)
 
@@ -635,6 +707,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    tensor_core_counts(kbuild)
 
     results = {}
     gen = torch.Generator().manual_seed(0)

@@ -165,6 +165,11 @@ def refine_partition(weights: Sequence[int], assignment: Assignment,
     min-loaded one, (b) swapping an item between max and any other device,
     accepting any change that reduces the makespan.  Converges quickly — each
     accepted step strictly reduces ``max_d L_d``.
+
+    Deviation from the reference: the move pass (a) stops once an accepted
+    move changes the busiest device, where the reference goes on moving
+    items of the old busiest device as if they sat on the new one and can
+    raise ``ValueError``; wherever the reference returns, the results agree.
     """
     w = np.asarray(weights, dtype=np.int64)
     device_of = assignment.device_of.copy()
@@ -189,7 +194,8 @@ def refine_partition(weights: Sequence[int], assignment: Assignment,
                 loads[dmax] = new_max_side
                 loads[dmin] = new_min_side
                 improved = True
-                dmax = int(np.argmax(loads))
+                if int(np.argmax(loads)) != dmax:
+                    break
         # (b) pairwise swaps busiest <-> every other
         dmax = int(np.argmax(loads))
         for d in range(D):

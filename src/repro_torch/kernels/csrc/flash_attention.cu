@@ -11,16 +11,24 @@
 // dtype, finalized as acc / max(l, 1e-30) (no zeroing, as the reference).
 //
 // Design.  The TPU grid (H, nQ, nKV) carries (acc, m, l) across its
-// innermost kv axis; here one CTA per (q block, head) loops over the kv
-// tiles, skipping those strictly above the diagonal when causal.  One thread
-// owns one query row, as in the sparse prefill, whose tile staging and
-// per-row online-softmax update (sparse_prefill.cuh) it shares.
+// innermost kv axis; here a CTA loops over the kv tiles, skipping those
+// wholly above its rows' causal diagonal.  Both bodies are the sparse
+// prefill's (sparse_prefill.cuh), chosen by dtype:
+//  * bf16: the tensor-core body (wgmma, one pass per tile, a 2-stage
+//    cp.async ring); a CTA (one warpgroup) owns 64 rows of a q block and
+//    its tiles are the dense kv blocks 0..last.  The grid goes over (q
+//    slice, head) with the last q slices, which walk the most tiles when
+//    causal, first, so the longest CTAs do not set the tail;
+//  * f32: the scalar body, one thread per query row and CTA per (q block,
+//    head), as before.
 //
 // What bounds it.  The larger of the bytes (q, K, V read once, out written
 // once) over 3.35 TB/s and the FLOPs of the unmasked (query, key) pairs
 // (4 * D each) over the bf16 tensor-core rate: at 4096 tokens it is the
-// operations.  This f32 FMA version is bound by its own instruction rate;
-// tensor-core MMA is later work.
+// operations.  The bf16 body waits on each product before the softmax
+// that follows it (no second warpgroup or ping-pong to overlap them), and
+// spends part of each 64-key step on the exponentials and shuffles; the
+// f32 body is bound by its own instruction rate.
 #include "sparse_prefill.cuh"
 
 namespace {
@@ -89,28 +97,95 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// The dense kv tiles 0..last of one kv head [Skv, D] at row `base`.
+struct DenseSource {
+  long long base;
+  int Skv, bkv, kb, last;
+  __device__ __forceinline__ bool next(prefill::tc::TileRef& t) {
+    if (kb > last) return false;
+    t = prefill::tc::TileRef{base + (long long)kb * bkv,
+                             min(bkv, Skv - kb * bkv), kb * bkv};
+    ++kb;
+    return true;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(prefill::tc::kWarps * 32)
+    flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ out, int H, int Sq,
+                              int Skv, int n_rep, int bq, int bkv,
+                              int bkv_pad, int nslices, int total,
+                              bool causal, float scale_log2) {
+  using namespace prefill::tc;
+  const int head = blockIdx.x % H;
+  const int idx = total - 1 - (int)(blockIdx.x / H);  // last q slices first
+  const int qblk = idx / nslices, slice = idx % nslices;
+  const int qrow0 = qblk * bq + slice * kRows;
+  const int nrows = min(kRows, min(bq - slice * kRows, Sq - qrow0));
+  if (nrows <= 0) return;
+  const int nkv = (Skv + bkv - 1) / bkv;
+  // causal: tiles past the slice's last row are wholly masked
+  const int last = causal ? min(nkv - 1, (qrow0 + nrows - 1) / bkv)
+                          : nkv - 1;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = align_smem(smem_raw);
+  const size_t qoff = ((size_t)head * Sq + qrow0) * D;
+  GroupRows<D> w;
+  w.init(q + qoff, nrows, qrow0, causal);
+  DenseSource src{(long long)(head / n_rep) * Skv, Skv, bkv, 0, last};
+  run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, Skv, scale_log2);
+  w.store(out + qoff, nrows, false);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int H, int Sq, int Skv, int n_rep, int bq, int bkv,
+                      bool causal, float scale, cudaStream_t stream) {
+  namespace tc = prefill::tc;
+  const int bkv_pad = tc::pad_keys(bkv);
+  const size_t smem = tc::smem_bytes<D>(bkv_pad);
+  auto kern = flash_attention_tc_kernel<D>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int nslices = (bq + tc::kRows - 1) / tc::kRows;
+  const long long total = (long long)((Sq + bq - 1) / bq) * nslices;
+  if (total * H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)(total * H), tc::kWarps * 32, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), H, Sq,
+      Skv, n_rep, bq, bkv, bkv_pad, nslices, (int)total, causal,
+      scale * tc::kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k, v and out share it); head_dim 32
-// or 64; block_q is the CTA width (one thread per query row, <= 1024).
-// Returns the launch's cudaError_t.
+// dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, one
+// thread per query row, block_q <= 1024); q, k, v and out share it;
+// head_dim 32 or 64.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int H, int Hkv, int Sq, int Skv,
                                int D, int block_q, int block_kv, int causal,
                                float scale, int dtype, void* stream) {
   if (H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Skv < 1 || block_q < 1 ||
-      block_q > 1024 || block_kv < 1)
+      block_kv < 1 || (dtype == 1 && block_q > 1024))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rep = H / Hkv;
   const bool c = causal != 0;
-#define FLASH_LAUNCH(T, DD)                                                  \
-  return launch<T, DD>(q, k, v, out, H, Sq, Skv, n_rep, block_q, block_kv,   \
-                       c, scale, s)
-  if (dtype == 0 && D == 32) FLASH_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == 0 && D == 64) FLASH_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 32) FLASH_LAUNCH(float, 32);
-  if (dtype == 1 && D == 64) FLASH_LAUNCH(float, 64);
+#define FLASH_LAUNCH(FN, DD)                                                 \
+  return FN(q, k, v, out, H, Sq, Skv, n_rep, block_q, block_kv, c, scale, s)
+  if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>, 32);
+  if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>, 64);
+  if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>), 32);
+  if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>), 64);
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }

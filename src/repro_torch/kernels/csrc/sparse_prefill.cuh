@@ -14,7 +14,7 @@
 // Both replace the TPU kernel src/repro/kernels/sparse_prefill.py::
 // sparse_prefill_attention (body _sparse_prefill_kernel, pallas_call at
 // sparse_prefill.py:165).  The dense flash attention (flash_attention.cu)
-// shares this file's per-row tile update.
+// shares this file's tile bodies.
 //
 // What it computes.  Items [L, 7] (q head, chunk-local q block, LOGICAL kv
 // block, first, last, valid, kv head) name (head, q_blk, kv_blk) flash
@@ -24,19 +24,48 @@
 // `first` item and writes its normalized tile on its valid `last` item; rows
 // of (head, q_blk) pairs no run covers stay at the wrapper's zeros.
 //
-// Design.  The TPU's sequential-grid carry of (acc, m, l) becomes one CTA per
-// item index: non-`first` CTAs exit, a `first` CTA loops over its run.  One
-// thread owns one query row and keeps its q row, accumulator and softmax
-// state in registers; each item's K and V tiles are staged in shared memory,
-// read back as broadcasts.  Each tile takes two passes over the keys (row
-// max, then probabilities and p.V), in f32 FMA loops: tensor-core MMA
-// (mma.sync / wgmma) and TMA staging are later work.  Both layouts run this
-// one body, so they give the same bits on equal K/V.
+// Grid.  The TPU's sequential-grid carry of (acc, m, l) becomes a loop over
+// a run inside one CTA.  The CTAs go over the runs: `runs` [R] holds each
+// run's first item (-1 = none; the host builds it once per chunk list,
+// longest run first), or, without it, one CTA per item whose non-`first`
+// CTAs exit.
 //
-// What bounds it.  The least time is the larger of the bytes of the selected
-// K/V blocks (plus q and out) over 3.35 TB/s and the FLOPs of the unmasked
-// (query, key) pairs (4 * D each) over the bf16 tensor-core rate; this FMA
-// version is far from either and is bound by its own instruction rate.
+// Two bodies, chosen by dtype (a dispatch, not a fallback: a failed build or
+// launch raises either way).
+//
+//  * bf16: tensor cores (namespace tc).  A CTA is one warpgroup (4 warps)
+//    and owns 64 query rows of a run's q block (a 128-row block is two
+//    CTAs, so the serving chunk's 18 runs fill 36 SMs).  S = Q.K^T and
+//    O += P.V are wgmma.mma_async m64n64k16 / m64nDk16 bf16 products with
+//    f32 accumulation: q stays in registers as A fragments, K (K-major)
+//    and V (N-contiguous, the transpose bit) are B operands in shared
+//    memory, read through descriptors with the 128-byte (D = 64) or
+//    64-byte (D = 32) swizzle, and P goes from the S accumulator into A
+//    fragments as bf16 (l sums the rounded p, so the output is a mean of V
+//    rows under the weights P.V used).  The online softmax runs once per
+//    64-key step on the S fragment (row max over the quad of lanes sharing
+//    a row, alpha = exp2(m_old - m_new), rescale O, add P.V), so each q.k
+//    dot is computed once; a row with no kept key yet uses m = 0 for its
+//    exponentials, so exp(-inf - -inf) never forms.  K/V tiles go through
+//    a 2-stage shared-memory ring filled with cp.async (16 bytes a thread,
+//    rows past a ragged tail zero-filled with src-size 0): tile j+1 loads
+//    while tile j multiplies.  The CTA skips a 64-key step that lies wholly
+//    above its rows' causal diagonal or past klim.
+//  * f32: the scalar body (namespace prefill): one thread owns one query
+//    row, two passes per tile in f32 FMA.  TF32 tensor cores would not hold
+//    the f32 results within 1e-4 of the plain version.
+//
+// Both addressings run the same body for a dtype, so they give the same
+// bits on equal K/V.
+//
+// What bounds it.  The least time is the larger of the bytes of the
+// selected K/V blocks (plus q and out) over 3.35 TB/s and the FLOPs of the
+// unmasked (query, key) pairs (4 * D each) over the bf16 tensor-core rate.
+// At the serving chunk (256 queries, ~5 selected tiles per run) both are
+// under a microsecond, so the bf16 kernel is bound by latency: launch, the
+// first tile's load, and each CTA's chain of dependent products and
+// exponentials per 64-key step.  The f32 body is bound by its own
+// instruction rate.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,6 +87,37 @@ __device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
+
+// Tiles of the block pool [N, Hkv, bkv, D] through the table [Tw].
+struct PoolTiles {
+  const int* table;
+  int Tw, Hkv, bkv;
+  // First row of the tile (in units of D elements), or -1 when unmapped;
+  // `rows` is how many of its bkv rows exist.  The reference clamps the
+  // logical index into the table; positions past it are masked by klim.
+  __device__ long long row0(int kvh, int kvblk, int& rows) const {
+    rows = bkv;
+    const int phys = table[min(max(kvblk, 0), Tw - 1)];
+    return phys < 0 ? -1 : ((long long)phys * Hkv + kvh) * bkv;
+  }
+};
+
+// Tiles of contiguous K/V [Hkv, Skv, D], in place.  As the reference's
+// dynamic_slice of the zero-padded K/V, the tile start is clamped into
+// [0, Skv_pad - bkv]; rows past Skv are zero.
+struct RowTiles {
+  int Skv, bkv;
+  __device__ long long row0(int kvh, int kvblk, int& rows) const {
+    const int nb = (Skv + bkv - 1) / bkv;
+    const int start = min(max(kvblk, 0), nb - 1) * bkv;
+    rows = min(bkv, Skv - start);
+    return (long long)kvh * Skv + start;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// f32: the scalar body
+// ---------------------------------------------------------------------------
 
 // Stage `rows` rows of a K and a V tile (row-major [rows, D] at `k`/`v`)
 // into shared memory [bkv, D]; rows past `rows` are zero, as in the
@@ -125,43 +185,18 @@ __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
   m = m_new;
 }
 
-// Tiles of the block pool [N, Hkv, bkv, D] through the table [Tw].
-struct PoolTiles {
-  const int* table;
-  int Tw, Hkv, bkv;
-  // First row of the tile (in units of D elements), or -1 when unmapped;
-  // `rows` is how many of its bkv rows exist.  The reference clamps the
-  // logical index into the table; positions past it are masked by klim.
-  __device__ long long row0(int kvh, int kvblk, int& rows) const {
-    rows = bkv;
-    const int phys = table[min(max(kvblk, 0), Tw - 1)];
-    return phys < 0 ? -1 : ((long long)phys * Hkv + kvh) * bkv;
-  }
-};
-
-// Tiles of contiguous K/V [Hkv, Skv, D], in place.  As the reference's
-// dynamic_slice of the zero-padded K/V, the tile start is clamped into
-// [0, Skv_pad - bkv]; rows past Skv are zero.
-struct RowTiles {
-  int Skv, bkv;
-  __device__ long long row0(int kvh, int kvblk, int& rows) const {
-    const int nb = (Skv + bkv - 1) / bkv;
-    const int start = min(max(kvblk, 0), nb - 1) * bkv;
-    rows = min(bkv, Skv - start);
-    return (long long)kvh * Skv + start;
-  }
-};
-
 template <typename T, int D, class Tiles>
 __global__ void sparse_prefill_kernel(
     const T* __restrict__ q,  // [H, Sq, D]
     const T* __restrict__ k,  // pool or [Hkv, Skv, D]
     const T* __restrict__ v,
     const int* __restrict__ items,  // [L, 7]
+    const int* __restrict__ runs,   // [R] run starts, or null: one CTA/item
     T* __restrict__ out,            // [H, Sq, D], zero-filled by the caller
     int L, int Sq, int bq, int bkv, Tiles tiles, int q_offset, int klim,
     float scale) {
-  const int i = blockIdx.x;
+  const int i = runs ? runs[blockIdx.x] : blockIdx.x;
+  if (i < 0 || i >= L) return;
   const int* it = items + (size_t)i * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
   // runs are homogeneous in (head, q_blk): build_worklist emits them so
@@ -211,41 +246,509 @@ __global__ void sparse_prefill_kernel(
   }
 }
 
-template <typename T, int D, class Tiles>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* items, void* out, int L, int Sq, int bq,
-                   int bkv, Tiles tiles, int q_offset, int klim, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)bkv * D * sizeof(T);
-  auto kern = sparse_prefill_kernel<T, D, Tiles>;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;            // warps per CTA
+constexpr int kRows = 16 * kWarps;   // query rows per CTA, 16 per warp
+constexpr int kStep = 64;            // keys per online-softmax step
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous global -> shared copy; with `fill` false the 16
+// bytes are zeros (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, a leading byte
+// offset these layouts do not use, the stride between 8-row groups, and the
+// swizzle (1 = 128-byte rows, 2 = 64-byte rows).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int sbo_bytes,
+                                              int swizzle) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32 |
+         (uint64_t)swizzle << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep registers that an in-flight wgmma reads or writes where they are
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// d[64 x 8N] += a[64 x 16] (registers, bf16) . B[16 x 8N] (shared memory
+// through `desc`; TransB = 1: B stored N-contiguous), f32 accumulate; one
+// warpgroup.  N = 8 (n64) and N = 4 (n32).
+template <int TransB>
+__device__ __forceinline__ void wgmma(float (&d)[8][4], const unsigned (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TransB));
+}
+template <int TransB>
+__device__ __forceinline__ void wgmma(float (&d)[4][4], const unsigned (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TransB));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// Element offset of (row r, 16-byte chunk c) in a [rows][D] bf16 tile whose
+// chunks are XOR-swizzled as wgmma's 128-byte (D = 64) or 64-byte (D = 32)
+// swizzle reads them, the tile starting on a 1024-byte boundary.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  static_assert(D == 32 || D == 64, "head_dim 32 or 64");
+  const int x = D == 64 ? (r & 7) : ((r >> 1) & 3);
+  return r * D + ((c ^ x) << 3);
+}
+
+// One staged K/V tile: its first row (units of D elements), how many of
+// its rows exist, and the position of its key 0.
+struct TileRef {
+  long long row0;
+  int rows, kbase;
+};
+
+// Issue the cp.async copies of a tile into K/V stage buffers [bkv_pad][D]
+// (rows past `rows` zero-filled) and commit them as one group.
+template <int D>
+__device__ __forceinline__ void stage_async(bf16* ks, bf16* vs, const bf16* k,
+                                            const bf16* v, const TileRef& t,
+                                            int bkv) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  const bf16* kt = k + t.row0 * D;
+  const bf16* vt = v + t.row0 * D;
+  for (int e = threadIdx.x; e < bkv * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = e % CPR;
+    const bool fill = r < t.rows;
+    const int off = fill ? r * D + c * 8 : 0;
+    cp_async16(ks + swz<D>(r, c), kt + off, fill);
+    cp_async16(vs + swz<D>(r, c), vt + off, fill);
+  }
+  cp_async_commit();
+}
+
+// The CTA's 64 query rows, one warpgroup: warp w holds rows 16w..16w+15,
+// lane l of it rows g = l/4 and g + 8 (h = 0, 1), as wgmma's register
+// fragments do.
+template <int D>
+struct GroupRows {
+  unsigned qf[D / 16][4];  // q as A fragments, one per 16-dim k step
+  float acc[D / 8][4];     // O accumulator, one block per 8 dims
+  float m[2], l[2];        // running max (log2 units), this lane's partial sum
+  int qlim[2];             // row h sees keys kpos <= qlim[h]; -1: no row
+  int gmax;                // the largest qlim of the CTA
+
+  // q rows start at `qbase` (CTA row 0); CTA rows >= nrows are not
+  // computed.  CTA row i sees keys up to qlim0 + i (causal) or all.
+  __device__ __forceinline__ void init(const bf16* qbase, int nrows,
+                                       int qlim0, bool causal) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const unsigned* rowp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      const bool ok = r < nrows;
+      qlim[h] = !ok ? -1 : causal ? qlim0 + r : 0x7fffffff;
+      rowp[h] = ok ? reinterpret_cast<const unsigned*>(qbase + (size_t)r * D)
+                   : nullptr;
+      m[h] = -CUDART_INF_F;
+      l[h] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      // a0: (g, 2t) a1: (g+8, 2t) a2: (g, 2t+8) a3: (g+8, 2t+8), 2 bf16 each
+      qf[ks][0] = rowp[0] ? rowp[0][ks * 8 + t] : 0u;
+      qf[ks][1] = rowp[1] ? rowp[1][ks * 8 + t] : 0u;
+      qf[ks][2] = rowp[0] ? rowp[0][ks * 8 + 4 + t] : 0u;
+      qf[ks][3] = rowp[1] ? rowp[1][ks * 8 + 4 + t] : 0u;
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+    gmax = nrows <= 0 ? -1 : causal ? qlim0 + nrows - 1 : 0x7fffffff;
+  }
+
+  // One online-softmax step over the 64 staged keys [c0, c0 + 64) of a tile
+  // whose key 0 sits at position kbase.
+  __device__ __forceinline__ void step(const bf16* ks, const bf16* vs,
+                                       int c0, int kbase, int bkv, int klim,
+                                       float scale_log2) {
+    constexpr int SW = D == 64 ? 1 : 2;  // 128- or 64-byte swizzle
+    constexpr int SBO = 8 * D * 2;       // bytes from one 8-row group to next
+    const int t = threadIdx.x & 3;
+    // S = Q.K^T: D/16 k steps of m64n64k16, B = the step's 64 K rows
+    // (K-major; a k step is 32 bytes into the swizzled rows)
+    float s[8][4];  // 8 blocks of 8 keys
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < D / 16; ++kq)
+      wgmma<0>(s, qf[kq], gmma_desc(ks + c0 * D + kq * 16, SBO, SW));
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    // mask by position, scale, row max over the quad sharing a row
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = c0 + nb * 8 + 2 * t + (e & 1);
+        const int kpos = kbase + kk;
+        const bool keep = kk < bkv && kpos < klim && kpos <= qlim[e >> 1];
+        s[nb][e] = keep ? s[nb][e] * scale_log2 : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      mu[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no row key kept yet
+      alpha[h] = exp2f(m[h] - mu[h]);
+      m[h] = m_new;
+    }
+    // p is rounded to bf16 for P.V, and l sums the rounded values, so the
+    // output is a weighted mean of V rows with the weights P.V used
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = __bfloat162float(
+            __float2bfloat16_rn(exp2f(s[nb][e] - mu[e >> 1])));
+        rs[e >> 1] += s[nb][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+    // O += P.V: 4 k steps of 16 keys, m64nDk16; P's A fragment of step j
+    // is S's accumulator blocks 2j and 2j+1, and B = 16 V rows, stored
+    // N-contiguous (the transpose bit)
+    unsigned pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pf[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      pf[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      pf[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      pf[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+    }
+    reg_fence(pf);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma<1>(acc, pf[j], gmma_desc(vs + (c0 + 16 * j) * D, SBO, SW));
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(acc);
+    reg_fence(pf);
+  }
+
+  // Write the normalized rows (CTA rows < nrows) at `obase` (CTA row 0):
+  // acc / max(l, 1e-30), or zeros for a row with l == 0 when zero_empty.
+  __device__ __forceinline__ void store(bf16* obase, int nrows,
+                                        bool zero_empty) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int r = warp * 16 + g + 8 * h;
+      if (r >= nrows) continue;
+      const bool zero = zero_empty && !(lt > 0.f);
+      const float den = fmaxf(lt, 1e-30f);
+      bf16* orow = obase + (size_t)r * D;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        const unsigned pk =
+            zero ? 0u
+                 : pack_bf16(acc[dn][2 * h] / den, acc[dn][2 * h + 1] / den);
+        *reinterpret_cast<unsigned*>(orow + dn * 8 + 2 * t) = pk;
+      }
+    }
+  }
+};
+
+// The dynamic shared memory from its first 1024-byte boundary on, where the
+// swizzle patterns of wgmma start.
+__device__ __forceinline__ bf16* align_smem(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw +
+                                 ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// Stage buffers: K0, V0, K1, V1, each [bkv_pad][D].  Rows in [bkv,
+// bkv_pad) are never copied into; they are zeroed once here so that the
+// 64-key steps past a tile's end multiply zeros.
+template <int D>
+__device__ __forceinline__ void zero_tail(bf16* smem, int bkv, int bkv_pad) {
+  const int tail = (bkv_pad - bkv) * D;
+  const size_t tile = (size_t)bkv_pad * D;
+  for (int e = threadIdx.x; e < 4 * tail; e += blockDim.x)
+    smem[(e / tail) * tile + (size_t)bkv * D + e % tail] =
+        __float2bfloat16(0.f);
+}
+
+// Run the CTA's rows over the tiles `src` yields through the 2-stage
+// cp.async ring: tile j+1 loads while tile j multiplies.
+template <int D, class Source>
+__device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
+                                          bf16* smem, const bf16* k,
+                                          const bf16* v, int bkv, int bkv_pad,
+                                          int klim, float scale_log2) {
+  const size_t tile = (size_t)bkv_pad * D;
+  zero_tail<D>(smem, bkv, bkv_pad);
+  TileRef cur, nxt;
+  bool have = src.next(cur);
+  if (have) stage_async<D>(smem, smem + tile, k, v, cur, bkv);
+  int s = 0;
+  while (have) {
+    const bool more = src.next(nxt);
+    if (more) {
+      bf16* ks = smem + (size_t)(2 * (s ^ 1)) * tile;
+      stage_async<D>(ks, ks + tile, k, v, nxt, bkv);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // cp.async and the zero tail wrote through the generic proxy; wgmma
+    // reads through the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile `cur` has landed for every thread
+    const bf16* ks = smem + (size_t)(2 * s) * tile;
+    for (int c0 = 0; c0 < bkv; c0 += kStep) {
+      const int kb = cur.kbase + c0;
+      if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+        w.step(ks, ks + tile, c0, cur.kbase, bkv, klim, scale_log2);
+    }
+    __syncthreads();  // stage s is read out before it is refilled
+    cur = nxt;
+    have = more;
+    s ^= 1;
+  }
+}
+
+// The tiles of one work-list run, item by item, with the reference scan's
+// rules: a new `first` ends the run unwritten, a valid `last` ends it
+// written, invalid items and unmapped tiles stage nothing.
+template <class Tiles>
+struct ItemSource {
+  const int* items;
+  int L, start, j, bkv;
+  Tiles tiles;
+  bool done, write;
+
+  __device__ __forceinline__ bool next(TileRef& t) {
+    while (!done && j < L) {
+      const int* it = items + (size_t)j * ITEM_FIELDS;
+      if (j > start && it[F_FIRST] == 1) {
+        done = true;
+        break;
+      }
+      ++j;
+      if (it[F_VALID] != 1) continue;
+      done = write = it[F_LAST] == 1;
+      const int kvblk = it[F_KVBLK];
+      int rows = 0;
+      const long long row0 = tiles.row0(it[F_KVHEAD], kvblk, rows);
+      if (row0 >= 0) {
+        t = TileRef{row0, rows, kvblk * bkv};
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+template <int D, class Tiles>
+__global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
+    const bf16* __restrict__ q,  // [H, Sq, D]
+    const bf16* __restrict__ k,  // pool or [Hkv, Skv, D]
+    const bf16* __restrict__ v,
+    const int* __restrict__ items,  // [L, 7]
+    const int* __restrict__ runs,   // [R] run starts, or null: one per item
+    bf16* __restrict__ out,         // [H, Sq, D], zero-filled by the caller
+    int L, int nslices, int Sq, int bq, int bkv, int bkv_pad, Tiles tiles,
+    int q_offset, int klim, float scale_log2) {
+  const int slot = blockIdx.x / nslices, slice = blockIdx.x % nslices;
+  const int start = runs ? runs[slot] : slot;
+  if (start < 0 || start >= L) return;
+  const int* it = items + (size_t)start * ITEM_FIELDS;
+  if (it[F_FIRST] != 1) return;
+  // runs are homogeneous in (head, q_blk): build_worklist emits them so
+  const int head = it[F_HEAD];
+  const int qrow0 = it[F_QBLK] * bq + slice * kRows;  // chunk-local
+  const int nrows = min(kRows, min(bq - slice * kRows, Sq - qrow0));
+  if (nrows <= 0) return;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = align_smem(smem_raw);
+  const size_t qoff = ((size_t)head * Sq + qrow0) * D;
+  GroupRows<D> w;
+  w.init(q + qoff, nrows, qrow0 + q_offset, true);
+  ItemSource<Tiles> src{items, L, start, start, bkv, tiles, false, false};
+  run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+  if (src.write) w.store(out + qoff, nrows, true);
+}
+
+// Dynamic shared memory of the bf16 body: two stages of K and V tiles, and
+// room to start them on a 1024-byte boundary.
+template <int D>
+inline size_t smem_bytes(int bkv_pad) {
+  return 4 * (size_t)bkv_pad * D * sizeof(bf16) + 1024;
+}
+
+inline int pad_keys(int bkv) { return (bkv + kStep - 1) / kStep * kStep; }
+
+}  // namespace tc
+
+template <int D, class Tiles>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* items, const int* runs, int R, void* out,
+                      int L, int Sq, int bq, int bkv, Tiles tiles,
+                      int q_offset, int klim, float scale,
+                      cudaStream_t stream) {
+  const int bkv_pad = tc::pad_keys(bkv);
+  const size_t smem = tc::smem_bytes<D>(bkv_pad);
+  auto kern = tc::sparse_prefill_tc_kernel<D, Tiles>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<L, bq, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), items, static_cast<T*>(out), L, Sq, bq, bkv,
-      tiles, q_offset, klim, scale);
+  const int nslices = (bq + tc::kRows - 1) / tc::kRows;
+  const long long grid = (long long)(runs ? R : L) * nslices;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)grid, tc::kWarps * 32, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), items, runs,
+      static_cast<tc::bf16*>(out), L, nslices, Sq, bq, bkv, bkv_pad, tiles,
+      q_offset, klim, scale * tc::kLog2e);
   return cudaGetLastError();
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q, K/V and out share it); head_dim 32
-// or 64; block_q is the CTA width (one thread per query row, <= 1024).
-// Returns the launch's cudaError_t.
+template <int D, class Tiles>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const int* items, const int* runs, int R, void* out,
+                       int L, int Sq, int bq, int bkv, Tiles tiles,
+                       int q_offset, int klim, float scale,
+                       cudaStream_t stream) {
+  if (bq > 1024) return cudaErrorInvalidValue;  // one thread per row
+  const size_t smem = 2 * (size_t)bkv * D * sizeof(float);
+  auto kern = sparse_prefill_kernel<float, D, Tiles>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<runs ? R : L, bq, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), items, runs, static_cast<float*>(out), L,
+      Sq, bq, bkv, tiles, q_offset, klim, scale);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, block_q
+// <= 1024); q, K/V and out share it; head_dim 32 or 64.  `runs` [R] holds
+// the run starts (-1 = none), or is null for one CTA per item.  Returns the
+// launch's cudaError_t.
 template <class Tiles>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
-                     const void* v, const int* items, void* out, int L,
-                     int Sq, int bq, int bkv, Tiles tiles, int q_offset,
-                     int klim, float scale, cudaStream_t stream) {
-  if (L <= 0 || bq < 1 || bq > 1024 || bkv < 1) return cudaErrorInvalidValue;
-#define PREFILL_LAUNCH(T, DD)                                              \
-  return launch<T, DD, Tiles>(q, k, v, items, out, L, Sq, bq, bkv, tiles,  \
-                              q_offset, klim, scale, stream)
-  if (dtype == 0 && D == 32) PREFILL_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == 0 && D == 64) PREFILL_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 32) PREFILL_LAUNCH(float, 32);
-  if (dtype == 1 && D == 64) PREFILL_LAUNCH(float, 64);
+                     const void* v, const int* items, const int* runs, int R,
+                     void* out, int L, int Sq, int bq, int bkv, Tiles tiles,
+                     int q_offset, int klim, float scale,
+                     cudaStream_t stream) {
+  if (L <= 0 || bq < 1 || bkv < 1 || (runs && R <= 0))
+    return cudaErrorInvalidValue;
+#define PREFILL_LAUNCH(FN, DD)                                            \
+  return FN<DD, Tiles>(q, k, v, items, runs, R, out, L, Sq, bq, bkv,      \
+                       tiles, q_offset, klim, scale, stream)
+  if (dtype == 0 && D == 32) PREFILL_LAUNCH(launch_tc, 32);
+  if (dtype == 0 && D == 64) PREFILL_LAUNCH(launch_tc, 64);
+  if (dtype == 1 && D == 32) PREFILL_LAUNCH(launch_f32, 32);
+  if (dtype == 1 && D == 64) PREFILL_LAUNCH(launch_f32, 64);
 #undef PREFILL_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -73,9 +73,9 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     """Dense flash attention (see module docstring).
 
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors launch
-    the CUDA kernel (q, k, v of one dtype, bf16 or f32; head_dim 32/64;
-    block_q <= 1024) or raise; there is no fallback.  ``launches`` counts
-    kernel launches.
+    the CUDA kernel (q, k, v of one dtype: bf16 runs its tensor-core body,
+    f32 its scalar body with block_q <= 1024; head_dim 32/64) or raise;
+    there is no fallback.  ``launches`` counts kernel launches.
     """
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be [H, Sq, D] and k/v [Hkv, Skv, D] of one "
@@ -99,11 +99,12 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
     if (q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES
-            or dh not in (32, 64) or not 0 < block_q <= 1024):
+            or dh not in (32, 64) or block_q < 1
+            or (q.dtype == torch.float32 and block_q > 1024)):
         raise ValueError(
             f"flash_attention kernel takes q, k, v of one dtype (bf16/f32), "
-            f"head_dim 32/64 and block_q <= 1024; got {q.dtype}/{k.dtype}/"
-            f"{v.dtype}, {dh}, {block_q}")
+            f"head_dim 32/64 and block_q >= 1 (<= 1024 in f32); got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}, {dh}, {block_q}")
     out = torch.empty_like(q)
     scale_v = float(dh ** -0.5) if scale is None else float(scale)
     fn = kernel_function("flash_attention", _ARGTYPES)

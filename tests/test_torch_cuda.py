@@ -21,8 +21,8 @@ from repro_torch.kernels.flash_decode import (
 from repro_torch.kernels.sparse_decode import (
     build_decode_worklist, sparse_decode_attention, sparse_decode_reference)
 from repro_torch.kernels.sparse_prefill import (
-    sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
-    worklist_attention_paged)
+    prefill_runs, sparse_prefill_attention, sparse_prefill_paged,
+    worklist_attention, worklist_attention_paged)
 
 torch.set_num_threads(1)
 
@@ -286,3 +286,112 @@ def test_cuda_sparse_decode_matches_plain(cuda, dtype, atol, D):
     want = sparse_decode_reference(q, kc, vc, items, cache_len=cache_len)
     assert got.dtype == dtype and not got[1, 0].any()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# -- the bf16 tensor-core prefill / flash body --------------------------------
+
+BF16_ATOL = 2.0 ** -6   # bf16 output: one bf16 ulp at |x| < 4
+
+
+def _tc_prefill(cuda, q, kp, vp, items, table, *, q_offset, kv_len, blk=BLK,
+                layouts=True):
+    """Run the bf16 paged kernel over run starts and per item and hold it
+    within the bf16 tolerance of its plain version; check both grids agree
+    bit for bit, and with ``layouts`` that the contiguous kernel over K/V
+    cut at ``kv_len`` (a ragged last tile of fewer than ``blk`` rows) gives
+    the same bits (not with -1 entries below kv_len, which the contiguous
+    layout has no way to express)."""
+    kc = as_slot_cache(kp, table[None])[0][:, :kv_len]
+    vc = as_slot_cache(vp, table[None])[0][:, :kv_len]
+    q, kp, vp, kc, vc = (t.to(cuda, torch.bfloat16) for t in as_torch(
+        q, kp, vp, kc, vc))
+    items_t, table_t = (t.to(cuda) for t in as_torch(items, table))
+    runs = torch.from_numpy(prefill_runs(items)).to(cuda)
+    kw = dict(block_q=blk, block_kv=blk, q_offset=q_offset, kv_len=kv_len)
+    got = sparse_prefill_paged(q, kp, vp, items_t, table_t, **kw, runs=runs)
+    assert torch.equal(got, sparse_prefill_paged(q, kp, vp, items_t,
+                                                 table_t, **kw))
+    if layouts:
+        contig = sparse_prefill_attention(q, kc, vc, items_t, **kw,
+                                          runs=runs)
+        assert torch.equal(got, contig), "one body: both layouts, same bits"
+    want = worklist_attention_paged(q, kp, vp, items_t, table_t, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("q_offset", [0, 2048])
+@pytest.mark.parametrize("hole", [False, True])
+def test_cuda_tc_prefill_matches_plain(cuda, D, q_offset, hole):
+    """An uncovered run, replicate-last padding rows, kv_len inside the
+    chunk, a contiguous last tile of fewer than block_kv rows, and -1
+    table entries."""
+    chunk = 256
+    q, kp, vp, items, table = prefill_case(
+        13, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
+        hole=hole)
+    got = _tc_prefill(cuda, q, kp, vp, items, table, q_offset=q_offset,
+                      kv_len=q_offset + chunk - 40, layouts=not hole)
+    assert not got[1, :BLK].any(), "an uncovered run's rows stay zero"
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_cuda_tc_prefill_fully_masked_tiles(cuda, D):
+    """A run whose first tile lies wholly above the causal diagonal, and a
+    run with no kept key at all (its rows are written as zeros)."""
+    rng = np.random.default_rng(14)
+    H, Hkv, T = 2, 1, 4
+    q = rng.standard_normal((H, 2 * BLK, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((T + 1, Hkv, BLK, D)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(T).astype(np.int32)
+    # (head, q_blk, kv_blk, first, last, valid, kv_head)
+    items = np.array([
+        [0, 0, 3, 1, 0, 1, 0],     # wholly in the future of q block 0
+        [0, 0, 0, 0, 1, 1, 0],     # the diagonal
+        [0, 1, 2, 1, 0, 1, 0],     # future
+        [0, 1, 1, 0, 1, 1, 0],     # diagonal
+        [1, 0, 2, 1, 0, 1, 0],     # future only: no key kept
+        [1, 0, 3, 0, 1, 1, 0],
+        [1, 1, 0, 1, 1, 1, 0],     # the sink only
+    ], np.int32)
+    got = _tc_prefill(cuda, q, kp, vp, items, table, q_offset=0,
+                      kv_len=2 * BLK)
+    assert not got[1, :BLK].any(), "rows with no kept key are zeros"
+    assert got[0].abs().sum() > 0
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_cuda_tc_prefill_odd_blocks(cuda, D):
+    """block_q = block_kv = 80: q blocks that are not whole 64-row CTA
+    slices and tiles that end inside a 64-key step."""
+    blk, prompt, H, Hkv = 80, 400, 4, 2
+    rng = np.random.default_rng(15)
+    nq = -(-prompt // blk)
+    q = rng.standard_normal((H, prompt, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((nq + 1, Hkv, blk, D)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(nq).astype(np.int32)
+    sels = [strided_policy(h, 2, nq, nq) for h in range(H)]
+    items = wl.build_worklist(sels, np.zeros(H, np.int64), 1, nq, nq, blk,
+                              kv_head_of_head=np.arange(H) // 2).items[0]
+    _tc_prefill(cuda, q, kp, vp, items, table, q_offset=0, kv_len=prompt,
+                blk=blk)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,bq,bkv", [
+    (1000, 3001, 128, 128), (333, 517, 96, 80)])
+def test_cuda_tc_flash_attention_ragged(cuda, D, causal, sq, skv, bq, bkv):
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((6, sq, D), (2, skv, D), (2, skv, D)))
+    kw = dict(causal=causal, block_q=bq, block_kv=bkv)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
