@@ -17,8 +17,7 @@ Phases, in order; any failure exits non-zero:
    head_dim 64, ``max_seq_len`` 4096, 8 rows, budget 512), with the stated
    tolerances; kernel, plain-version and library (SDPA) times, and each
    kernel's bound.  The paged and contiguous decode and prefill kernels
-   must also agree bit for bit on equal cache contents, and the prefill
-   kernels over the engine's run starts with their one-CTA-per-item grid;
+   must also agree bit for bit on equal cache contents;
 4. library path: ``ops.flash_attention`` and ``ops.sparse_decode``, the
    only entry points of the dense and legacy kernels, launch them;
 5. serve: the full-width SmolLM-135M with seeded random bf16 weights
@@ -371,9 +370,8 @@ def run_lengths(items):
 def check_prefill(eng, gen, dev, results):
     """The paged (#2) and contiguous sparse prefill kernels on a 256-token
     chunk of a 2304-token prompt at q_offset 0 and 2048, bf16 and f32, over
-    the engine's run starts; the contiguous form reads the slot row [Hkv,
-    4096, D] in place, the two layouts agree bit for bit, and so do the
-    run-start and one-CTA-per-item grids."""
+    the engine's chunk work lists; the contiguous form reads the slot row
+    [Hkv, 4096, D] in place, and the two layouts agree bit for bit."""
     import torch
     from repro_torch.kernels.sparse_prefill import (
         sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
@@ -388,53 +386,39 @@ def check_prefill(eng, gen, dev, results):
     q = torch.randn((H, C, D), generator=gen).to(dev, torch.bfloat16)
     errs, timed = {}, {}
     for q_offset in (0, 2048):
-        items, runs = (t[0].contiguous()
-                       for t in eng._chunk_worklists(prompt, q_offset, C))
+        items = eng._chunk_worklists(prompt, q_offset, C)[0].contiguous()
         kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_offset,
                   kv_len=q_offset + C)
-        timed[q_offset] = (items, dict(kw, runs=runs))
+        timed[q_offset] = items
         for dtype, atol in ((torch.bfloat16, BF16_ATOL),
                             (torch.float32, F32_ATOL)):
             tag = f"q_offset={q_offset},{str(dtype)[6:]}"
             qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
-            got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw,
-                                         runs=runs)
-            if not torch.equal(got_p, sparse_prefill_paged(
-                    qd, pk, pv, items, table, **kw)):
-                fail(f"the prefill kernel's run-start and per-item grids "
-                     f"differ ({tag})")
+            got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw)
             errs["paged", tag] = check(
                 "sparse_prefill_paged", tag, got_p,
                 worklist_attention_paged(qd, pk, pv, items, table, **kw),
                 atol)
-            got_c = sparse_prefill_attention(qd, ck, cv, items, **kw,
-                                             runs=runs)
+            got_c = sparse_prefill_attention(qd, ck, cv, items, **kw)
             errs["contig", tag] = check(
                 "sparse_prefill_contig", tag, got_c,
                 worklist_attention(qd, ck, cv, items, **kw), atol)
             if not torch.equal(got_p, got_c):
                 fail(f"the contiguous and paged prefill kernels differ "
                      f"({tag})")
-            print(f"prefill[{tag}]: contiguous == paged, run starts == "
-                  f"per item, bit for bit")
+            print(f"prefill[{tag}]: contiguous == paged, bit for bit")
 
     # the kernel is bound by each CTA's serial chain of tiles: time it at
     # both offsets beside the longest run's tile count
-    for q_offset, (items, kw) in timed.items():
-        per_item = {k: v for k, v in kw.items() if k != "runs"}
-        grids = {"run starts": kw, "per item": per_item}
-        ms = {g: [] for g in grids}
-        for g in ("run starts", "per item", "per item", "run starts"):
-            ms[g].append(time_ms(lambda: sparse_prefill_paged(
-                q, kp, vp, items, table, **grids[g]), graph=True))
+    for q_offset, items in timed.items():
+        kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_offset,
+                  kv_len=q_offset + C)
+        ms = time_ms(lambda: sparse_prefill_paged(q, kp, vp, items, table,
+                                                  **kw), graph=True)
         print(f"sparse_prefill_paged at q_offset {q_offset}: longest run "
-              f"{max(run_lengths(items))} tiles; run-start grid "
-              f"{2 * int((kw['runs'] >= 0).sum())} CTAs "
-              f"{' / '.join(f'{t:.4f}' for t in ms['run starts'])} ms, "
-              f"per-item grid {2 * items.shape[0]} CTAs "
-              f"{' / '.join(f'{t:.4f}' for t in ms['per item'])} ms")
-    items, kw = timed[2048]
-    plain_kw = {k: v for k, v in kw.items() if k != "runs"}
+              f"{max(run_lengths(items))} tiles, kernel {ms:.4f} ms")
+    items = timed[2048]
+    kw = dict(block_q=BLK, block_kv=BLK, q_offset=2048, kv_len=2048 + C)
     mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C, T)
     mask_t = torch.from_numpy(mask[None]).to(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -444,17 +428,16 @@ def check_prefill(eng, gen, dev, results):
     # the tensor rate (p may be rounded to bf16 within the bf16 tolerance)
     flops = 2 * D * int(mask.sum())
     base = (2 * q.numel() * 2 + len(tiles) * 2 * BLK * D * 2
-            + (items.numel() + kw["runs"].numel()) * 4)
+            + items.numel() * 4)
     note = f" (chunk {C} at q_offset 2048, {nvalid} tiles)"
     measure(results, "sparse_prefill_paged",
             lambda: sparse_prefill_paged(q, kp, vp, items, table, **kw),
-            lambda: worklist_attention_paged(q, kp, vp, items, table,
-                                             **plain_kw),
+            lambda: worklist_attention_paged(q, kp, vp, items, table, **kw),
             library, base + table.numel() * 4, 2 * flops, 0,
             errs["paged", "q_offset=2048,bfloat16"], note)
     measure(results, "sparse_prefill_contig",
             lambda: sparse_prefill_attention(q, kc, vc, items, **kw),
-            lambda: worklist_attention(q, kc, vc, items, **plain_kw),
+            lambda: worklist_attention(q, kc, vc, items, **kw),
             library, base, 2 * flops, 0,
             errs["contig", "q_offset=2048,bfloat16"], note)
 

@@ -180,12 +180,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rep = H / Hkv;
   const bool c = causal != 0;
-#define FLASH_LAUNCH(FN, DD)                                                 \
+#define FLASH_LAUNCH(FN)                                                     \
   return FN(q, k, v, out, H, Sq, Skv, n_rep, block_q, block_kv, c, scale, s)
-  if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>, 32);
-  if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>, 64);
-  if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>), 32);
-  if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>), 64);
+  if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>);
+  if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>);
+  if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>));
+  if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>));
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }

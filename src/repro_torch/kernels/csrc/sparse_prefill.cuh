@@ -25,10 +25,10 @@
 // of (head, q_blk) pairs no run covers stay at the wrapper's zeros.
 //
 // Grid.  The TPU's sequential-grid carry of (acc, m, l) becomes a loop over
-// a run inside one CTA.  The CTAs go over the runs: `runs` [R] holds each
-// run's first item (-1 = none; the host builds it once per chunk list,
-// longest run first), or, without it, one CTA per item whose non-`first`
-// CTAs exit.
+// a run inside one CTA.  The grid goes over the items, and every CTA whose
+// item does not start a run exits at once.  A grid over the run starts
+// alone was no faster on the card: both grids fit in one wave at the
+// serving chunk (PERF.md §6).
 //
 // Two bodies, chosen by dtype (a dispatch, not a fallback: a failed build or
 // launch raises either way).
@@ -191,12 +191,10 @@ __global__ void sparse_prefill_kernel(
     const T* __restrict__ k,  // pool or [Hkv, Skv, D]
     const T* __restrict__ v,
     const int* __restrict__ items,  // [L, 7]
-    const int* __restrict__ runs,   // [R] run starts, or null: one CTA/item
     T* __restrict__ out,            // [H, Sq, D], zero-filled by the caller
     int L, int Sq, int bq, int bkv, Tiles tiles, int q_offset, int klim,
     float scale) {
-  const int i = runs ? runs[blockIdx.x] : blockIdx.x;
-  if (i < 0 || i >= L) return;
+  const int i = blockIdx.x;
   const int* it = items + (size_t)i * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
   // runs are homogeneous in (head, q_blk): build_worklist emits them so
@@ -648,13 +646,10 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
     const bf16* __restrict__ k,  // pool or [Hkv, Skv, D]
     const bf16* __restrict__ v,
     const int* __restrict__ items,  // [L, 7]
-    const int* __restrict__ runs,   // [R] run starts, or null: one per item
     bf16* __restrict__ out,         // [H, Sq, D], zero-filled by the caller
     int L, int nslices, int Sq, int bq, int bkv, int bkv_pad, Tiles tiles,
     int q_offset, int klim, float scale_log2) {
-  const int slot = blockIdx.x / nslices, slice = blockIdx.x % nslices;
-  const int start = runs ? runs[slot] : slot;
-  if (start < 0 || start >= L) return;
+  const int start = blockIdx.x / nslices, slice = blockIdx.x % nslices;
   const int* it = items + (size_t)start * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
   // runs are homogeneous in (head, q_blk): build_worklist emits them so
@@ -686,10 +681,9 @@ inline int pad_keys(int bkv) { return (bkv + kStep - 1) / kStep * kStep; }
 
 template <int D, class Tiles>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const int* items, const int* runs, int R, void* out,
-                      int L, int Sq, int bq, int bkv, Tiles tiles,
-                      int q_offset, int klim, float scale,
-                      cudaStream_t stream) {
+                      const int* items, void* out, int L, int Sq, int bq,
+                      int bkv, Tiles tiles, int q_offset, int klim,
+                      float scale, cudaStream_t stream) {
   const int bkv_pad = tc::pad_keys(bkv);
   const size_t smem = tc::smem_bytes<D>(bkv_pad);
   auto kern = tc::sparse_prefill_tc_kernel<D, Tiles>;
@@ -699,22 +693,21 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
   }
   const int nslices = (bq + tc::kRows - 1) / tc::kRows;
-  const long long grid = (long long)(runs ? R : L) * nslices;
+  const long long grid = (long long)L * nslices;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   kern<<<(unsigned)grid, tc::kWarps * 32, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), items, runs,
-      static_cast<tc::bf16*>(out), L, nslices, Sq, bq, bkv, bkv_pad, tiles,
-      q_offset, klim, scale * tc::kLog2e);
+      static_cast<const tc::bf16*>(v), items, static_cast<tc::bf16*>(out),
+      L, nslices, Sq, bq, bkv, bkv_pad, tiles, q_offset, klim,
+      scale * tc::kLog2e);
   return cudaGetLastError();
 }
 
 template <int D, class Tiles>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const int* items, const int* runs, int R, void* out,
-                       int L, int Sq, int bq, int bkv, Tiles tiles,
-                       int q_offset, int klim, float scale,
-                       cudaStream_t stream) {
+                       const int* items, void* out, int L, int Sq, int bq,
+                       int bkv, Tiles tiles, int q_offset, int klim,
+                       float scale, cudaStream_t stream) {
   if (bq > 1024) return cudaErrorInvalidValue;  // one thread per row
   const size_t smem = 2 * (size_t)bkv * D * sizeof(float);
   auto kern = sparse_prefill_kernel<float, D, Tiles>;
@@ -723,28 +716,25 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<runs ? R : L, bq, smem, stream>>>(
+  kern<<<L, bq, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), items, runs, static_cast<float*>(out), L,
-      Sq, bq, bkv, tiles, q_offset, klim, scale);
+      static_cast<const float*>(v), items, static_cast<float*>(out), L, Sq,
+      bq, bkv, tiles, q_offset, klim, scale);
   return cudaGetLastError();
 }
 
 // dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, block_q
-// <= 1024); q, K/V and out share it; head_dim 32 or 64.  `runs` [R] holds
-// the run starts (-1 = none), or is null for one CTA per item.  Returns the
+// <= 1024); q, K/V and out share it; head_dim 32 or 64.  Returns the
 // launch's cudaError_t.
 template <class Tiles>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
-                     const void* v, const int* items, const int* runs, int R,
-                     void* out, int L, int Sq, int bq, int bkv, Tiles tiles,
-                     int q_offset, int klim, float scale,
-                     cudaStream_t stream) {
-  if (L <= 0 || bq < 1 || bkv < 1 || (runs && R <= 0))
-    return cudaErrorInvalidValue;
+                     const void* v, const int* items, void* out, int L,
+                     int Sq, int bq, int bkv, Tiles tiles, int q_offset,
+                     int klim, float scale, cudaStream_t stream) {
+  if (L <= 0 || bq < 1 || bkv < 1) return cudaErrorInvalidValue;
 #define PREFILL_LAUNCH(FN, DD)                                            \
-  return FN<DD, Tiles>(q, k, v, items, runs, R, out, L, Sq, bq, bkv,      \
-                       tiles, q_offset, klim, scale, stream)
+  return FN<DD, Tiles>(q, k, v, items, out, L, Sq, bq, bkv, tiles,        \
+                       q_offset, klim, scale, stream)
   if (dtype == 0 && D == 32) PREFILL_LAUNCH(launch_tc, 32);
   if (dtype == 0 && D == 64) PREFILL_LAUNCH(launch_tc, 64);
   if (dtype == 1 && D == 32) PREFILL_LAUNCH(launch_f32, 32);

@@ -11,21 +11,19 @@
 // sparse_prefill.cuh, shared with the paged form.
 #include "sparse_prefill.cuh"
 
-// `runs` [R]: the run starts (-1 = none), or null for one CTA per item.
 // dtype: 0 = bfloat16, 1 = float32 (q, K/V and out share it).  Keys at
 // positions >= min(kv_len, Skv) are masked.  Returns the launch's
 // cudaError_t.
 extern "C" int sparse_prefill_contig(const void* q, const void* k,
                                      const void* v, const int* items,
-                                     const int* runs, int R, void* out,
-                                     int L, int Sq, int Skv, int D,
+                                     void* out, int L, int Sq, int Skv, int D,
                                      int block_q, int block_kv, int q_offset,
                                      int kv_len, float scale, int dtype,
                                      void* stream) {
   if (Skv < 1) return cudaErrorInvalidValue;
   const prefill::RowTiles tiles{Skv, block_kv};
-  return prefill::dispatch(dtype, D, q, k, v, items, runs, R, out, L, Sq,
-                           block_q, block_kv, tiles, q_offset,
+  return prefill::dispatch(dtype, D, q, k, v, items, out, L, Sq, block_q,
+                           block_kv, tiles, q_offset,
                            kv_len < Skv ? kv_len : Skv, scale,
                            static_cast<cudaStream_t>(stream));
 }

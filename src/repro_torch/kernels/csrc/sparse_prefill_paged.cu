@@ -9,13 +9,11 @@
 // sparse_prefill.cuh, shared with the contiguous form.
 #include "sparse_prefill.cuh"
 
-// `runs` [R]: the run starts (-1 = none), or null for one CTA per item.
 // dtype: 0 = bfloat16, 1 = float32 (q, both pools and out share it).
 // Keys at positions >= min(kv_len, table_width * block_kv) are masked.
 // Returns the launch's cudaError_t.
 extern "C" int sparse_prefill_paged(const void* q, const void* k_pool,
                                     const void* v_pool, const int* items,
-                                    const int* runs, int R,
                                     const int* table, void* out, int L,
                                     int Sq, int Hkv, int D, int block_q,
                                     int block_kv, int table_width,
@@ -25,7 +23,7 @@ extern "C" int sparse_prefill_paged(const void* q, const void* k_pool,
   const prefill::PoolTiles tiles{table, table_width, Hkv, block_kv};
   const int klim = kv_len < table_width * block_kv ? kv_len
                                                    : table_width * block_kv;
-  return prefill::dispatch(dtype, D, q, k_pool, v_pool, items, runs, R, out,
-                           L, Sq, block_q, block_kv, tiles, q_offset, klim,
-                           scale, static_cast<cudaStream_t>(stream));
+  return prefill::dispatch(dtype, D, q, k_pool, v_pool, items, out, L, Sq,
+                           block_q, block_kv, tiles, q_offset, klim, scale,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -21,9 +21,8 @@ LOGICAL kv blocks.  Queries sit at positions ``q_offset + i`` and attend
 keys ``< kv_len``.  Output ``[H, Sq, D]`` in q's dtype; rows of (head,
 q_blk) pairs no item covers are zero.
 
-On the card the kernels launch over the list's runs: ``runs`` (from
-:func:`prefill_runs`, built once per list) names each run's first item;
-without it they launch one CTA per item and the non-first ones exit.
+On the card both launch one CTA per item (per 64-row slice of its q block
+in bf16), and every CTA whose item does not start a run exits at once.
 bf16 runs the tensor-core body, float32 the scalar one
 (``csrc/sparse_prefill.cuh``).
 """
@@ -31,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,29 +39,10 @@ from repro_torch.kernels.build import check_launch, kernel_function
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 8
+_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
-def prefill_runs(items, pad_to: int | None = None) -> np.ndarray:
-    """The grid of the prefill kernels: int32 ``[R]`` indices of the items
-    that start a run (``F_FIRST == 1``), the runs with the most valid items
-    first (ties in list order), padded with -1 to ``pad_to``."""
-    it = np.asarray(items).reshape(-1, ITEM_FIELDS)
-    starts = np.flatnonzero(it[:, F_FIRST] == 1)
-    valid = np.concatenate([[0], np.cumsum(it[:, F_VALID] == 1)])
-    ends = np.append(starts[1:], len(it))
-    order = np.argsort(-(valid[ends] - valid[starts]), kind="stable")
-    width = len(starts) if pad_to is None else pad_to
-    if len(starts) > width:
-        raise ValueError(f"{len(starts)} runs exceed pad_to={pad_to}")
-    out = np.full(width, -1, np.int32)
-    out[:len(starts)] = starts[order]
-    return out
 
 
 def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
@@ -157,14 +136,13 @@ def worklist_attention(q, k, v, items, *, block_q: int = 128,
 def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
                          block_q: int = 128, block_kv: int = 128,
                          scale: float | None = None, q_offset: int = 0,
-                         kv_len: int | None = None, runs=None):
+                         kv_len: int | None = None):
     """Work-list sparse prefill over the block pool (see module docstring).
 
-    CPU tensors run :func:`worklist_attention_paged` (``runs`` is then only
-    checked).  CUDA tensors launch the CUDA kernel (q and pools of one
-    dtype, bf16 or f32; head_dim 32/64; f32 block_q <= 1024) or raise;
-    there is no fallback.  ``runs``: optional int32 ``[R]`` from
-    :func:`prefill_runs`.  ``launches`` counts kernel launches.
+    CPU tensors run :func:`worklist_attention_paged`.  CUDA tensors launch
+    the CUDA kernel (q and pools of one dtype, bf16 or f32; head_dim
+    32/64; f32 block_q <= 1024) or raise; there is no fallback.
+    ``launches`` counts kernel launches.
     """
     hq, sq, dh = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
@@ -176,7 +154,7 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
     if table.dim() != 1 or table.shape[0] < 1:
         raise ValueError(f"table must be [T] with T >= 1, got "
                          f"{tuple(table.shape)}")
-    _check_common(q, k_pool, v_pool, items, table, runs)
+    _check_common(q, k_pool, v_pool, items, table)
     if q.device.type == "cpu":
         return worklist_attention_paged(
             q, k_pool, v_pool, items, table, block_q=block_q,
@@ -192,9 +170,9 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
     fn = kernel_function("sparse_prefill_paged", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 items.data_ptr(), *_runs_args(runs), table.data_ptr(),
-                 out.data_ptr(), L, sq, k_pool.shape[1], dh, block_q,
-                 block_kv, T, int(q_offset), kv, scale_v, _DTYPES[q.dtype],
+                 items.data_ptr(), table.data_ptr(), out.data_ptr(),
+                 L, sq, k_pool.shape[1], dh, block_q, block_kv, T,
+                 int(q_offset), kv, scale_v, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_paged", err)
     sparse_prefill_paged.launches += 1
@@ -207,23 +185,22 @@ sparse_prefill_paged.launches = 0
 def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
                              block_kv: int = 128,
                              scale: float | None = None, q_offset: int = 0,
-                             kv_len: int | None = None, runs=None):
+                             kv_len: int | None = None):
     """Work-list sparse prefill over contiguous K/V ``[Hkv, Skv, D]``, read
     in place: the TPU kernel's own signature, with the chunked-prefill
     ``q_offset`` / ``kv_len`` of its jnp twin (keys at ``kpos < min(kv_len,
     Skv)``; ``kv_len`` defaults to Skv).
 
-    CPU tensors run :func:`worklist_attention` (``runs`` is then only
-    checked).  CUDA tensors launch ``csrc/sparse_prefill_contig.cu`` (q and
-    K/V of one dtype, bf16 or f32; head_dim 32/64; f32 block_q <= 1024) or
-    raise; there is no fallback.  ``runs``: optional int32 ``[R]`` from
-    :func:`prefill_runs`.  ``launches`` counts kernel launches.
+    CPU tensors run :func:`worklist_attention`.  CUDA tensors launch
+    ``csrc/sparse_prefill_contig.cu`` (q and K/V of one dtype, bf16 or f32;
+    head_dim 32/64; f32 block_q <= 1024) or raise; there is no fallback.
+    ``launches`` counts kernel launches.
     """
     hq, sq, dh = q.shape
     if k.dim() != 3 or k.shape != v.shape or k.shape[2] != dh:
         raise ValueError(f"K/V must be [Hkv, Skv, {dh}] of one shape; got "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    _check_common(q, k, v, items, runs=runs)
+    _check_common(q, k, v, items)
     if q.device.type == "cpu":
         return worklist_attention(q, k, v, items, block_q=block_q,
                                   block_kv=block_kv, scale=scale,
@@ -239,8 +216,8 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
     fn = kernel_function("sparse_prefill_contig", _CONTIG_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), items.data_ptr(),
-                 *_runs_args(runs), out.data_ptr(), L, sq, skv, dh, block_q,
-                 block_kv, int(q_offset), kv, scale_v, _DTYPES[q.dtype],
+                 out.data_ptr(), L, sq, skv, dh, block_q, block_kv,
+                 int(q_offset), kv, scale_v, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_contig", err)
     sparse_prefill_attention.launches += 1
@@ -248,12 +225,6 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
 
 
 sparse_prefill_attention.launches = 0
-
-
-def _runs_args(runs):
-    """The kernels' ``(runs, R)`` arguments: null and 0 for one CTA per
-    item."""
-    return (None, 0) if runs is None else (runs.data_ptr(), runs.shape[0])
 
 
 def _check_cuda(name: str, q, k, block_q: int):
@@ -268,7 +239,7 @@ def _check_cuda(name: str, q, k, block_q: int):
             f"{q.dtype}/{k.dtype}, {dh}, {block_q}")
 
 
-def _check_common(q, k, v, items, table=None, runs=None):
+def _check_common(q, k, v, items, table=None):
     if q.dim() != 3:
         raise ValueError(f"q must be [H, Sq, D], got {tuple(q.shape)}")
     if items.dim() != 2 or items.shape[1] != ITEM_FIELDS:
@@ -277,11 +248,6 @@ def _check_common(q, k, v, items, table=None, runs=None):
     named = [("q", q), ("k", k), ("v", v), ("items", items)]
     if table is not None:
         named.append(("table", table))
-    if runs is not None:
-        if runs.dim() != 1 or runs.shape[0] < 1:
-            raise ValueError(f"runs must be [R] with R >= 1, got "
-                             f"{tuple(runs.shape)}")
-        named.append(("runs", runs))
     for name, t in named[3:]:
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")

@@ -105,18 +105,16 @@ def _logits(x, params, cfg: TransformerConfig):
 
 def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
                   cfg: TransformerConfig, *, kv_len: int | None = None,
-                  sparse_items, last_index: int | None = None,
-                  sparse_runs=None):
+                  sparse_items, last_index: int | None = None):
     """Contiguous partial prefill of one sequence chunk into row ``slot`` of
     ``cache [L, 2, B, Hkv, Smax, Dh]``, in place.
 
     ``tokens [1, C]`` (the chunk bucket); ``slot`` / ``q_offset`` /
     ``kv_len`` / ``last_index`` are host ints; ``sparse_items [L, P,
-    ITEM_FIELDS]`` int32 chunk work lists, ``sparse_runs [L, R]`` int32
-    their run starts (the kernel's grid; optional).  Each layer writes the
-    chunk's K/V at rows ``[q_offset, q_offset + C)`` of the slot, then the
-    chunk's queries attend the slot row in place (keys ``< kv_len``) with
-    the sparse prefill kernel.  Returns logits ``[1, V]`` float32 at
+    ITEM_FIELDS]`` int32 chunk work lists.  Each layer writes the chunk's
+    K/V at rows ``[q_offset, q_offset + C)`` of the slot, then the chunk's
+    queries attend the slot row in place (keys ``< kv_len``) with the
+    sparse prefill kernel.  Returns logits ``[1, V]`` float32 at
     chunk-local ``last_index`` (default: the last row).
     """
     if sparse_items is None:
@@ -136,8 +134,7 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
         vc[:, rows] = v[0].to(vc.dtype)
         o = kernel_ops.sparse_prefill_contiguous(
             q[0], kc, vc, sparse_items[l], block_q=cfg.block_q,
-            block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len,
-            runs=None if sparse_runs is None else sparse_runs[l])[None]
+            block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len)[None]
         x = _block_out(x, o, lp)
     last = C - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0]
@@ -145,8 +142,7 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
 
 def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
                         cfg: TransformerConfig, *, kv_len: int | None = None,
-                        sparse_items, last_index: int | None = None,
-                        sparse_runs=None):
+                        sparse_items, last_index: int | None = None):
     """Paged partial prefill of one sequence chunk; writes ``pool`` in
     place.
 
@@ -154,9 +150,8 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     bucket); ``table [T]`` int32 logical -> pool block of this sequence (-1
     pad: bucket-padding blocks past the prompt scatter into the trash
     block); ``q_offset`` / ``kv_len`` / ``last_index`` are host ints;
-    ``sparse_items [L, P, ITEM_FIELDS]`` int32 chunk work lists,
-    ``sparse_runs [L, R]`` int32 their run starts (optional).  Each layer
-    scatters the chunk's K/V into its pool blocks in place
+    ``sparse_items [L, P, ITEM_FIELDS]`` int32 chunk work lists.  Each
+    layer scatters the chunk's K/V into its pool blocks in place
     (``index_put_``), then the chunk's queries attend the resident prefix
     through the table with the sparse prefill kernel.  Returns logits
     ``[1, V]`` float32 at chunk-local ``last_index`` (default: the last
@@ -188,8 +183,7 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
             vc.dtype)
         o = kernel_ops.sparse_prefill(
             q[0], kc, vc, sparse_items[l], table, block_q=cfg.block_q,
-            block_kv=block, q_offset=q_offset, kv_len=kv_len,
-            runs=None if sparse_runs is None else sparse_runs[l])[None]
+            block_kv=block, q_offset=q_offset, kv_len=kv_len)[None]
         x = _block_out(x, o, lp)
     last = C - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0]

@@ -29,10 +29,9 @@ from repro_torch.core.planner import HPLBPlan, make_plan, \
     permute_attention_params
 from repro_torch.core.sparsity import HeadSparsityProfile
 from repro_torch.core.worklist import (
-    DEC_FIELDS, F_FIRST, WorkList, blocks_for_budget, chunk_item_counts,
-    chunk_items, extend_packed_items, pack_decode_items, pow2_bucket,
+    DEC_FIELDS, WorkList, blocks_for_budget, chunk_item_counts, chunk_items,
+    extend_packed_items, pack_decode_items, pow2_bucket,
     worklist_from_budgets)
-from repro_torch.kernels.sparse_prefill import prefill_runs
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving import sampler
@@ -324,12 +323,10 @@ class Engine:
         return cap
 
     def _chunk_worklists(self, prompt_len: int, q_offset: int,
-                         bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
+                         bucket: int) -> torch.Tensor:
         """``[L, P, ITEM_FIELDS]`` chunk work lists on device: the prompt
         bucket's lists sliced to this chunk's q-block window, padded to the
-        chunk's item cap; and ``[L, R]`` int32 their run starts
-        (:func:`prefill_runs`, -1 padded), the prefill kernel's grid.
-        Memoized."""
+        chunk's item cap.  Memoized."""
         blk = self.ecfg.block
         pbucket = self._prefill_bucket(prompt_len)
         nqc, ob = bucket // blk, q_offset // blk
@@ -338,13 +335,9 @@ class Engine:
         if got is None:
             cap = self._chunk_item_cap(nqc)
             full = self.worklists_for(pbucket)
-            items = np.stack([chunk_items(wl.items, ob, nqc, pad_to=cap)
-                              for wl in full])
-            width = max(1, max(int((it[:, F_FIRST] == 1).sum())
-                               for it in items))
-            runs = np.stack([prefill_runs(it, pad_to=width) for it in items])
-            got = (torch.from_numpy(items).to(self.device),
-                   torch.from_numpy(runs).to(self.device))
+            got = torch.from_numpy(np.stack([
+                chunk_items(wl.items, ob, nqc, pad_to=cap)
+                for wl in full])).to(self.device)
             self._chunk_wl_cache[key] = got
         return got
 
@@ -365,20 +358,18 @@ class Engine:
         bucket = self._chunk_bucket(c, q_offset)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :c] = tokens
-        items, runs = self._chunk_worklists(prompt_len, q_offset, bucket)
+        items = self._chunk_worklists(prompt_len, q_offset, bucket)
         toks = torch.from_numpy(toks).to(self.device)
         if self.paged:
             table = torch.from_numpy(self._table_for_slot(slot)).to(
                 self.device)
             logits = tfm.prefill_chunk_paged(
                 self.params, self.kv.pool, toks, table, q_offset, self.cfg,
-                kv_len=q_offset + c, sparse_items=items, last_index=c - 1,
-                sparse_runs=runs)
+                kv_len=q_offset + c, sparse_items=items, last_index=c - 1)
         else:
             logits = tfm.prefill_chunk(
                 self.params, self._staging, toks, 0, q_offset, self.cfg,
-                kv_len=q_offset + c, sparse_items=items, last_index=c - 1,
-                sparse_runs=runs)
+                kv_len=q_offset + c, sparse_items=items, last_index=c - 1)
         if not is_final:
             return None
         if not self.paged:

@@ -21,8 +21,8 @@ from repro_torch.kernels.flash_decode import (
 from repro_torch.kernels.sparse_decode import (
     build_decode_worklist, sparse_decode_attention, sparse_decode_reference)
 from repro_torch.kernels.sparse_prefill import (
-    prefill_runs, sparse_prefill_attention, sparse_prefill_paged,
-    worklist_attention, worklist_attention_paged)
+    sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
+    worklist_attention_paged)
 
 torch.set_num_threads(1)
 
@@ -295,25 +295,20 @@ BF16_ATOL = 2.0 ** -6   # bf16 output: one bf16 ulp at |x| < 4
 
 def _tc_prefill(cuda, q, kp, vp, items, table, *, q_offset, kv_len, blk=BLK,
                 layouts=True):
-    """Run the bf16 paged kernel over run starts and per item and hold it
-    within the bf16 tolerance of its plain version; check both grids agree
-    bit for bit, and with ``layouts`` that the contiguous kernel over K/V
-    cut at ``kv_len`` (a ragged last tile of fewer than ``blk`` rows) gives
-    the same bits (not with -1 entries below kv_len, which the contiguous
-    layout has no way to express)."""
+    """Run the bf16 paged kernel and hold it within the bf16 tolerance of
+    its plain version; with ``layouts`` check that the contiguous kernel
+    over K/V cut at ``kv_len`` (a ragged last tile of fewer than ``blk``
+    rows) gives the same bits (not with -1 entries below kv_len, which the
+    contiguous layout has no way to express)."""
     kc = as_slot_cache(kp, table[None])[0][:, :kv_len]
     vc = as_slot_cache(vp, table[None])[0][:, :kv_len]
     q, kp, vp, kc, vc = (t.to(cuda, torch.bfloat16) for t in as_torch(
         q, kp, vp, kc, vc))
     items_t, table_t = (t.to(cuda) for t in as_torch(items, table))
-    runs = torch.from_numpy(prefill_runs(items)).to(cuda)
     kw = dict(block_q=blk, block_kv=blk, q_offset=q_offset, kv_len=kv_len)
-    got = sparse_prefill_paged(q, kp, vp, items_t, table_t, **kw, runs=runs)
-    assert torch.equal(got, sparse_prefill_paged(q, kp, vp, items_t,
-                                                 table_t, **kw))
+    got = sparse_prefill_paged(q, kp, vp, items_t, table_t, **kw)
     if layouts:
-        contig = sparse_prefill_attention(q, kc, vc, items_t, **kw,
-                                          runs=runs)
+        contig = sparse_prefill_attention(q, kc, vc, items_t, **kw)
         assert torch.equal(got, contig), "one body: both layouts, same bits"
     want = worklist_attention_paged(q, kp, vp, items_t, table_t, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
