@@ -17,7 +17,11 @@ Phases, in order; any failure exits non-zero:
    head_dim 64, ``max_seq_len`` 4096, 8 rows, budget 512), with the stated
    tolerances; kernel, plain-version and library (SDPA) times, and each
    kernel's bound.  The paged and contiguous decode and prefill kernels
-   must also agree bit for bit on equal cache contents;
+   must also agree bit for bit on equal cache contents.  Then the
+   codes-and-scales forms at int8 and fp8 (quantized KV pool): #1 and #3
+   against their plain versions (tolerance 1e-4) and each other, #2 paged
+   (bf16 q, tolerance 2^-6), each timed beside its bound (codes at one
+   byte plus the scales) and SDPA on the dequantized bf16 K/V;
 4. library path: ``ops.flash_attention`` and ``ops.sparse_decode``, the
    only entry points of the dense and legacy kernels, launch them;
 5. serve: the full-width SmolLM-135M with seeded random bf16 weights
@@ -26,8 +30,12 @@ Phases, in order; any failure exits non-zero:
    default), contiguous + packed, paged + padded, contiguous + padded.
    Every request completes, each serve's kernels launched, the block
    accounting audits clean, and all four give the same greedy tokens; then
-   SMOKE-size float32 serves on the card, paged and contiguous, must give
-   the same greedy tokens as the same serves on the CPU (plain versions).
+   the same traffic with a quantized KV cache: int8 and fp8, paged and
+   contiguous (packed decode), each completing every request through the
+   quantized kernels, with the cache's resident bytes beside the bf16
+   engine's; then SMOKE-size float32 serves on the card, paged and
+   contiguous, in bf16 and int8, must give the same greedy tokens as the
+   same serves on the CPU (plain versions).
 
 The last two lines are a JSON object of per-kernel numbers and the card
 line, then ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -55,11 +63,18 @@ FLASH_CASES = (("causal,4096", True, 4096, 4096),
                ("causal,ragged 1000x3001", True, 1000, 3001))
 SERVES = (("paged", "packed"), ("contiguous", "packed"),
           ("paged", "padded"), ("contiguous", "padded"))
+QUANT_KINDS = ("int8", "fp8")
 # the kernels each serve must launch (the first two are also the
-# default path's)
+# default path's); a quantized cache runs the codes-and-scales forms
+# ("<kernel>.<kind>") but the contiguous prefill, which reads the
+# full-precision staging row
 SERVE_KERNELS = {
-    "paged": ("flash_decode_paged", "sparse_prefill_paged"),
-    "contiguous": ("flash_decode_contig", "sparse_prefill_contig")}
+    ("paged", "bf16"): ("flash_decode_paged", "sparse_prefill_paged"),
+    ("contiguous", "bf16"): ("flash_decode_contig", "sparse_prefill_contig"),
+    **{("paged", k): (f"flash_decode_paged.{k}", f"sparse_prefill_paged.{k}")
+       for k in QUANT_KINDS},
+    **{("contiguous", k): (f"flash_decode_contig.{k}",
+                           "sparse_prefill_contig") for k in QUANT_KINDS}}
 # the libraries whose bf16 kernels must run on tensor cores
 TENSOR_CORE_LIBS = ("sparse_prefill_paged", "sparse_prefill_contig",
                     "flash_attention")
@@ -69,7 +84,13 @@ REPLACES = {
     "flash_decode_contig": "src/repro/kernels/flash_decode.py:214",
     "sparse_prefill_contig": "src/repro/kernels/sparse_prefill.py:111",
     "flash_attention": "src/repro/kernels/flash_attn.py:83",
-    "sparse_decode": "src/repro/kernels/sparse_decode.py:190"}
+    "sparse_decode": "src/repro/kernels/sparse_decode.py:190",
+    **{f"{n}.{k}": f for n, f in (
+        ("flash_decode_paged", "src/repro/kernels/flash_decode.py:510"),
+        ("flash_decode_contig", "src/repro/kernels/flash_decode.py:214"),
+        ("sparse_prefill_paged", "src/repro/kernels/sparse_prefill.py:111"))
+       for k in QUANT_KINDS}}
+CODE_DTYPE_NAMES = {"int8": "int8", "fp8": "float8_e4m3fn"}
 
 
 def fail(msg: str) -> None:
@@ -94,13 +115,19 @@ def counters():
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    from repro_torch.kernels.build import reset_launches
+    reset_launches(*counters().values())
 
 
 def read_counts(names):
-    c = counters()
-    return {n: c[n].launches for n in names}
+    """Launches of each name: a kernel's (all its launches) or, for
+    ``<kernel>.<kind>``, those of its codes-and-scales form on ``kind``."""
+    c, got = counters(), {}
+    for n in names:
+        base, _, kind = n.partition(".")
+        got[n] = (c[base].launches_by_dtype.get(CODE_DTYPE_NAMES[kind], 0)
+                  if kind else c[base].launches)
+    return got
 
 
 def time_ms(fn, *, graph: bool, reps: int = 20) -> float:
@@ -442,6 +469,181 @@ def check_prefill(eng, gen, dev, results):
             errs["contig", "q_offset=2048,bfloat16"], note)
 
 
+def quant_pool(pool, kind):
+    """Codes and per-(block, kv head) scales of a bf16 pool ``[N, Hkv, blk,
+    D]``, as the engine stores it, and the dequantized bf16 pool the
+    library yardstick reads."""
+    import torch
+    from repro_torch.core import quant
+    codes, scales = quant.quantize_pool_blocks(pool, kind)
+    deq = quant.dequantize_tiles(codes, scales).to(torch.bfloat16)
+    return codes, scales, deq
+
+
+def slot_scales(scales, table):
+    """Scales ``[rows, Hkv, T]`` of the slot cache :func:`slot_rows`
+    builds from a pool's scales ``[N, Hkv]`` (1.0 where unmapped)."""
+    import torch
+    got = scales[table.clamp_min(0).long()].permute(0, 2, 1)
+    return torch.where((table >= 0)[:, None, :], got, 1.0).contiguous()
+
+
+def check_quant_decode(eng, gen, dev, results):
+    """#1 and #3 over int8 / fp8 codes with per-block scales at the engine's
+    layer-0 shapes (8 rows of 3000-4096 tokens): packed items, the padded
+    table, -1 table entries; the two layouts bit for bit; each form timed
+    beside its bound and SDPA on the dequantized bf16 K/V."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import (
+        decode_items_from_ids, flash_decode_kernel, flash_decode_paged_kernel,
+        packed_decode_attention, packed_decode_attention_paged)
+    G = H // HKV
+    T = SMAX // BLK
+    N = B * T + 1
+    pos = torch.randint(3000, SMAX, (B,), generator=gen, dtype=torch.int32)
+    nblocks = (pos + 1 + BLK - 1) // BLK
+    table = random_table(gen, B, nblocks, N - 1, T).to(dev)
+    pos = pos.to(dev)
+    # magnitudes that differ from block to block, so the scales do too
+    # (0.25-1x the N(0, 1) values of the bf16 checks)
+    mag = 0.25 + 0.75 * torch.rand((N, HKV, 1, 1), generator=gen)
+    kf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
+        dev, torch.bfloat16)
+    vf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
+        dev, torch.bfloat16)
+    q = torch.randn((B, HKV, G, D), generator=gen).to(dev, torch.bfloat16)
+    sig = eng._nb_sig(pos.cpu().numpy())
+    items = eng._plan_for(sig)[0][0].contiguous()
+    bids = torch.from_numpy(np.stack(
+        [eng._decode_ids_for_nblocks(n)[0] for n in sig])).to(dev)
+    padded = decode_items_from_ids(bids)
+    holes = table.clone()
+    holes[:4, 0] = -1
+    for r in range(4, B):
+        holes[r, int(nblocks[r]) - 1] = -1
+    mask, tiles = decode_mask(items, table, pos, G)
+    mask_t = torch.from_numpy(mask).to(dev)
+    qs = q.reshape(B, HKV * G, 1, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kind in QUANT_KINDS:
+        kc, ks, kdq = quant_pool(kf, kind)
+        vc, vs, vdq = quant_pool(vf, kind)
+        ck, cv = slot_rows(kc.view(torch.int8), table).view(kc.dtype), \
+            slot_rows(vc.view(torch.int8), table).view(vc.dtype)
+        sk, sv = slot_scales(ks, table), slot_scales(vs, table)
+
+        def paged(fn, it, tb=table):
+            return fn(q, kc, vc, it, tb, pos, block_kv=BLK, k_scales=ks,
+                      v_scales=vs)
+
+        def contig(fn, it):
+            return fn(q, ck, cv, it, pos, block_kv=BLK, k_scales=sk,
+                      v_scales=sv)
+
+        errs = {}
+        for tag, it, tb in (("packed", items, table),
+                            ("padded", padded, table),
+                            ("unmapped", items, holes)):
+            errs["paged", tag] = check(
+                f"flash_decode_paged.{kind}", tag,
+                paged(flash_decode_paged_kernel, it, tb),
+                paged(packed_decode_attention_paged, it, tb), F32_ATOL)
+        for tag, it in (("packed", items), ("padded", padded)):
+            got = contig(flash_decode_kernel, it)
+            errs["contig", tag] = check(
+                f"flash_decode_contig.{kind}", tag, got,
+                contig(packed_decode_attention, it), F32_ATOL)
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, paged(flash_decode_paged_kernel, it)))
+            print(f"decode.{kind}[{tag}]: contiguous "
+                  f"{'==' if same else '!='} paged, bit for bit")
+            if not same:
+                fail(f"the {kind} contiguous and paged decode kernels "
+                     f"differ ({tag})")
+        kdc, vdc = slot_rows(kdq, table), slot_rows(vdq, table)
+        for name, layout in (("flash_decode_paged", paged),
+                             ("flash_decode_contig", contig)):
+            kern = flash_decode_paged_kernel if layout is paged \
+                else flash_decode_kernel
+            plain = packed_decode_attention_paged if layout is paged \
+                else packed_decode_attention
+            nbytes = quant_decode_bytes(q, items, table, len(tiles),
+                                        layout is paged)
+            flops = 2 * D * int(mask.sum())
+            measure(results, f"{name}.{kind}",
+                    lambda kern=kern, layout=layout: layout(kern, items),
+                    lambda plain=plain, layout=layout: layout(plain, items),
+                    lambda: sdpa(qs, kdc, vdc, attn_mask=mask_t,
+                                 enable_gqa=True),
+                    nbytes, 0, 2 * flops,
+                    errs["paged" if layout is paged else "contig",
+                         "packed"], f" ({len(tiles)} selected tiles)")
+
+
+def quant_decode_bytes(q, items, table, ntiles, with_table: bool):
+    """Bytes of a codes-and-scales decode: q (float32, as the kernel reads
+    it), the selected code tiles at one byte and their two float32
+    scales, the item table (and block table), positions, and the f32
+    (out, m, l)."""
+    G = q.shape[2]
+    nbytes = (q.numel() * 4 + ntiles * 2 * (BLK * D + 4) + items.numel() * 4
+              + (table.numel() * 4 if with_table else 0) + B * 4
+              + B * HKV * G * (D + 2) * 4)
+    return nbytes
+
+
+def check_quant_prefill(eng, gen, dev, results):
+    """#2 paged over int8 / fp8 code pools with per-block scales: a
+    256-token chunk at q_offset 0 and 2048 against the plain version (bf16
+    q), timed at 2048 beside its bound and SDPA on the dequantized K/V."""
+    import torch
+    from repro_torch.kernels.sparse_prefill import (
+        sparse_prefill_paged, worklist_attention_paged)
+    C, prompt = 256, 2304
+    T = SMAX // BLK
+    N = T + 1
+    table = random_table(gen, 1, [prompt // BLK], N - 1, T)[0].to(dev)
+    mag = 0.25 + 0.75 * torch.rand((N, HKV, 1, 1), generator=gen)
+    kf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
+        dev, torch.bfloat16)
+    vf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
+        dev, torch.bfloat16)
+    q = torch.randn((H, C, D), generator=gen).to(dev, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kind in QUANT_KINDS:
+        kc, ks, kdq = quant_pool(kf, kind)
+        vc, vs, vdq = quant_pool(vf, kind)
+        errs, timed = {}, {}
+        for q_offset in (0, 2048):
+            items = eng._chunk_worklists(prompt, q_offset, C)[0].contiguous()
+            kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_offset,
+                      kv_len=q_offset + C, k_scales=ks, v_scales=vs)
+            timed[q_offset] = (items, kw)
+            errs[q_offset] = check(
+                f"sparse_prefill_paged.{kind}", f"q_offset={q_offset}",
+                sparse_prefill_paged(q, kc, vc, items, table, **kw),
+                worklist_attention_paged(q, kc, vc, items, table, **kw),
+                BF16_ATOL)
+        items, kw = timed[2048]
+        mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C,
+                                           T)
+        mask_t = torch.from_numpy(mask[None]).to(dev)
+        kdc = slot_rows(kdq, table[None])[0]
+        vdc = slot_rows(vdq, table[None])[0]
+        flops = 2 * D * int(mask.sum())
+        nbytes = (2 * q.numel() * 2 + len(tiles) * 2 * (BLK * D + 4)
+                  + items.numel() * 4 + table.numel() * 4)
+        measure(results, f"sparse_prefill_paged.{kind}",
+                lambda: sparse_prefill_paged(q, kc, vc, items, table, **kw),
+                lambda: worklist_attention_paged(q, kc, vc, items, table,
+                                                 **kw),
+                lambda: sdpa(q[None], kdc[None], vdc[None],
+                             attn_mask=mask_t, enable_gqa=True),
+                nbytes, 2 * flops, 0, errs[2048],
+                f" (chunk {C} at q_offset 2048, {nvalid} tiles)")
+
+
 def check_flash_attention(gen, dev, results):
     """The dense flash attention (#4) at 9 heads over 3 KV heads: causal
     and not at Sq = Skv = 4096, and a ragged causal case with Sq != Skv."""
@@ -559,13 +761,13 @@ def build_engine(cfg, params, dev, **kw):
 
 def run_serve(eng, prompts, tag):
     """Serve ``prompts`` (32 greedy tokens each); check completion, the
-    launches of this layout's kernels and the block accounting.  Returns
-    the tokens and the launch counts."""
+    launches of this layout's (and KV dtype's) kernels and the block
+    accounting.  Returns the tokens and the launch counts."""
     import numpy as np
     import torch
     from repro_torch.serving import SamplingParams
     sp = SamplingParams(max_tokens=32)
-    names = SERVE_KERNELS[eng.ecfg.cache_layout]
+    names = SERVE_KERNELS[eng.ecfg.cache_layout, eng.ecfg.kv_dtype]
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
@@ -587,7 +789,8 @@ def run_serve(eng, prompts, tag):
           f"the whole serve; decode grid {st['real_items']} real / "
           f"{st['grid_items']} items over {st['ticks']} ticks")
     print(f"serve[{tag}]: launches {launches}: {bs.prefill_chunks} prefill "
-          f"chunks, {bs.decode_steps} decode ticks")
+          f"chunks, {bs.decode_steps} decode ticks; KV cache "
+          f"{eng.ecfg.kv_dtype}, {eng.kv_bytes()} bytes resident")
     alloc = eng._batcher.alloc
     fails = eng.kv.audit(strict=False) if eng.paged else alloc.audit(False)
     print(f"serve[{tag}]: block audit {'clean' if not fails else fails}, "
@@ -624,6 +827,16 @@ def run_serves(cfg, params, dev):
               f"paged,packed")
         if not same:
             fail(f"{tag} tokens differ from the paged packed serve")
+    # the quantized KV cache: tokens differ from bf16's by design (and
+    # between the layouts: the paged pool quantizes each chunk as it lands,
+    # the contiguous one its staging row once)
+    for kind in QUANT_KINDS:
+        for layout in ("paged", "contiguous"):
+            eng = build_engine(cfg, params, dev, cache_layout=layout,
+                               kv_dtype=kind)
+            _, got = run_serve(eng, prompts, f"{layout},packed,{kind}")
+            launches.update({n: c for n, c in got.items() if "." in n})
+            del eng
     return launches
 
 
@@ -641,22 +854,26 @@ def serve_smoke_parity(dev):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (300, 40, 520, 129)]
-    for layout in ("paged", "contiguous"):
-        outs = {}
-        for d in (dev, torch.device("cpu")):
-            eng = Engine(cfg, init_params(cfg, seed=1, device=d),
-                         EngineConfig(max_seq_len=1024, num_slots=4,
-                                      budget_per_head=256,
-                                      cache_layout=layout),
-                         synthetic_head_curves(cfg.num_layers, cfg.num_heads),
-                         device=d)
-            outs[d.type] = [r.generated for r in eng.serve(
-                prompts, SamplingParams(max_tokens=12))]
-        same = outs["cuda"] == outs["cpu"]
-        print(f"smoke f32 serve[{layout}]: card tokens "
-              f"{'==' if same else '!='} CPU plain-version tokens")
-        if not same:
-            fail(f"{layout}: card {outs['cuda']} != cpu {outs['cpu']}")
+    for kind in ("bf16", "int8"):
+        for layout in ("paged", "contiguous"):
+            outs = {}
+            for d in (dev, torch.device("cpu")):
+                eng = Engine(cfg, init_params(cfg, seed=1, device=d),
+                             EngineConfig(max_seq_len=1024, num_slots=4,
+                                          budget_per_head=256,
+                                          cache_layout=layout,
+                                          kv_dtype=kind),
+                             synthetic_head_curves(cfg.num_layers,
+                                                   cfg.num_heads),
+                             device=d)
+                outs[d.type] = [r.generated for r in eng.serve(
+                    prompts, SamplingParams(max_tokens=12))]
+            same = outs["cuda"] == outs["cpu"]
+            print(f"smoke f32 serve[{layout},{kind}]: card tokens "
+                  f"{'==' if same else '!='} CPU plain-version tokens")
+            if not same:
+                fail(f"{layout},{kind}: card {outs['cuda']} != cpu "
+                     f"{outs['cpu']}")
 
 
 def main() -> int:
@@ -702,6 +919,8 @@ def main() -> int:
           f"set-up {time.time() - t0:.1f} s")
     check_decode(eng, gen, dev, results)
     check_prefill(eng, gen, dev, results)
+    check_quant_decode(eng, gen, dev, results)
+    check_quant_prefill(eng, gen, dev, results)
     check_flash_attention(gen, dev, results)
     check_sparse_decode(eng, gen, dev, results)
     print(f"kernel checks: {time.time() - t0:.1f} s")
@@ -715,7 +934,8 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"{src}{name.partition('.')[0]}.cu",
          "replaces": REPLACES[name], "launches": launches[name],
          **results[name]} for name in REPLACES]}))
     print(card)

@@ -97,3 +97,20 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def count_launch(wrapper, dtype) -> None:
+    """Count one launch of ``wrapper``'s kernel on K/V of ``dtype``:
+    ``wrapper.launches`` counts them all, ``wrapper.launches_by_dtype``
+    by the K/V element type (``"bfloat16"``, ``"int8"``, ...)."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    by = wrapper.launches_by_dtype
+    by[key] = by.get(key, 0) + 1
+
+
+def reset_launches(*wrappers) -> None:
+    """Set every launch count of ``wrappers`` to 0."""
+    for w in wrappers:
+        w.launches = 0
+        w.launches_by_dtype = {}

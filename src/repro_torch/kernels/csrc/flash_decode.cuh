@@ -25,12 +25,20 @@
 // only, in q's dtype.  Runs that never finalize leave the caller's initial
 // values (out 0, m -1e30, l 0).
 //
+// Quantized caches (flash decode only, as in the reference).  The K/V
+// tiles hold int8 or fp8 (e4m3) codes with one f32 scale per (block, kv
+// head) tile, read at the same block as the tile (the physical block of the
+// pool, or (row, kv head, logical block) of the slot cache).  q is f32, the
+// codes are dotted raw, and the scales multiply after the dots, in the
+// reference's order: s = (q.codes) * scale * k_scale, pv = (p.codes) *
+// v_scale.
+//
 // Design.  The TPU grid runs in order and carries (acc, m, l) in VMEM from
 // one item to the next; CUDA blocks run concurrently, so that carry is not
 // legal here.  One CTA is launched per item index: a CTA whose item does
 // not start a run exits at once, and a starting CTA walks its run in a loop,
-// keeping (acc, m, l) on chip.  q.k takes the cache's element type and
-// accumulates in f32; p.V stays true f32.  Both layouts run this one body,
+// keeping (acc, m, l) on chip.  q.k takes the cache's element type (q in
+// f32 for codes) and accumulates in f32; p.V stays true f32.  Both layouts run this one body,
 // so paged and contiguous caches holding the same values give the same bits.
 //
 // What bounds it.  Decode attention is memory-bound: the least time is the
@@ -41,6 +49,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -61,13 +70,23 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+// The element types of a quantized cache: codes dotted raw, scaled after.
+template <typename T>
+constexpr bool kIsCode =
+    std::is_same_v<T, int8_t> || std::is_same_v<T, __nv_fp8_e4m3>;
 __device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
 
 // Where a tile lives: find() sets `row0`, the tile's first cache row (in
-// units of D elements), and returns whether the logical block is mapped.
+// units of D elements), and returns whether the logical block is mapped;
+// its five-argument form also sets `sidx`, the index of the tile's scale in
+// a quantized cache's scales (the tile's index in units of blk rows).
 // Offsets stay unsigned (size_t): signed 64-bit offsets cost extra
 // sign-extension instructions in the p.V loop that reads from them.
 
@@ -81,6 +100,15 @@ struct PoolTiles {
     row0 = ((size_t)phys * Hkv + h) * blk;
     return phys >= 0;
   }
+  // scales [N, Hkv]: the physical block's, as its K/V tile
+  __device__ bool find(int b, int h, int kvblk, size_t& row0,
+                       size_t& sidx) const {
+    int phys = -1;
+    if (kvblk >= 0 && kvblk < Tw) phys = table[(size_t)b * Tw + kvblk];
+    sidx = (size_t)phys * Hkv + h;
+    row0 = sidx * blk;
+    return phys >= 0;
+  }
 };
 
 // Tiles of the slot cache [B, Hkv, Smax, D] (Smax a multiple of blk),
@@ -89,6 +117,13 @@ struct SlotTiles {
   int Hkv, nblk, blk;
   __device__ bool find(int b, int h, int kvblk, size_t& row0) const {
     row0 = (((size_t)b * Hkv + h) * nblk + kvblk) * blk;
+    return kvblk >= 0 && kvblk < nblk;
+  }
+  // scales [B, Hkv, nblk]: (row, kv head, logical block)
+  __device__ bool find(int b, int h, int kvblk, size_t& row0,
+                       size_t& sidx) const {
+    sidx = ((size_t)b * Hkv + h) * nblk + kvblk;
+    row0 = sidx * blk;
     return kvblk >= 0 && kvblk < nblk;
   }
 };
@@ -123,18 +158,24 @@ __device__ __forceinline__ void block_reduce(float (&v)[kMaxG],
 
 // kLegacy selects the legacy decode's run rules (see the file comment);
 // the legacy decode gets every row's last position cache_len - 1 in pos.
-template <typename T, typename OutT, int D, class Tiles, bool kLegacy>
+// TQ is q's element type, TK the cache's; with codes (kIsCode<TK>) the
+// tile scales come in k_scales / v_scales, otherwise those are unused.
+template <typename TQ, typename TK, typename OutT, int D, class Tiles,
+          bool kLegacy>
 __global__ void __launch_bounds__(kThreads)
-    decode_runs_kernel(const T* __restrict__ q,  // [B, Hkv, G, D]
-                       const T* __restrict__ k,  // pool or slot cache
-                       const T* __restrict__ v,
+    decode_runs_kernel(const TQ* __restrict__ q,  // [B, Hkv, G, D]
+                       const TK* __restrict__ k,  // pool or slot cache
+                       const TK* __restrict__ v,
                        const int* __restrict__ items,  // [L, 6]
                        const int* __restrict__ pos,    // [B]
                        OutT* __restrict__ out,     // [B, Hkv, G, D]
                        float* __restrict__ m_out,  // [B, Hkv, G]
                        float* __restrict__ l_out, int L, int Hkv, int G,
-                       int blk, Tiles tiles, float scale, int window) {
+                       int blk, Tiles tiles, float scale, int window,
+                       const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales) {
   constexpr int kAcc = (kMaxG * D + kThreads - 1) / kThreads;
+  constexpr bool kQuant = kIsCode<TK>;
   auto starts = [](const int* t) {
     return t[D_FIRST] == 1 && (!kLegacy || t[D_VALID] == 1);
   };
@@ -154,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float red[kWarps][kMaxG];
   __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG], mnew_s[kMaxG];
 
-  const T* qb = q + ((size_t)b * Hkv + h) * G * D;
+  const TQ* qb = q + ((size_t)b * Hkv + h) * G * D;
   for (int idx = tid; idx < G * D; idx += kThreads) q_s[idx] = to_f32(qb[idx]);
   if (tid < kMaxG) {
     m_s[tid] = kNegInf;
@@ -173,11 +214,21 @@ __global__ void __launch_bounds__(kThreads)
     if (j > i && starts(jt)) return;
     const int kvblk = jt[D_KVBLK];
     size_t row0;
-    const bool mapped = tiles.find(b, h, kvblk, row0);
+    bool mapped;
+    [[maybe_unused]] size_t sidx;
+    if constexpr (kQuant)
+      mapped = tiles.find(b, h, kvblk, row0, sidx);
+    else
+      mapped = tiles.find(b, h, kvblk, row0);
     const bool ok = (jt[D_VALID] == 1) && mapped;
     if (ok) {
-      const T* kt = k + row0 * D;
-      const T* vt = v + row0 * D;
+      const TK* kt = k + row0 * D;
+      const TK* vt = v + row0 * D;
+      [[maybe_unused]] float ksc, vsc;
+      if constexpr (kQuant) {
+        ksc = k_scales[sidx];
+        vsc = v_scales[sidx];
+      }
       float mx[kMaxG];
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) mx[g] = kNegInf;
@@ -190,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
         if (msk) {
-          const T* krow = kt + (size_t)kk * D;
+          const TK* krow = kt + (size_t)kk * D;
 #pragma unroll 8
           for (int d = 0; d < D; ++d) {
             const float kf = to_f32(krow[d]);
@@ -202,7 +253,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) {
           if (g < G) {
-            const float sv = msk ? s[g] * scale : -CUDART_INF_F;
+            float sv;
+            if constexpr (kQuant)
+              sv = msk ? s[g] * scale * ksc : -CUDART_INF_F;
+            else
+              sv = msk ? s[g] * scale : -CUDART_INF_F;
             p_s[g * blk + kk] = sv;
             mx[g] = fmaxf(mx[g], sv);
           }
@@ -240,7 +295,10 @@ __global__ void __launch_bounds__(kThreads)
           float pv = 0.f;
           for (int kk = 0; kk < blk; ++kk)
             pv = fmaf(pg[kk], to_f32(vt[(size_t)kk * D + d]), pv);
-          acc[r] = acc[r] * alpha_s[g] + pv;
+          if constexpr (kQuant)
+            acc[r] = acc[r] * alpha_s[g] + pv * vsc;
+          else
+            acc[r] = acc[r] * alpha_s[g] + pv;
         }
       }
       if (tid < G) {
@@ -268,44 +326,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, class Tiles, bool kLegacy>
+template <typename TQ, typename TK, int D, class Tiles, bool kLegacy>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scales, const float* v_scales,
                    const int* items, const int* pos, void* out,
                    float* m_out, float* l_out, int L, int Hkv, int G, int blk,
                    Tiles tiles, float scale, int window, cudaStream_t stream) {
-  using OutT = std::conditional_t<kLegacy, T, float>;
+  using OutT = std::conditional_t<kLegacy, TQ, float>;
+  if (kIsCode<TK> && (k_scales == nullptr || v_scales == nullptr))
+    return cudaErrorInvalidValue;
   const size_t smem = (size_t)(G * D + G * blk) * sizeof(float);
-  auto kern = decode_runs_kernel<T, OutT, D, Tiles, kLegacy>;
+  auto kern = decode_runs_kernel<TQ, TK, OutT, D, Tiles, kLegacy>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   kern<<<L, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), items, pos, static_cast<OutT*>(out), m_out,
-      l_out, L, Hkv, G, blk, tiles, scale,
-      window);
+      static_cast<const TQ*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), items, pos, static_cast<OutT*>(out), m_out,
+      l_out, L, Hkv, G, blk, tiles, scale, window, k_scales, v_scales);
   return cudaGetLastError();
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q and the cache share it); head_dim
-// 32 or 64.  Returns the launch's cudaError_t.
+// dtype: the cache's element type: 0 = bfloat16, 1 = float32 (q shares
+// either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32, with k_scales /
+// v_scales; flash decode only); head_dim 32 or 64.  Returns the launch's
+// cudaError_t.
 template <class Tiles, bool kLegacy>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
-                     const void* v, const int* items, const int* pos,
+                     const void* v, const float* k_scales,
+                     const float* v_scales, const int* items, const int* pos,
                      void* out, float* m_out, float* l_out,
                      int L, int Hkv, int G, int blk, Tiles tiles, float scale,
                      int window, cudaStream_t stream) {
   if (L <= 0 || G < 1 || G > kMaxG || blk < 1) return cudaErrorInvalidValue;
-#define DECODE_LAUNCH(T, DD)                                                 \
-  return launch<T, DD, Tiles, kLegacy>(q, k, v, items, pos, out, m_out,     \
-                                       l_out, L, Hkv, G, blk, tiles, scale,  \
-                                       window, stream)
-  if (dtype == 0 && D == 32) DECODE_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == 0 && D == 64) DECODE_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 32) DECODE_LAUNCH(float, 32);
-  if (dtype == 1 && D == 64) DECODE_LAUNCH(float, 64);
+#define DECODE_LAUNCH(TQ, TK, DD)                                            \
+  return launch<TQ, TK, DD, Tiles, kLegacy>(                                \
+      q, k, v, k_scales, v_scales, items, pos, out, m_out, l_out, L, Hkv,   \
+      G, blk, tiles, scale, window, stream)
+  if (dtype == 0 && D == 32) DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16, 32);
+  if (dtype == 0 && D == 64) DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16, 64);
+  if (dtype == 1 && D == 32) DECODE_LAUNCH(float, float, 32);
+  if (dtype == 1 && D == 64) DECODE_LAUNCH(float, float, 64);
+  if constexpr (!kLegacy) {
+    if (dtype == 2 && D == 32) DECODE_LAUNCH(float, int8_t, 32);
+    if (dtype == 2 && D == 64) DECODE_LAUNCH(float, int8_t, 64);
+    if (dtype == 3 && D == 32) DECODE_LAUNCH(float, __nv_fp8_e4m3, 32);
+    if (dtype == 3 && D == 64) DECODE_LAUNCH(float, __nv_fp8_e4m3, 64);
+  }
 #undef DECODE_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -6,14 +6,19 @@
 // ops.flash_decode_packed_paged (packed items) and ops.flash_decode_paged
 // (items from per-slot block ids).  K/V tiles come from the block pool
 // [N, Hkv, block, D] through the per-row block table [B, T] (-1 =
-// unmapped, masked).  The kernel body, its design and its bound are in
-// flash_decode.cuh, shared with the contiguous and legacy decodes.
+// unmapped, masked), in bf16 / f32 or as int8 / fp8 codes with per-(block,
+// kv head) scales (the TPU kernel's quantized branch).  The kernel body,
+// its design and its bound are in flash_decode.cuh, shared with the
+// contiguous and legacy decodes.
 #include "flash_decode.cuh"
 
-// dtype: 0 = bfloat16, 1 = float32 (q and both pools share it).
+// dtype: the pools' element type, 0 = bfloat16, 1 = float32 (q shares
+// either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32; k_scales /
+// v_scales [N, Hkv] f32 at the physical block, null otherwise).
 // window <= 0 means no sliding window.  Returns the launch's cudaError_t.
 extern "C" int flash_decode_paged(const void* q, const void* k_pool,
-                                  const void* v_pool, const int* items,
+                                  const void* v_pool, const float* k_scales,
+                                  const float* v_scales, const int* items,
                                   const int* table, const int* pos,
                                   float* out, float* m_out, float* l_out,
                                   int L, int Hkv, int G, int D, int block_kv,
@@ -21,6 +26,7 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   int dtype, void* stream) {
   const decode::PoolTiles tiles{table, table_width, Hkv, block_kv};
   return decode::dispatch<decode::PoolTiles, false>(
-      dtype, D, q, k_pool, v_pool, items, pos, out, m_out, l_out, L, Hkv,
-      G, block_kv, tiles, scale, window, static_cast<cudaStream_t>(stream));
+      dtype, D, q, k_pool, v_pool, k_scales, v_scales, items, pos, out,
+      m_out, l_out, L, Hkv, G, block_kv, tiles, scale, window,
+      static_cast<cudaStream_t>(stream));
 }

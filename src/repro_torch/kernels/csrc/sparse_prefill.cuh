@@ -58,6 +58,20 @@
 // Both addressings run the same body for a dtype, so they give the same
 // bits on equal K/V.
 //
+// Quantized pool (the paged form only, as the reference twin's k_scales /
+// v_scales branch).  K/V hold int8 or fp8 (e4m3) codes with one f32 scale
+// per (physical block, kv head); an item is one pool block, so every
+// 64-key step of a tile shares its scales.  Both codes are exact in bf16.
+//  * bf16 q: the tensor-core body with one change at staging: the raw code
+//    tile (half the bytes of bf16) goes by cp.async into a 2-stage code
+//    ring, and after the wait the CTA converts it in shared memory into
+//    the one swizzled bf16 K/V tile the descriptors read (cp.async cannot
+//    convert).  The tile's k scale multiplies S after the product and
+//    before the row max; its v scale is folded into P before P is rounded
+//    to bf16, and l sums the unscaled rounded p.
+//  * f32 q: the scalar body over code tiles, in the reference's order,
+//    s = (q.codes) * scale * k_scale, p.V accumulated as (p * v_scale).codes.
+//
 // What bounds it.  The least time is the larger of the bytes of the
 // selected K/V blocks (plus q and out) over 3.35 TB/s and the FLOPs of the
 // unmasked (query, key) pairs (4 * D each) over the bf16 tensor-core rate.
@@ -69,9 +83,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace prefill {
 
@@ -83,13 +100,28 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
+__device__ __forceinline__ void from_f32(float x, int8_t* dst) {
+  *dst = (int8_t)x;
+}
+__device__ __forceinline__ void from_f32(float x, __nv_fp8_e4m3* dst) {
+  *dst = __nv_fp8_e4m3(x);
+}
+// The element types of a quantized pool: codes dotted raw, scaled after.
+template <typename T>
+constexpr bool kIsCode =
+    std::is_same_v<T, int8_t> || std::is_same_v<T, __nv_fp8_e4m3>;
 
 // Tiles of the block pool [N, Hkv, bkv, D] through the table [Tw].
 struct PoolTiles {
+  static constexpr bool kHasScales = true;
   const int* table;
   int Tw, Hkv, bkv;
   // First row of the tile (in units of D elements), or -1 when unmapped;
@@ -100,12 +132,18 @@ struct PoolTiles {
     const int phys = table[min(max(kvblk, 0), Tw - 1)];
     return phys < 0 ? -1 : ((long long)phys * Hkv + kvh) * bkv;
   }
+  // Index of a mapped tile's scale in scales [N, Hkv]: the same physical
+  // block (and kv head) as the tile row0() returned.
+  __device__ size_t scale_index(long long row0) const {
+    return (size_t)row0 / (size_t)bkv;
+  }
 };
 
 // Tiles of contiguous K/V [Hkv, Skv, D], in place.  As the reference's
 // dynamic_slice of the zero-padded K/V, the tile start is clamped into
 // [0, Skv_pad - bkv]; rows past Skv are zero.
 struct RowTiles {
+  static constexpr bool kHasScales = false;
   int Skv, bkv;
   __device__ long long row0(int kvh, int kvblk, int& rows) const {
     const int nb = (Skv + bkv - 1) / bkv;
@@ -143,14 +181,17 @@ __device__ __forceinline__ void stage_tile(T* k_s, T* v_s, const T* k,
 }
 
 // One query row's online-softmax update over one staged tile: keys kk in
-// [0, bkv) at positions kbase + kk take part where keep(kpos) holds.
+// [0, bkv) at positions kbase + kk take part where keep(kpos) holds.  A code
+// tile (kIsCode<T>) is rescaled after the dots by its ks / vs.
 template <typename T, int D, class Keep>
 __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
                                                 float (&acc)[D], float& m,
                                                 float& l, const T* k_s,
                                                 const T* v_s, int bkv,
                                                 int kbase, float scale,
-                                                Keep keep) {
+                                                Keep keep, float ks = 1.f,
+                                                float vs = 1.f) {
+  constexpr bool kQuant = kIsCode<T>;
   // pass 1: row max over the tile (masked scores count as NEG_INF)
   float mx = kNegInf;
   for (int kk = 0; kk < bkv; ++kk) {
@@ -159,7 +200,10 @@ __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
-      mx = fmaxf(mx, s * scale);
+      if constexpr (kQuant)
+        mx = fmaxf(mx, s * scale * ks);
+      else
+        mx = fmaxf(mx, s * scale);
     }
   }
   const float m_new = fmaxf(m, mx);
@@ -174,26 +218,39 @@ __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
-      const float p = expf(s * scale - m_new);
-      lsum += p;
       const T* vrow = v_s + (size_t)kk * D;
+      if constexpr (kQuant) {
+        const float p = expf(s * scale * ks - m_new);
+        lsum += p;
+        const float pv = p * vs;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, to_f32(vrow[d]), acc[d]);
+        for (int d = 0; d < D; ++d)
+          acc[d] = fmaf(pv, to_f32(vrow[d]), acc[d]);
+      } else {
+        const float p = expf(s * scale - m_new);
+        lsum += p;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          acc[d] = fmaf(p, to_f32(vrow[d]), acc[d]);
+      }
     }
   }
   l = l * alpha + lsum;
   m = m_new;
 }
 
-template <typename T, int D, class Tiles>
+// T is q's and out's element type, TK the K/V tiles' (T, or codes with
+// their scales in k_scales / v_scales).
+template <typename T, typename TK, int D, class Tiles>
 __global__ void sparse_prefill_kernel(
-    const T* __restrict__ q,  // [H, Sq, D]
-    const T* __restrict__ k,  // pool or [Hkv, Skv, D]
-    const T* __restrict__ v,
+    const T* __restrict__ q,   // [H, Sq, D]
+    const TK* __restrict__ k,  // pool or [Hkv, Skv, D]
+    const TK* __restrict__ v,
     const int* __restrict__ items,  // [L, 7]
     T* __restrict__ out,            // [H, Sq, D], zero-filled by the caller
     int L, int Sq, int bq, int bkv, Tiles tiles, int q_offset, int klim,
-    float scale) {
+    float scale, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales) {
   const int i = blockIdx.x;
   const int* it = items + (size_t)i * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
@@ -205,8 +262,8 @@ __global__ void sparse_prefill_kernel(
   const int qg = qpos + q_offset;          // global query position
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);  // [bkv][D]
-  T* v_s = k_s + (size_t)bkv * D;           // [bkv][D]
+  TK* k_s = reinterpret_cast<TK*>(smem_raw);  // [bkv][D]
+  TK* v_s = k_s + (size_t)bkv * D;            // [bkv][D]
 
   float qr[D], acc[D];
   const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D;
@@ -228,9 +285,15 @@ __global__ void sparse_prefill_kernel(
     int rows = 0;
     const long long row0 = valid ? tiles.row0(jt[F_KVHEAD], kvblk, rows) : -1;
     if (row0 >= 0) {
-      stage_tile<T, D>(k_s, v_s, k + row0 * D, v + row0 * D, rows, bkv);
-      row_tile_update<T, D>(qr, acc, m, l, k_s, v_s, bkv, kvblk * bkv,
-                            scale, keep);
+      stage_tile<TK, D>(k_s, v_s, k + row0 * D, v + row0 * D, rows, bkv);
+      if constexpr (kIsCode<TK>) {
+        const size_t si = tiles.scale_index(row0);
+        row_tile_update<TK, D>(qr, acc, m, l, k_s, v_s, bkv, kvblk * bkv,
+                               scale, keep, k_scales[si], v_scales[si]);
+      } else {
+        row_tile_update<TK, D>(qr, acc, m, l, k_s, v_s, bkv, kvblk * bkv,
+                               scale, keep);
+      }
     }
     if (valid && jt[F_LAST] == 1) {
       if (row_ok) {
@@ -436,10 +499,13 @@ struct GroupRows {
   }
 
   // One online-softmax step over the 64 staged keys [c0, c0 + 64) of a tile
-  // whose key 0 sits at position kbase.
+  // whose key 0 sits at position kbase.  kScaled (a code tile): the caller
+  // folds the tile's k scale into scale_log2, and P.V takes P * v_scale.
+  template <bool kScaled = false>
   __device__ __forceinline__ void step(const bf16* ks, const bf16* vs,
                                        int c0, int kbase, int bkv, int klim,
-                                       float scale_log2) {
+                                       float scale_log2,
+                                       float v_scale = 1.f) {
     constexpr int SW = D == 64 ? 1 : 2;  // 128- or 64-byte swizzle
     constexpr int SBO = 8 * D * 2;       // bytes from one 8-row group to next
     const int t = threadIdx.x & 3;
@@ -481,15 +547,21 @@ struct GroupRows {
       m[h] = m_new;
     }
     // p is rounded to bf16 for P.V, and l sums the rounded values, so the
-    // output is a weighted mean of V rows with the weights P.V used
+    // output is a weighted mean of V rows with the weights P.V used (with
+    // a v scale, P.V takes p * v_scale, rounded once, and l the rounded p)
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nb][e] = __bfloat162float(
-            __float2bfloat16_rn(exp2f(s[nb][e] - mu[e >> 1])));
-        rs[e >> 1] += s[nb][e];
+        const float p = exp2f(s[nb][e] - mu[e >> 1]);
+        if constexpr (kScaled) {
+          rs[e >> 1] += __bfloat162float(__float2bfloat16_rn(p));
+          s[nb][e] = p * v_scale;
+        } else {
+          s[nb][e] = __bfloat162float(__float2bfloat16_rn(p));
+          rs[e >> 1] += s[nb][e];
+        }
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
@@ -557,14 +629,15 @@ __device__ __forceinline__ bf16* align_smem(unsigned char* raw) {
                                  ((1024 - (smem_u32(raw) & 1023)) & 1023));
 }
 
-// Stage buffers: K0, V0, K1, V1, each [bkv_pad][D].  Rows in [bkv,
-// bkv_pad) are never copied into; they are zeroed once here so that the
-// 64-key steps past a tile's end multiply zeros.
-template <int D>
+// Stage buffers: K0, V0, K1, V1 (kBufs = 4; the code form's one bf16 K, V
+// pair: 2), each [bkv_pad][D].  Rows in [bkv, bkv_pad) are never copied
+// into; they are zeroed once here so that the 64-key steps past a tile's
+// end multiply zeros.
+template <int D, int kBufs = 4>
 __device__ __forceinline__ void zero_tail(bf16* smem, int bkv, int bkv_pad) {
   const int tail = (bkv_pad - bkv) * D;
   const size_t tile = (size_t)bkv_pad * D;
-  for (int e = threadIdx.x; e < 4 * tail; e += blockDim.x)
+  for (int e = threadIdx.x; e < kBufs * tail; e += blockDim.x)
     smem[(e / tail) * tile + (size_t)bkv * D + e % tail] =
         __float2bfloat16(0.f);
 }
@@ -608,6 +681,99 @@ __device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
   }
 }
 
+// Issue the cp.async copies of a code tile's K and V rows into the code
+// ring's buffers [bkv_pad][D] (unswizzled; rows past `rows` zero-filled)
+// and commit them as one group.
+template <int D, typename TK>
+__device__ __forceinline__ void stage_codes_async(TK* kc, TK* vc, const TK* k,
+                                                  const TK* v,
+                                                  const TileRef& t, int bkv) {
+  constexpr int CPR = D / 16;  // 16-byte chunks per row of 1-byte codes
+  const TK* kt = k + t.row0 * D;
+  const TK* vt = v + t.row0 * D;
+  for (int e = threadIdx.x; e < bkv * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = e % CPR;
+    const bool fill = r < t.rows;
+    const int off = r * D + c * 16;
+    cp_async16(kc + off, kt + (fill ? off : 0), fill);
+    cp_async16(vc + off, vt + (fill ? off : 0), fill);
+  }
+  cp_async_commit();
+}
+
+// Convert a landed code tile [bkv][D] into the swizzled bf16 tile the
+// descriptors read (both codes are exact in bf16); 8 codes a thread step.
+template <int D, typename TK>
+__device__ __forceinline__ void codes_to_bf16(bf16* dst, const TK* src,
+                                              int bkv) {
+  constexpr int CPR = D / 8;  // 16-byte bf16 chunks per row
+  for (int e = threadIdx.x; e < bkv * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = e % CPR;
+    alignas(8) TK in[8];
+    *reinterpret_cast<uint2*>(in) =
+        *reinterpret_cast<const uint2*>(src + r * D + c * 8);
+    uint4 o;
+    o.x = pack_bf16(to_f32(in[0]), to_f32(in[1]));
+    o.y = pack_bf16(to_f32(in[2]), to_f32(in[3]));
+    o.z = pack_bf16(to_f32(in[4]), to_f32(in[5]));
+    o.w = pack_bf16(to_f32(in[6]), to_f32(in[7]));
+    *reinterpret_cast<uint4*>(dst + swz<D>(r, c)) = o;
+  }
+}
+
+// A staged code tile and its (block, kv head) scales.
+struct ScaledTile {
+  TileRef ref;
+  float ks, vs;
+};
+
+// Run the CTA's rows over the code tiles `src` yields: a 2-stage cp.async
+// ring of raw codes (tile j+1 loads while tile j multiplies), each landed
+// tile converted into the one bf16 K/V pair the products read.  Shared
+// memory: bf16 K, V [bkv_pad][D], then code K0, V0, K1, V1 [bkv_pad][D].
+template <int D, typename TK, class Source>
+__device__ __forceinline__ void run_code_tiles(GroupRows<D>& w, Source& src,
+                                               bf16* smem, const TK* k,
+                                               const TK* v, int bkv,
+                                               int bkv_pad, int klim,
+                                               float scale_log2) {
+  const size_t tile = (size_t)bkv_pad * D;
+  TK* ring = reinterpret_cast<TK*>(smem + 2 * tile);
+  zero_tail<D, 2>(smem, bkv, bkv_pad);
+  ScaledTile cur, nxt;
+  bool have = src.next(cur);
+  if (have) stage_codes_async<D>(ring, ring + tile, k, v, cur.ref, bkv);
+  int s = 0;
+  while (have) {
+    const bool more = src.next(nxt);
+    if (more) {
+      TK* kc = ring + (size_t)(2 * (s ^ 1)) * tile;
+      stage_codes_async<D>(kc, kc + tile, k, v, nxt.ref, bkv);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // code tile `cur` has landed for every thread
+    const TK* kc = ring + (size_t)(2 * s) * tile;
+    codes_to_bf16<D>(smem, kc, bkv);
+    codes_to_bf16<D>(smem + tile, kc + tile, bkv);
+    // the conversion and the zero tail wrote through the generic proxy;
+    // wgmma reads through the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the bf16 tile is complete
+    for (int c0 = 0; c0 < bkv; c0 += kStep) {
+      const int kb = cur.ref.kbase + c0;
+      if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+        w.template step<true>(smem, smem + tile, c0, cur.ref.kbase, bkv,
+                              klim, scale_log2 * cur.ks, cur.vs);
+    }
+    __syncthreads();  // the bf16 tile and code stage s are read out
+    cur = nxt;
+    have = more;
+    s ^= 1;
+  }
+}
+
 // The tiles of one work-list run, item by item, with the reference scan's
 // rules: a new `first` ends the run unwritten, a valid `last` ends it
 // written, invalid items and unmapped tiles stage nothing.
@@ -640,15 +806,35 @@ struct ItemSource {
   }
 };
 
-template <int D, class Tiles>
+// ItemSource over a code pool: each tile with its scales, read at the
+// tile's own (physical block, kv head).
+template <class Tiles>
+struct ScaledItemSource {
+  ItemSource<Tiles> items;
+  const float* k_scales;
+  const float* v_scales;
+
+  __device__ __forceinline__ bool next(ScaledTile& t) {
+    if (!items.next(t.ref)) return false;
+    const size_t si = items.tiles.scale_index(t.ref.row0);
+    t.ks = k_scales[si];
+    t.vs = v_scales[si];
+    return true;
+  }
+};
+
+// TK: the K/V tiles' element type, bf16 or codes (with k_scales /
+// v_scales, unused otherwise).
+template <int D, typename TK, class Tiles>
 __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
     const bf16* __restrict__ q,  // [H, Sq, D]
-    const bf16* __restrict__ k,  // pool or [Hkv, Skv, D]
-    const bf16* __restrict__ v,
+    const TK* __restrict__ k,    // pool or [Hkv, Skv, D]
+    const TK* __restrict__ v,
     const int* __restrict__ items,  // [L, 7]
     bf16* __restrict__ out,         // [H, Sq, D], zero-filled by the caller
     int L, int nslices, int Sq, int bq, int bkv, int bkv_pad, Tiles tiles,
-    int q_offset, int klim, float scale_log2) {
+    int q_offset, int klim, float scale_log2,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales) {
   const int start = blockIdx.x / nslices, slice = blockIdx.x % nslices;
   const int* it = items + (size_t)start * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
@@ -664,12 +850,20 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
   GroupRows<D> w;
   w.init(q + qoff, nrows, qrow0 + q_offset, true);
   ItemSource<Tiles> src{items, L, start, start, bkv, tiles, false, false};
-  run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, klim, scale_log2);
-  if (src.write) w.store(out + qoff, nrows, true);
+  if constexpr (kIsCode<TK>) {
+    ScaledItemSource<Tiles> scaled{src, k_scales, v_scales};
+    run_code_tiles<D>(w, scaled, smem, k, v, bkv, bkv_pad, klim,
+                      scale_log2);
+    if (scaled.items.write) w.store(out + qoff, nrows, true);
+  } else {
+    run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+    if (src.write) w.store(out + qoff, nrows, true);
+  }
 }
 
 // Dynamic shared memory of the bf16 body: two stages of K and V tiles, and
-// room to start them on a 1024-byte boundary.
+// room to start them on a 1024-byte boundary.  The code form's one bf16
+// K/V pair and its 2-stage ring of 1-byte codes take the same bytes.
 template <int D>
 inline size_t smem_bytes(int bkv_pad) {
   return 4 * (size_t)bkv_pad * D * sizeof(bf16) + 1024;
@@ -679,14 +873,15 @@ inline int pad_keys(int bkv) { return (bkv + kStep - 1) / kStep * kStep; }
 
 }  // namespace tc
 
-template <int D, class Tiles>
+template <int D, typename TK, class Tiles>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const float* k_scales, const float* v_scales,
                       const int* items, void* out, int L, int Sq, int bq,
                       int bkv, Tiles tiles, int q_offset, int klim,
                       float scale, cudaStream_t stream) {
   const int bkv_pad = tc::pad_keys(bkv);
   const size_t smem = tc::smem_bytes<D>(bkv_pad);
-  auto kern = tc::sparse_prefill_tc_kernel<D, Tiles>;
+  auto kern = tc::sparse_prefill_tc_kernel<D, TK, Tiles>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -696,49 +891,78 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const long long grid = (long long)L * nslices;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   kern<<<(unsigned)grid, tc::kWarps * 32, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), items, static_cast<tc::bf16*>(out),
+      static_cast<const tc::bf16*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), items, static_cast<tc::bf16*>(out),
       L, nslices, Sq, bq, bkv, bkv_pad, tiles, q_offset, klim,
-      scale * tc::kLog2e);
+      scale * tc::kLog2e, k_scales, v_scales);
   return cudaGetLastError();
 }
 
-template <int D, class Tiles>
+template <int D, typename TK, class Tiles>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const float* k_scales, const float* v_scales,
                        const int* items, void* out, int L, int Sq, int bq,
                        int bkv, Tiles tiles, int q_offset, int klim,
                        float scale, cudaStream_t stream) {
   if (bq > 1024) return cudaErrorInvalidValue;  // one thread per row
-  const size_t smem = 2 * (size_t)bkv * D * sizeof(float);
-  auto kern = sparse_prefill_kernel<float, D, Tiles>;
+  const size_t smem = 2 * (size_t)bkv * D * sizeof(TK);
+  auto kern = sparse_prefill_kernel<float, TK, D, Tiles>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   kern<<<L, bq, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), items, static_cast<float*>(out), L, Sq,
-      bq, bkv, tiles, q_offset, klim, scale);
+      static_cast<const float*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), items, static_cast<float*>(out), L, Sq,
+      bq, bkv, tiles, q_offset, klim, scale, k_scales, v_scales);
   return cudaGetLastError();
 }
 
-// dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, block_q
-// <= 1024); q, K/V and out share it; head_dim 32 or 64.  Returns the
-// launch's cudaError_t.
+// dtype: q's (and out's) element type, 0 = bfloat16 (tensor-core body),
+// 1 = float32 (scalar body, block_q <= 1024).  kv_dtype: the K/V tiles',
+// equal to dtype, or 2 = int8 / 3 = fp8 e4m3 codes with k_scales /
+// v_scales (tiles with scales only: the pool).  head_dim 32 or 64.
+// Returns the launch's cudaError_t.
 template <class Tiles>
-cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
-                     const void* v, const int* items, void* out, int L,
-                     int Sq, int bq, int bkv, Tiles tiles, int q_offset,
-                     int klim, float scale, cudaStream_t stream) {
+cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
+                     const void* k, const void* v, const float* k_scales,
+                     const float* v_scales, const int* items, void* out,
+                     int L, int Sq, int bq, int bkv, Tiles tiles,
+                     int q_offset, int klim, float scale,
+                     cudaStream_t stream) {
   if (L <= 0 || bq < 1 || bkv < 1) return cudaErrorInvalidValue;
-#define PREFILL_LAUNCH(FN, DD)                                            \
-  return FN<DD, Tiles>(q, k, v, items, out, L, Sq, bq, bkv, tiles,        \
-                       q_offset, klim, scale, stream)
-  if (dtype == 0 && D == 32) PREFILL_LAUNCH(launch_tc, 32);
-  if (dtype == 0 && D == 64) PREFILL_LAUNCH(launch_tc, 64);
-  if (dtype == 1 && D == 32) PREFILL_LAUNCH(launch_f32, 32);
-  if (dtype == 1 && D == 64) PREFILL_LAUNCH(launch_f32, 64);
+#define PREFILL_LAUNCH(FN, DD, TK)                                          \
+  return FN<DD, TK, Tiles>(q, k, v, k_scales, v_scales, items, out, L, Sq,  \
+                           bq, bkv, tiles, q_offset, klim, scale, stream)
+  if (kv_dtype == dtype) {
+    if (dtype == 0 && D == 32) PREFILL_LAUNCH(launch_tc, 32, tc::bf16);
+    if (dtype == 0 && D == 64) PREFILL_LAUNCH(launch_tc, 64, tc::bf16);
+    if (dtype == 1 && D == 32) PREFILL_LAUNCH(launch_f32, 32, float);
+    if (dtype == 1 && D == 64) PREFILL_LAUNCH(launch_f32, 64, float);
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (Tiles::kHasScales) {
+    if (k_scales == nullptr || v_scales == nullptr)
+      return cudaErrorInvalidValue;
+    using fp8 = __nv_fp8_e4m3;
+    if (dtype == 0 && kv_dtype == 2 && D == 32)
+      PREFILL_LAUNCH(launch_tc, 32, int8_t);
+    if (dtype == 0 && kv_dtype == 2 && D == 64)
+      PREFILL_LAUNCH(launch_tc, 64, int8_t);
+    if (dtype == 0 && kv_dtype == 3 && D == 32)
+      PREFILL_LAUNCH(launch_tc, 32, fp8);
+    if (dtype == 0 && kv_dtype == 3 && D == 64)
+      PREFILL_LAUNCH(launch_tc, 64, fp8);
+    if (dtype == 1 && kv_dtype == 2 && D == 32)
+      PREFILL_LAUNCH(launch_f32, 32, int8_t);
+    if (dtype == 1 && kv_dtype == 2 && D == 64)
+      PREFILL_LAUNCH(launch_f32, 64, int8_t);
+    if (dtype == 1 && kv_dtype == 3 && D == 32)
+      PREFILL_LAUNCH(launch_f32, 32, fp8);
+    if (dtype == 1 && kv_dtype == 3 && D == 64)
+      PREFILL_LAUNCH(launch_f32, 64, fp8);
+  }
 #undef PREFILL_LAUNCH
   return cudaErrorInvalidValue;
 }

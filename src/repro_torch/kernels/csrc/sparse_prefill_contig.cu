@@ -22,8 +22,8 @@ extern "C" int sparse_prefill_contig(const void* q, const void* k,
                                      void* stream) {
   if (Skv < 1) return cudaErrorInvalidValue;
   const prefill::RowTiles tiles{Skv, block_kv};
-  return prefill::dispatch(dtype, D, q, k, v, items, out, L, Sq, block_q,
-                           block_kv, tiles, q_offset,
-                           kv_len < Skv ? kv_len : Skv, scale,
+  return prefill::dispatch(dtype, dtype, D, q, k, v, nullptr, nullptr,
+                           items, out, L, Sq, block_q, block_kv, tiles,
+                           q_offset, kv_len < Skv ? kv_len : Skv, scale,
                            static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import check_launch, kernel_function
+from repro_torch.kernels.build import (
+    check_launch, count_launch, kernel_function, reset_launches)
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -114,8 +115,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                  scale_v, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    count_launch(flash_attention, q.dtype)
     return out
 
 
-flash_attention.launches = 0
+reset_launches(flash_attention)

@@ -22,6 +22,14 @@ and pos ``[B]`` (last position, inclusive), and return ``(out f32 [B, Hkv,
 G, D], m, l [B, Hkv, G])``.  :func:`flash_decode_reference` and
 :func:`flash_decode_paged_reference` are the plain versions of the
 per-slot block-id forms.
+
+Quantized caches (the TPU kernels' ``k_scales`` / ``v_scales`` branch):
+int8 or fp8 (e4m3) codes with one float32 scale per (block, kv head) tile,
+``[N, Hkv]`` at the PHYSICAL block for the pool, ``[B, Hkv, Smax /
+block_kv]`` for the slot cache.  q is taken in float32 (never cast to the
+code dtype), the codes are dotted raw and the scales multiply after the
+dots: ``s = (q . codes) * scale * k_scale``, ``pv = (p . codes) *
+v_scale``.
 """
 from __future__ import annotations
 
@@ -31,14 +39,18 @@ import torch
 
 from repro_torch.core.worklist import (
     D_BATCH, D_FIRST, D_KVBLK, D_KVHEAD, D_LAST, D_VALID, DEC_FIELDS)
-from repro_torch.kernels.build import check_launch, kernel_function
+from repro_torch.kernels.build import (
+    check_launch, count_launch, kernel_function, reset_launches)
 
 NEG_INF = -1e30
+# the kernels' element-type codes: caches that q shares, and code caches
+# (q float32, with scales)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
-_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
 
@@ -66,8 +78,9 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
     the plain version every decode kernel of the port is held against.
 
     ``qf [B, Hkv, G, D]`` float32 query rows; ``tile(b, h, blk)`` returns
-    ``(k, v)`` float32 ``[block_kv, D]`` of a logical block or None when
-    unmapped;
+    ``(k, v, k_scale, v_scale)`` of a logical block, float32 ``[block_kv,
+    D]`` tiles and their scales (None for a full-precision cache), or None
+    when unmapped;
     ``last_pos[b]`` is row b's last position (keys at ``kpos <= last_pos``
     count).  Flash-decode rules: a run starts on ``first`` and finalizes on
     ``last`` whether or not that item is valid; with ``legacy`` (the legacy
@@ -94,8 +107,10 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
             l = torch.zeros_like(l)
         kv = tile(b, h, blk) if valid else None
         if kv is not None:
-            kt, vt = kv
+            kt, vt, ks, vs = kv
             s = (qf[b, h] @ kt.T) * scale                     # [G, blk]
+            if ks is not None:
+                s = s * ks
             kpos = blk * block_kv + offs
             mask = kpos <= last_pos[b]
             if window is not None:
@@ -105,7 +120,10 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
             pr = torch.where(mask, torch.exp(s - m_new), 0.0)
             alpha = torch.exp(m - m_new)
             l = l * alpha + pr.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + pr @ vt
+            pv = pr @ vt
+            if vs is not None:
+                pv = pv * vs
+            acc = acc * alpha + pv
             m = m_new
         if it[D_LAST] == 1 and counts:
             out[b, h] = torch.where(l > 0.0, acc / l.clamp_min(1e-30), 0.0)
@@ -118,10 +136,30 @@ def _scale(dh: int, scale: float | None) -> float:
     return float(dh ** -0.5) if scale is None else float(scale)
 
 
-def slot_tiles(k_cache, v_cache, block_kv: int):
+def query_as_read(q, k, k_scales):
+    """q as the kernels read it: float32 over codes, else in the cache's
+    dtype (q.k multiplies in the cache's type)."""
+    return q.to(torch.float32 if k_scales is not None else k.dtype)
+
+
+def kernel_dtype(k, k_scales) -> int:
+    """The kernels' element-type code of K/V ``k``."""
+    return CODE_DTYPES[k.dtype] if k_scales is not None else DTYPES[k.dtype]
+
+
+def scale_ptrs(k_scales, v_scales):
+    """The scales' device pointers for a kernel, 0 (null) without them."""
+    if k_scales is None:
+        return 0, 0
+    return k_scales.data_ptr(), v_scales.data_ptr()
+
+
+def slot_tiles(k_cache, v_cache, block_kv: int, k_scales=None,
+               v_scales=None):
     """``tile`` for :func:`decode_scan` over a slot cache ``[B, Hkv, Smax,
     D]`` of whole blocks: block ``blk`` of row b is rows ``[blk*block_kv,
-    +block_kv)``; a block outside the cache is unmapped."""
+    +block_kv)``, with scales ``[b, h, blk]`` of a code cache; a block
+    outside the cache is unmapped."""
     smax = k_cache.shape[2]
 
     def tile(b, h, blk):
@@ -129,30 +167,37 @@ def slot_tiles(k_cache, v_cache, block_kv: int):
         if blk < 0 or lo >= smax:
             return None
         return (k_cache[b, h, lo:lo + block_kv].to(torch.float32),
-                v_cache[b, h, lo:lo + block_kv].to(torch.float32))
+                v_cache[b, h, lo:lo + block_kv].to(torch.float32),
+                None if k_scales is None else k_scales[b, h, blk],
+                None if v_scales is None else v_scales[b, h, blk])
     return tile
 
 
 def packed_decode_attention(q, k_cache, v_cache, items, pos, *,
                             block_kv: int = 128, scale: float | None = None,
-                            window: int | None = None):
+                            window: int | None = None, k_scales=None,
+                            v_scales=None):
     """Plain PyTorch version of :func:`flash_decode_kernel`: the reference's
     item scan over the slot cache ``[B, Hkv, Smax, D]``.  q.k multiplies q
-    cast to the cache dtype with the cache tile and sums in float32; p.V is
-    float32."""
-    qf = q.to(k_cache.dtype).to(torch.float32)
-    return decode_scan(qf, slot_tiles(k_cache, v_cache, block_kv), items,
-                       pos.tolist(), block_kv=block_kv,
+    cast to the cache dtype (float32 over codes) with the cache tile and
+    sums in float32; p.V is float32; the scales ``[B, Hkv, Smax /
+    block_kv]`` of a code cache multiply after the dots."""
+    return decode_scan(query_as_read(q, k_cache, k_scales).float(),
+                       slot_tiles(k_cache, v_cache, block_kv, k_scales,
+                                  v_scales),
+                       items, pos.tolist(), block_kv=block_kv,
                        scale=_scale(q.shape[-1], scale), window=window)
 
 
 def packed_decode_attention_paged(q, k_pool, v_pool, items, table, pos, *,
                                   block_kv: int = 128,
                                   scale: float | None = None,
-                                  window: int | None = None):
+                                  window: int | None = None, k_scales=None,
+                                  v_scales=None):
     """Plain PyTorch version of :func:`flash_decode_paged_kernel`: the
     reference's item scan over the block pool through ``table [B, T]``
-    (logical index clamped into the table, -1 entries unmapped).  Same
+    (logical index clamped into the table, -1 entries unmapped), with a
+    code pool's scales ``[N, Hkv]`` read at the physical block.  Same
     arithmetic as :func:`packed_decode_attention`."""
     T = table.shape[1]
     tbl = table.tolist()
@@ -162,112 +207,133 @@ def packed_decode_attention_paged(q, k_pool, v_pool, items, table, pos, *,
         if phys < 0:
             return None
         return (k_pool[phys, h].to(torch.float32),
-                v_pool[phys, h].to(torch.float32))
-    qf = q.to(k_pool.dtype).to(torch.float32)
-    return decode_scan(qf, tile, items, pos.tolist(), block_kv=block_kv,
+                v_pool[phys, h].to(torch.float32),
+                None if k_scales is None else k_scales[phys, h],
+                None if v_scales is None else v_scales[phys, h])
+    return decode_scan(query_as_read(q, k_pool, k_scales).float(), tile,
+                       items,
+                       pos.tolist(), block_kv=block_kv,
                        scale=_scale(q.shape[-1], scale), window=window)
 
 
 def flash_decode_reference(q, k_cache, v_cache, block_ids, pos, *,
                            block_kv: int = 128, scale: float | None = None,
-                           window: int | None = None):
+                           window: int | None = None, k_scales=None,
+                           v_scales=None):
     """Plain version of the per-slot block-id form over the slot cache
     (the reference's ``flash_decode_reference``): ``block_ids [B, Hkv, nb]``
     (-1 pad) run as the padded item table."""
     return packed_decode_attention(
         q, k_cache, v_cache, decode_items_from_ids(block_ids), pos,
-        block_kv=block_kv, scale=scale, window=window)
+        block_kv=block_kv, scale=scale, window=window, k_scales=k_scales,
+        v_scales=v_scales)
 
 
 def flash_decode_paged_reference(q, k_pool, v_pool, block_ids, table, pos, *,
                                  block_kv: int = 128,
                                  scale: float | None = None,
-                                 window: int | None = None):
+                                 window: int | None = None, k_scales=None,
+                                 v_scales=None):
     """Plain version of the per-slot block-id form over the pool (the
     reference's ``flash_decode_paged_reference``)."""
     return packed_decode_attention_paged(
         q, k_pool, v_pool, decode_items_from_ids(block_ids), table, pos,
-        block_kv=block_kv, scale=scale, window=window)
+        block_kv=block_kv, scale=scale, window=window, k_scales=k_scales,
+        v_scales=v_scales)
 
 
 def flash_decode_paged_kernel(q, k_pool, v_pool, items, table, pos, *,
                               block_kv: int = 128,
                               scale: float | None = None,
-                              window: int | None = None):
+                              window: int | None = None, k_scales=None,
+                              v_scales=None):
     """Budgeted flash-decode over the block pool (see module docstring).
 
     CPU tensors run :func:`packed_decode_attention_paged`.  CUDA tensors
-    launch the CUDA kernel (bf16 or f32 pools, head_dim 32/64, G <= 4)
-    or raise; there is no fallback.  ``launches`` counts kernel launches.
+    launch the CUDA kernel (bf16 or f32 pools, or int8 / fp8 code pools
+    with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64, G <= 4) or
+    raise; there is no fallback.  ``launches`` counts kernel launches,
+    ``launches_by_dtype`` per pool dtype.
     """
     B, hkv, G, dh = q.shape
     check_decode_args(q, k_pool, v_pool, items, block_kv, pos, table)
     if k_pool.shape[1:] != (hkv, block_kv, dh):
         raise ValueError(f"pool {tuple(k_pool.shape)} does not match q "
                          f"{tuple(q.shape)} at block_kv={block_kv}")
+    check_scales(q, k_pool, k_scales, v_scales, tuple(k_pool.shape[:2]))
     if q.device.type == "cpu":
         return packed_decode_attention_paged(
             q, k_pool, v_pool, items, table, pos, block_kv=block_kv,
-            scale=scale, window=window)
-    check_cuda_decode("flash_decode_paged", q, k_pool)
+            scale=scale, window=window, k_scales=k_scales,
+            v_scales=v_scales)
+    check_cuda_decode("flash_decode_paged", q, k_pool, k_scales)
     out, m, l = _partials(q)
     if items.shape[0] == 0:
         return out, m, l
     fn = kernel_function("flash_decode_paged", _PAGED_ARGTYPES)
+    qk = query_as_read(q, k_pool, k_scales)   # held through the launch
     with torch.cuda.device(q.device):
-        err = fn(q.to(k_pool.dtype).data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), items.data_ptr(), table.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        err = fn(qk.data_ptr(),
+                 k_pool.data_ptr(), v_pool.data_ptr(),
+                 *scale_ptrs(k_scales, v_scales), items.data_ptr(),
+                 table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 m.data_ptr(), l.data_ptr(),
                  items.shape[0], hkv, G, dh, block_kv, table.shape[1],
                  _scale(dh, scale), 0 if window is None else int(window),
-                 DTYPES[k_pool.dtype],
+                 kernel_dtype(k_pool, k_scales),
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_decode_paged", err)
-    flash_decode_paged_kernel.launches += 1
+    count_launch(flash_decode_paged_kernel, k_pool.dtype)
     return out, m, l
-
-
-flash_decode_paged_kernel.launches = 0
 
 
 def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
                         block_kv: int = 128, scale: float | None = None,
-                        window: int | None = None):
+                        window: int | None = None, k_scales=None,
+                        v_scales=None):
     """Budgeted flash-decode over the slot cache ``[B, Hkv, Smax, D]``, in
     place (see module docstring).
 
     CPU tensors run :func:`packed_decode_attention`.  CUDA tensors launch
-    the CUDA kernel (bf16 or f32 caches, head_dim 32/64, G <= 4) or raise;
-    there is no fallback.  ``launches`` counts kernel launches.
+    the CUDA kernel (bf16 or f32 caches, or int8 / fp8 code caches with
+    ``k_scales`` / ``v_scales [B, Hkv, Smax / block_kv]``; head_dim 32/64,
+    G <= 4) or raise; there is no fallback.  ``launches`` counts kernel
+    launches, ``launches_by_dtype`` per cache dtype.
     """
     B, hkv, G, dh = q.shape
     check_decode_args(q, k_cache, v_cache, items, block_kv, pos)
     if (k_cache.shape[0], k_cache.shape[1], k_cache.shape[3]) != (B, hkv, dh):
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
                          f"{tuple(q.shape)}")
+    check_scales(q, k_cache, k_scales, v_scales,
+                 (B, hkv, k_cache.shape[2] // block_kv))
     if q.device.type == "cpu":
         return packed_decode_attention(q, k_cache, v_cache, items, pos,
                                        block_kv=block_kv, scale=scale,
-                                       window=window)
-    check_cuda_decode("flash_decode_contig", q, k_cache)
+                                       window=window, k_scales=k_scales,
+                                       v_scales=v_scales)
+    check_cuda_decode("flash_decode_contig", q, k_cache, k_scales)
     out, m, l = _partials(q)
     if items.shape[0] == 0:
         return out, m, l
     fn = kernel_function("flash_decode_contig", _CONTIG_ARGTYPES)
+    qk = query_as_read(q, k_cache, k_scales)   # held through the launch
     with torch.cuda.device(q.device):
-        err = fn(q.to(k_cache.dtype).data_ptr(), k_cache.data_ptr(),
-                 v_cache.data_ptr(), items.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        err = fn(qk.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(),
+                 *scale_ptrs(k_scales, v_scales), items.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
                  items.shape[0], hkv, G, dh, block_kv, k_cache.shape[2],
                  _scale(dh, scale), 0 if window is None else int(window),
-                 DTYPES[k_cache.dtype],
+                 kernel_dtype(k_cache, k_scales),
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_decode_contig", err)
-    flash_decode_kernel.launches += 1
+    count_launch(flash_decode_kernel, k_cache.dtype)
     return out, m, l
 
 
-flash_decode_kernel.launches = 0
+reset_launches(flash_decode_paged_kernel, flash_decode_kernel)
+
 
 
 def _partials(q):
@@ -279,15 +345,38 @@ def _partials(q):
             torch.zeros((B, hkv, G), dtype=torch.float32, device=q.device))
 
 
-def check_cuda_decode(name: str, q, k):
+def check_cuda_decode(name: str, q, k, k_scales=None):
     """Raise unless ``q`` lies on CUDA and the kernel ``name`` takes the
-    cache's dtype, the head_dim and the GQA group size."""
+    cache's dtype (bf16 / f32, or int8 / fp8 codes where ``k_scales`` is
+    given), the head_dim and the GQA group size."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
     dh, G = q.shape[-1], q.shape[-2]
-    if k.dtype not in DTYPES or dh not in (32, 64) or G > 4:
-        raise ValueError(f"{name} kernel takes bf16/f32 caches, head_dim "
-                         f"32/64 and G <= 4; got {k.dtype}, {dh}, {G}")
+    kinds = CODE_DTYPES if k_scales is not None else DTYPES
+    if k.dtype not in kinds or dh not in (32, 64) or G > 4:
+        raise ValueError(f"{name} kernel takes bf16/f32 caches (int8/fp8 "
+                         f"codes with scales), head_dim 32/64 and G <= 4; "
+                         f"got {k.dtype}, {dh}, {G}")
+
+
+def check_scales(q, k, k_scales, v_scales, shape: tuple) -> None:
+    """Scales come both or neither, float32 of ``shape``, contiguous on
+    q's device, and only with a code cache (int8 / fp8); a code cache
+    needs them."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is None:
+        if k.dtype in CODE_DTYPES:
+            raise ValueError(f"a {k.dtype} cache needs k_scales/v_scales")
+        return
+    if k.dtype not in CODE_DTYPES:
+        raise ValueError(f"scales go with int8/fp8 codes, got {k.dtype}")
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
 
 
 def check_decode_args(q, k, v, items, block_kv: int, pos=None, table=None):

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core.worklist import (
     D_BATCH, D_FIRST, D_KVBLK, D_KVHEAD, D_LAST, D_VALID, DEC_FIELDS)
-from repro_torch.kernels.build import check_launch, kernel_function
+from repro_torch.kernels.build import (
+    check_launch, count_launch, kernel_function, reset_launches)
 from repro_torch.kernels.flash_decode import (
     DTYPES, check_cuda_decode, check_decode_args, decode_scan, slot_tiles)
 
@@ -147,8 +148,8 @@ def sparse_decode_attention(q, k_cache, v_cache, items, *, cache_len: int,
                  DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_decode", err)
-    sparse_decode_attention.launches += 1
+    count_launch(sparse_decode_attention, k_cache.dtype)
     return out
 
 
-sparse_decode_attention.launches = 0
+reset_launches(sparse_decode_attention)

@@ -25,6 +25,13 @@ On the card both launch one CTA per item (per 64-row slice of its q block
 in bf16), and every CTA whose item does not start a run exits at once.
 bf16 runs the tensor-core body, float32 the scalar one
 (``csrc/sparse_prefill.cuh``).
+
+The paged form also takes a quantized pool (the reference twin's
+``k_scales`` / ``v_scales`` branch): int8 or fp8 (e4m3) codes with one
+float32 scale per (physical block, kv head), ``[N, Hkv]``.  The codes are
+dotted raw and the scales multiply after the dots, ``s = (q . codes) *
+scale * k_scale`` and ``pv = (p . codes) * v_scale``; q stays bf16 or
+float32.
 """
 from __future__ import annotations
 
@@ -35,12 +42,15 @@ import torch.nn.functional as F
 
 from repro_torch.core.worklist import (
     F_FIRST, F_HEAD, F_KVBLK, F_KVHEAD, F_LAST, F_QBLK, F_VALID, ITEM_FIELDS)
-from repro_torch.kernels.build import check_launch, kernel_function
+from repro_torch.kernels.build import (
+    check_launch, count_launch, kernel_function, reset_launches)
+from repro_torch.kernels.flash_decode import (
+    CODE_DTYPES, check_scales, kernel_dtype, scale_ptrs)
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _CONTIG_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -50,9 +60,10 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
     """The reference's prefill item scan in float32, one item at a time —
     the plain version both prefill kernels are held against.
 
-    ``tile(kv_head, kv_blk)`` returns ``(k, v, mapped)``: float32 ``[block_kv,
-    D]`` tiles and whether the block is mapped (an unmapped block is
-    computed fully masked, as the reference does).  A run initializes on
+    ``tile(kv_head, kv_blk)`` returns ``(k, v, mapped, k_scale,
+    v_scale)``: float32 ``[block_kv, D]`` tiles, whether the block is
+    mapped (an unmapped block is computed fully masked, as the reference
+    does) and the scales of a code pool (None otherwise).  A run initializes on
     ``first`` and writes its tile on a valid ``last``; keys at ``kpos <
     klim`` and ``kpos <= q_offset + i`` count for query row i."""
     hq, sq, dh = q.shape
@@ -73,9 +84,11 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
             l = torch.zeros_like(l)
         if it[F_VALID] != 1:
             continue
-        kt, vt, mapped = tile(it[F_KVHEAD], kvblk)
+        kt, vt, mapped, ks, vs = tile(it[F_KVHEAD], kvblk)
         rows = slice(qblk * block_q, (qblk + 1) * block_q)
         s = (qp[head, rows] @ kt.T) * scale_v
+        if ks is not None:
+            s = s * ks
         qpos = qblk * block_q + qi
         kpos = kvblk * block_kv + ki
         mask = ((kpos <= qpos + q_offset) & (kpos < klim) & (qpos < sq)
@@ -85,7 +98,10 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
         p = torch.where(mask, torch.exp(s - m_new), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ vt
+        pv = p @ vt
+        if vs is not None:
+            pv = pv * vs
+        acc = acc * alpha + pv
         m = m_new
         if it[F_LAST] == 1:
             out[head, rows] = torch.where(l > 0.0, acc / l.clamp_min(1e-30),
@@ -96,10 +112,12 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
 def worklist_attention_paged(q, k_pool, v_pool, items, table, *,
                              block_q: int = 128, block_kv: int = 128,
                              scale: float | None = None, q_offset: int = 0,
-                             kv_len: int | None = None):
+                             kv_len: int | None = None, k_scales=None,
+                             v_scales=None):
     """Plain version of :func:`sparse_prefill_paged` (the reference's jnp
     twin of the same name): tiles through the table, the logical index
-    clamped into it, -1 entries masked."""
+    clamped into it, -1 entries masked; a code pool's scales ``[N, Hkv]``
+    at the same (clamped) physical block as its tile."""
     T = table.shape[0]
     klim = T * block_kv if kv_len is None else min(int(kv_len), T * block_kv)
     tbl = table.tolist()
@@ -108,7 +126,9 @@ def worklist_attention_paged(q, k_pool, v_pool, items, table, *,
         phys = tbl[min(max(kvblk, 0), T - 1)]
         safe = max(phys, 0)
         return (k_pool[safe, kvh].to(torch.float32),
-                v_pool[safe, kvh].to(torch.float32), phys >= 0)
+                v_pool[safe, kvh].to(torch.float32), phys >= 0,
+                None if k_scales is None else k_scales[safe, kvh],
+                None if v_scales is None else v_scales[safe, kvh])
     return worklist_scan(q, tile, items, block_q=block_q, block_kv=block_kv,
                          scale=scale, q_offset=q_offset, klim=klim)
 
@@ -128,7 +148,8 @@ def worklist_attention(q, k, v, items, *, block_q: int = 128,
         lo = min(max(kvblk, 0), nb - 1) * block_kv
         pad = (0, 0, 0, block_kv - min(block_kv, skv - lo))
         return (F.pad(k[kvh, lo:lo + block_kv], pad).to(torch.float32),
-                F.pad(v[kvh, lo:lo + block_kv], pad).to(torch.float32), True)
+                F.pad(v[kvh, lo:lo + block_kv], pad).to(torch.float32), True,
+                None, None)
     return worklist_scan(q, tile, items, block_q=block_q, block_kv=block_kv,
                          scale=scale, q_offset=q_offset, klim=klim)
 
@@ -136,13 +157,15 @@ def worklist_attention(q, k, v, items, *, block_q: int = 128,
 def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
                          block_q: int = 128, block_kv: int = 128,
                          scale: float | None = None, q_offset: int = 0,
-                         kv_len: int | None = None):
+                         kv_len: int | None = None, k_scales=None,
+                         v_scales=None):
     """Work-list sparse prefill over the block pool (see module docstring).
 
     CPU tensors run :func:`worklist_attention_paged`.  CUDA tensors launch
-    the CUDA kernel (q and pools of one dtype, bf16 or f32; head_dim
-    32/64; f32 block_q <= 1024) or raise; there is no fallback.
-    ``launches`` counts kernel launches.
+    the CUDA kernel (q bf16 or f32 with pools of its dtype, or int8 / fp8
+    code pools with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64;
+    f32 block_q <= 1024) or raise; there is no fallback.  ``launches``
+    counts kernel launches, ``launches_by_dtype`` per pool dtype.
     """
     hq, sq, dh = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
@@ -155,11 +178,13 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
         raise ValueError(f"table must be [T] with T >= 1, got "
                          f"{tuple(table.shape)}")
     _check_common(q, k_pool, v_pool, items, table)
+    check_scales(q, k_pool, k_scales, v_scales, tuple(k_pool.shape[:2]))
     if q.device.type == "cpu":
         return worklist_attention_paged(
             q, k_pool, v_pool, items, table, block_q=block_q,
-            block_kv=block_kv, scale=scale, q_offset=q_offset, kv_len=kv_len)
-    _check_cuda("sparse_prefill_paged", q, k_pool, block_q)
+            block_kv=block_kv, scale=scale, q_offset=q_offset, kv_len=kv_len,
+            k_scales=k_scales, v_scales=v_scales)
+    _check_cuda("sparse_prefill_paged", q, k_pool, block_q, k_scales)
     out = torch.zeros_like(q)
     L = items.shape[0]
     if L == 0:
@@ -170,16 +195,15 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
     fn = kernel_function("sparse_prefill_paged", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 items.data_ptr(), table.data_ptr(), out.data_ptr(),
+                 *scale_ptrs(k_scales, v_scales), items.data_ptr(),
+                 table.data_ptr(), out.data_ptr(),
                  L, sq, k_pool.shape[1], dh, block_q, block_kv, T,
                  int(q_offset), kv, scale_v, _DTYPES[q.dtype],
+                 kernel_dtype(k_pool, k_scales),
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_paged", err)
-    sparse_prefill_paged.launches += 1
+    count_launch(sparse_prefill_paged, k_pool.dtype)
     return out
-
-
-sparse_prefill_paged.launches = 0
 
 
 def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
@@ -220,23 +244,28 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
                  int(q_offset), kv, scale_v, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_contig", err)
-    sparse_prefill_attention.launches += 1
+    count_launch(sparse_prefill_attention, k.dtype)
     return out
 
 
-sparse_prefill_attention.launches = 0
+reset_launches(sparse_prefill_paged, sparse_prefill_attention)
 
 
-def _check_cuda(name: str, q, k, block_q: int):
+def _check_cuda(name: str, q, k, block_q: int, k_scales=None):
+    """Raise unless q lies on CUDA and the kernel takes its dtype (bf16 /
+    f32) with K/V of the same dtype, or with int8 / fp8 codes where
+    ``k_scales`` is given, at this head_dim and block_q."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
     dh = q.shape[-1]
-    if (q.dtype != k.dtype or q.dtype not in _DTYPES or dh not in (32, 64)
+    kv_ok = (k.dtype in CODE_DTYPES if k_scales is not None
+             else k.dtype == q.dtype)
+    if (not kv_ok or q.dtype not in _DTYPES or dh not in (32, 64)
             or block_q < 1 or (q.dtype == torch.float32 and block_q > 1024)):
         raise ValueError(
-            f"{name} kernel takes q and K/V of one dtype (bf16/f32), "
-            f"head_dim 32/64 and block_q >= 1 (<= 1024 in f32); got "
-            f"{q.dtype}/{k.dtype}, {dh}, {block_q}")
+            f"{name} kernel takes bf16/f32 q with K/V of its dtype (or "
+            f"int8/fp8 codes with scales), head_dim 32/64 and block_q >= 1 "
+            f"(<= 1024 in f32); got {q.dtype}/{k.dtype}, {dh}, {block_q}")
 
 
 def _check_common(q, k, v, items, table=None):

@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         [--smoke] [--device cuda|cpu] [--budget 512] [--requests 8] \
         [--prompt-lens 300,1010,3500] [--cache-layout paged|contiguous] \
-        [--decode-worklist packed|padded] [--profile]
+        [--decode-worklist packed|padded] [--kv-dtype bf16|int8|fp8] \
+        [--profile]
 
 Weights are random, drawn from ``--seed``; the sparsity profile is the
 synthetic one.  Prompts have the lengths ``--prompt-lens`` gives, else
 ``--requests`` lengths drawn from [32, 128).  Budget, sequence length and
-slots, the cache layout and the decode work list default to
+slots, the cache layout, the decode work list and the KV storage dtype
+(``--kv-dtype``: int8 / fp8 codes with per-block scales, or bf16) default to
 ``EngineConfig()``'s.  The default device is CUDA; ``--device cpu`` runs every
 kernel's plain PyTorch version.  ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
@@ -44,6 +46,8 @@ def main(argv=None) -> list:
                     choices=("paged", "contiguous"))
     ap.add_argument("--decode-worklist", default=defaults.decode_worklist,
                     choices=("packed", "padded"))
+    ap.add_argument("--kv-dtype", default=defaults.kv_dtype,
+                    choices=("bf16", "int8", "fp8"))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -63,7 +67,8 @@ def main(argv=None) -> list:
                               max_seq_len=args.max_seq,
                               num_slots=args.slots,
                               cache_layout=args.cache_layout,
-                              decode_worklist=args.decode_worklist),
+                              decode_worklist=args.decode_worklist,
+                              kv_dtype=args.kv_dtype),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)
@@ -91,7 +96,8 @@ def main(argv=None) -> list:
           f"{ps['mean_imbalance_plan']:.3f} (naive "
           f"{ps['mean_imbalance_naive']:.3f}); decode grid "
           f"{eng.decode_stats['real_items']}/{eng.decode_stats['grid_items']}"
-          f" real/padded items")
+          f" real/padded items; KV cache {args.kv_dtype}, "
+          f"{eng.kv_bytes() / 2**20:.1f} MiB resident")
     if args.profile:
         _print_profile(prof, dt)
     return done

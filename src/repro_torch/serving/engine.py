@@ -11,9 +11,12 @@ per-slot block-id grid (``"padded"``, the step-invariant baseline).  The
 KV cache is the paged pool (``cache_layout="paged"``, the default) or the
 contiguous slot cache (``"contiguous"``, the parity baseline: chunks build
 in a one-sequence staging cache merged into the slot row at the final
-chunk).  Host planning is numpy; device state (permuted params, cache)
-lives on ``device``, which defaults to CUDA.  Other ``EngineConfig``
-options raise ``NotImplementedError``.
+chunk).  The cache holds bf16 (the model dtype) or, with ``kv_dtype``
+"int8" / "fp8", quantized codes with one float32 scale per (block, kv
+head) tile, which the attention kernels apply after their dots.  Host
+planning is numpy; device state (permuted params, cache) lives on
+``device``, which defaults to CUDA.  Other ``EngineConfig`` options raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.attention.policies import policy_by_name
 from repro_torch.configs import TransformerConfig
+from repro_torch.core import quant
 from repro_torch.core.planner import HPLBPlan, make_plan, \
     permute_attention_params
 from repro_torch.core.sparsity import HeadSparsityProfile
@@ -71,7 +75,7 @@ class EngineConfig:
         ported = {"attention": ("sparse",), "prefill_buckets": ("pow2",),
                   "prefill_mode": ("chunked",),
                   "cache_layout": ("paged", "contiguous"),
-                  "kv_dtype": ("bf16",),
+                  "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
                   "num_model_shards": (1,), "seq_shards": (1,),
                   "replan_every": (None,), "drift_threshold": (None,),
@@ -124,23 +128,49 @@ class Engine:
             partitioner=ecfg.partitioner)
         self.params = self._permute_params(params)
         self.paged = ecfg.cache_layout == "paged"
+        # quantized KV: codes in kv_cache_dtype with per-(block, kv head)
+        # scales beside them; "bf16" has no scales tensor at all
+        self.quantized = quant.is_quantized(ecfg.kv_dtype)
+        kv_store = quant.kv_cache_dtype(ecfg.kv_dtype)
+        self.cache_scales = None
         if self.paged:
             nblocks = (ecfg.num_kv_blocks
                        or ecfg.num_slots * (ecfg.max_seq_len // ecfg.block))
             self.kv = PagedKVCache(
                 lambda n: tfm.init_paged_cache(cfg, n, ecfg.block,
-                                               device=self.device),
+                                               device=self.device,
+                                               dtype=kv_store),
                 num_blocks=nblocks, block=ecfg.block,
-                table_width=ecfg.max_seq_len // ecfg.block)
+                table_width=ecfg.max_seq_len // ecfg.block,
+                make_scales_fn=((lambda n: tfm.init_paged_scales(
+                    cfg, n, device=self.device)) if self.quantized
+                    else None))
         else:
             # every slot reserves a max_seq_len row; chunks build in a
             # one-sequence staging cache (the scheduler prefills one
-            # sequence at a time), so decode never sees a mid-prefill row
+            # sequence at a time), so decode never sees a mid-prefill row.
+            # Quantized: the staging row stays full precision and is
+            # quantized once, on its copy into the slot
             self.kv = None
+            if self.quantized and ecfg.block != cfg.block_kv:
+                raise ValueError("a quantized slot cache needs the engine "
+                                 "block == the model's block_kv (one scale "
+                                 "grid)")
             self.cache = tfm.init_cache(cfg, ecfg.num_slots,
-                                        ecfg.max_seq_len, device=self.device)
+                                        ecfg.max_seq_len, device=self.device,
+                                        dtype=kv_store)
+            if self.quantized:
+                self.cache_scales = tfm.init_cache_scales(
+                    cfg, ecfg.num_slots, ecfg.max_seq_len, ecfg.block,
+                    device=self.device)
             self._staging = tfm.init_cache(cfg, 1, ecfg.max_seq_len,
                                            device=self.device)
+        # byte-true packing weight: the K+V bytes one selected block
+        # streams at decode (codes plus their amortized scales)
+        self._kv_block_bytes = (
+            2.0 * ecfg.block * cfg.head_dim_
+            * quant.kv_dtype_bytes(ecfg.kv_dtype, block=ecfg.block,
+                                   head_dim=cfg.head_dim_))
         self._batcher: ContinuousBatcher | None = None
         # host planning memos: prompt-bucket work lists, chunk slices and
         # their item caps, decode selections per resident block count, and
@@ -257,11 +287,9 @@ class Engine:
         cfg, ecfg = self.cfg, self.ecfg
         per_slot = [self._decode_ids_for_nblocks(nb) for nb in nb_sig]
         bids = np.stack(per_slot, axis=1)       # [L, B, Hkv, nb_cap]
-        # byte-true packing weight: K+V bytes one selected bf16 block streams
-        kv_block_bytes = 2.0 * ecfg.block * cfg.head_dim_ * 2.0
         wls = [pack_decode_items(bids[l], num_shards=ecfg.num_model_shards,
                                  block=ecfg.block,
-                                 bytes_per_block=kv_block_bytes)
+                                 bytes_per_block=self._kv_block_bytes)
                for l in range(cfg.num_layers)]
         bucket = pow2_bucket(max(wl.padded_length for wl in wls),
                              lo=8, hi=self._packed_item_cap())
@@ -363,9 +391,14 @@ class Engine:
         if self.paged:
             table = torch.from_numpy(self._table_for_slot(slot)).to(
                 self.device)
+            qkw = ({"scales": self.kv.scales, "kv_dtype": self.ecfg.kv_dtype}
+                   if self.quantized else {})
             logits = tfm.prefill_chunk_paged(
                 self.params, self.kv.pool, toks, table, q_offset, self.cfg,
-                kv_len=q_offset + c, sparse_items=items, last_index=c - 1)
+                kv_len=q_offset + c, sparse_items=items, last_index=c - 1,
+                **qkw)
+            if self.quantized:
+                logits = logits[0]
         else:
             logits = tfm.prefill_chunk(
                 self.params, self._staging, toks, 0, q_offset, self.cfg,
@@ -375,8 +408,16 @@ class Engine:
         if not self.paged:
             # one copy lands the staged sequence in its slot row; stale
             # staging rows past it are masked by position, like bucket
-            # padding
-            self.cache[:, :, slot] = self._staging[:, :, 0]
+            # padding (and, quantized, share its last block's scale, as in
+            # the reference)
+            if self.quantized:
+                codes, sc = quant.quantize_seq_cache(
+                    self._staging, self.ecfg.block, self.ecfg.kv_dtype)
+                quant.code_bits(self.cache)[:, :, slot] = \
+                    quant.code_bits(codes)[:, :, 0]
+                self.cache_scales[:, :, slot] = sc[:, :, 0]
+            else:
+                self.cache[:, :, slot] = self._staging[:, :, 0]
         return int(sample(logits, sampling)[0])
 
     def decode_slots(self, slots, tokens, positions,
@@ -405,6 +446,10 @@ class Engine:
         args = (torch.from_numpy(tok_all).to(dev),
                 torch.from_numpy(pos_all).to(dev))
         act = torch.from_numpy(act_all).to(dev)
+        if self.quantized:
+            work["scales"] = (self.kv.scales if self.paged
+                              else self.cache_scales)
+            work["kv_dtype"] = ecfg.kv_dtype
         if self.paged:
             # -1 rows for unbound slots route their writes into the trash
             # block
@@ -419,11 +464,24 @@ class Engine:
         else:
             logits = tfm.decode_step(self.params, self.cache, *args,
                                      self.cfg, active=act, **work)
+        if self.quantized:
+            logits = logits[0]
         st = self.decode_stats
         st["ticks"] += 1
         st["real_items"] += real
         st["grid_items"] += grid
         return sample(logits, sampling).cpu().numpy()[list(slots)]
+
+    def kv_bytes(self) -> int:
+        """Resident device bytes of the KV cache: the pool's codes and
+        scales (paged), or the slot cache, its scales and the staging row
+        (contiguous)."""
+        if self.paged:
+            return self.kv.pool_bytes()
+        parts = [self.cache, self._staging]
+        if self.cache_scales is not None:
+            parts.append(self.cache_scales)
+        return sum(t.numel() * t.element_size() for t in parts)
 
     # -- serving loop ---------------------------------------------------------
     def make_batcher(self) -> ContinuousBatcher:

@@ -13,7 +13,9 @@ The main-path subset of the reference's ``serving/kv_cache.py``:
   host swap tier yet).
 - :class:`PagedKVCache` — the device pool ``[L, 2, num_blocks+1, Hkv,
   block, Dh]`` whose last block is the trash block, addressed through the
-  allocator's tables (one block-id namespace down to the kernels).
+  allocator's tables (one block-id namespace down to the kernels).  A
+  quantized pool keeps its per-(block, kv head) scales ``[L, 2,
+  num_blocks+1, Hkv]`` beside the codes, indexed by the same block ids.
 """
 from __future__ import annotations
 
@@ -169,11 +171,17 @@ class PagedKVCache:
     one extra physical block, index ``num_blocks`` (:attr:`trash_block`),
     absorbs writes of inactive decode rows.  ``table_width`` (=
     ``max_seq_len // block``) fixes the width of every table row.
+    A quantized pool also passes ``make_scales_fn(total_blocks)``, which
+    builds :attr:`scales` ``[L, 2, total_blocks, Hkv]`` float32: a scale is
+    a property of the block it describes, so the allocator needs no state
+    for it.  ``scales`` is None for a full-precision pool.
     """
 
     def __init__(self, make_pool_fn, *, num_blocks: int, block: int,
-                 table_width: int):
+                 table_width: int, make_scales_fn=None):
         self.pool = make_pool_fn(num_blocks + 1)
+        self.scales = (None if make_scales_fn is None
+                       else make_scales_fn(num_blocks + 1))
         self.alloc = BlockAllocator(num_blocks, block)
         self.block = block
         self.trash_block = num_blocks
@@ -192,11 +200,25 @@ class PagedKVCache:
 
     def audit(self, strict: bool = True) -> list[str]:
         """Allocator accounting plus the pool's block axis (usable blocks
-        plus the trash block)."""
+        plus the trash block) and, for a quantized pool, scales whose shape
+        agrees with the codes' ``[:4]`` (scales that drifted from their
+        codes would dequantize garbage silently)."""
         fails = self.alloc.audit(strict=False)
         if self.pool.shape[2] != self.num_blocks + 1:
             fails.append(f"pool shape: block axis {self.pool.shape[2]} != "
                          f"num_blocks+trash {self.num_blocks + 1}")
+        if (self.scales is not None
+                and tuple(self.scales.shape) != tuple(self.pool.shape[:4])):
+            fails.append(f"scale/code shape disagreement: scales "
+                         f"{tuple(self.scales.shape)} != codes "
+                         f"{tuple(self.pool.shape[:4])}")
         if strict and fails:
             raise IntegrityError(fails)
         return fails
+
+    def pool_bytes(self) -> int:
+        """Resident device bytes of the cache: codes and scales."""
+        total = self.pool.numel() * self.pool.element_size()
+        if self.scales is not None:
+            total += self.scales.numel() * self.scales.element_size()
+        return total

@@ -77,6 +77,33 @@ def as_torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def quant_codes(x, kind):
+    """Codes spread over the range of ``kind`` from a float32 array: int8
+    values, or the raw bytes (uint8) of fp8 e4m3 values."""
+    if kind == "int8":
+        return np.clip(np.round(x * 40.0), -127, 127).astype(np.int8)
+    t = torch.from_numpy(np.clip(x * 100.0, -448, 448).astype(np.float32))
+    return t.to(torch.float8_e4m3fn).view(torch.uint8).numpy()
+
+
+def code_scales(rng, shape, kind):
+    """Per-(block, kv head) scales, different from block to block, that
+    dequantize :func:`quant_codes` of N(0, 1) data to 0.25-1x that data:
+    no larger than the bf16 checks' N(0, 1) values, the range of their
+    2^-6 tolerance."""
+    per_unit = 40.0 if kind == "int8" else 100.0   # quant_codes' factor
+    return (rng.uniform(0.25, 1.0, size=shape) / per_unit).astype(
+        np.float32)
+
+
+def code_tensor(codes, kind):
+    """A numpy code array from :func:`quant_codes` as a torch tensor of
+    the code dtype."""
+    dtype = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+    return torch.from_numpy(np.ascontiguousarray(codes).view(np.uint8)).view(
+        dtype)
+
+
 def as_slot_cache(pool, table):
     """The slot cache ``[B, Hkv, T*BLK, D]`` holding what ``table [B, T]``
     maps from ``pool [N, Hkv, BLK, D]`` (zeros where unmapped), so the two
@@ -390,3 +417,173 @@ def test_cuda_tc_flash_attention_ragged(cuda, D, causal, sq, skv, bq, bkv):
     want = flash_attention_reference(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
                                rtol=0)
+
+
+# -- the codes-and-scales forms (int8 / fp8 pools with per-block scales) ----
+
+def _quant_decode(cuda, seed, kind, D, **kw):
+    """A decode case over a code pool on the card: q in (-1, 1), codes and
+    one scale per (block, kv head)."""
+    q, kp, vp, items, table, pos = decode_case(seed, D=D, **kw)
+    rng = np.random.default_rng(300 + seed)
+    q = rng.uniform(-1.0, 1.0, size=q.shape).astype(np.float32)
+    ks, vs = (code_scales(rng, kp.shape[:2], kind) for _ in range(2))
+    kc, vc = (code_tensor(quant_codes(p, kind), kind).to(cuda)
+              for p in (kp, vp))
+    q, ks, vs, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, ks, vs, items, table, pos))
+    return q.reshape(3, 2, 3, D), kc, vc, ks, vs, items, table, pos
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("holes,window,layout", [
+    (False, None, "packed"), (True, 200, "packed"), (True, None, "padded")])
+def test_cuda_quant_decode_kernel_matches_plain(cuda, kind, holes, window,
+                                                layout, D):
+    """#1 over a code pool: scales at the physical block, -1 entries."""
+    q, kc, vc, ks, vs, items, table, pos = _quant_decode(
+        cuda, 17, kind, D, holes=holes, layout=layout)
+    kw = dict(block_kv=BLK, window=window, k_scales=ks, v_scales=vs)
+    before = flash_decode_paged_kernel.launches_by_dtype.get(
+        str(kc.dtype)[6:], 0)
+    got = flash_decode_paged_kernel(q, kc, vc, items, table, pos, **kw)
+    assert flash_decode_paged_kernel.launches_by_dtype[
+        str(kc.dtype)[6:]] == before + 1
+    want = packed_decode_attention_paged(q, kc, vc, items, table, pos, **kw)
+    for g, w in zip(got, want):     # f32 sums in another order
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("window,layout", [(None, "packed"),
+                                           (200, "padded")])
+def test_cuda_quant_contiguous_decode_matches_plain(cuda, kind, window,
+                                                    layout, D):
+    """#3 over a code slot cache: scales per (row, kv head, block), and
+    the same bits as #1 on equal contents."""
+    q, kc, vc, ks, vs, items, table, pos = _quant_decode(
+        cuda, 18, kind, D, layout=layout)
+    tb = table.cpu().numpy()
+    slot = lambda p: code_tensor(as_slot_cache(  # noqa: E731
+        p.view(torch.uint8).cpu().numpy(), tb), kind).to(cuda)
+    B, T = tb.shape
+    idx = table.clamp_min(0).long()
+    mapped = (table >= 0)[:, None, :]
+    sk, sv = (torch.where(mapped, s[idx].permute(0, 2, 1), 1.0).contiguous()
+              for s in (ks, vs))                       # [B, Hkv, T]
+    kw = dict(block_kv=BLK, window=window)
+    got = flash_decode_kernel(q, slot(kc), slot(vc), items, pos,
+                              k_scales=sk, v_scales=sv, **kw)
+    want = packed_decode_attention(q, slot(kc), slot(vc), items, pos,
+                                   k_scales=sk, v_scales=sv, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    paged = flash_decode_paged_kernel(q, kc, vc, items, table, pos,
+                                      k_scales=ks, v_scales=vs, **kw)
+    for a, b in zip(got, paged):
+        assert torch.equal(a, b), "one body: both layouts, the same bits"
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("q_offset,hole", [(0, False), (2048, True)])
+def test_cuda_quant_prefill_matches_plain(cuda, kind, dtype, atol, q_offset,
+                                          hole, D):
+    """#2 paged over a code pool: the tensor-core body (bf16 q) and the
+    scalar one (f32 q), an uncovered run, -1 table entries, kv_len inside
+    the chunk."""
+    chunk = 256
+    q, kp, vp, items, table = prefill_case(
+        19, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
+        hole=hole)
+    rng = np.random.default_rng(19)
+    ks, vs = (code_scales(rng, kp.shape[:2], kind) for _ in range(2))
+    kc, vc = (code_tensor(quant_codes(p, kind), kind).to(cuda)
+              for p in (kp, vp))
+    q, ks, vs, items, table = (t.to(cuda) for t in as_torch(
+        q, ks, vs, items, table))
+    kw = dict(q_offset=q_offset, kv_len=q_offset + chunk - 40, k_scales=ks,
+              v_scales=vs)
+    q = q.to(dtype)
+    got = sparse_prefill_paged(q, kc, vc, items, table, **kw)
+    want = worklist_attention_paged(q, kc, vc, items, table, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert not got[1, :BLK].any(), "an uncovered run's rows stay zero"
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_cuda_quant_prefill_odd_blocks(cuda, kind):
+    """block_kv = 80 and 96: code tiles that end inside a 64-key step,
+    every step of a tile under the tile's one scale."""
+    for blk in (80, 96):
+        prompt, H, Hkv, D = 400, 4, 2, 64
+        rng = np.random.default_rng(20 + blk)
+        nq = -(-prompt // blk)
+        q = torch.from_numpy(rng.uniform(-1, 1, (H, prompt, D)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        kc, vc = (code_tensor(quant_codes(rng.standard_normal(
+            (nq + 1, Hkv, blk, D)).astype(np.float32), kind), kind).to(cuda)
+            for _ in range(2))
+        ks, vs = (torch.from_numpy(code_scales(rng, (nq + 1, Hkv),
+                                               kind)).to(cuda)
+                  for _ in range(2))
+        table = torch.from_numpy(rng.permutation(nq).astype(np.int32)).to(
+            cuda)
+        sels = [strided_policy(h, 2, nq, nq) for h in range(H)]
+        items = torch.from_numpy(wl.build_worklist(
+            sels, np.zeros(H, np.int64), 1, nq, nq, blk,
+            kv_head_of_head=np.arange(H) // 2).items[0]).to(cuda)
+        kw = dict(block_q=blk, block_kv=blk, q_offset=0, kv_len=prompt,
+                  k_scales=ks, v_scales=vs)
+        got = sparse_prefill_paged(q, kc, vc, items, table, **kw)
+        want = worklist_attention_paged(q, kc, vc, items, table, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2.0 ** -6, rtol=0)
+
+
+def test_cuda_quant_wrappers_refuse_without_a_kernel(cuda):
+    """A code pool without scales, or scales with a bf16 pool, raises on
+    the card instead of running another path."""
+    q, kc, vc, ks, vs, items, table, pos = _quant_decode(cuda, 21, "int8",
+                                                         64)
+    with pytest.raises(ValueError, match="needs k_scales"):
+        flash_decode_paged_kernel(q, kc, vc, items, table, pos,
+                                  block_kv=BLK)
+    with pytest.raises(ValueError, match="int8/fp8 codes"):
+        flash_decode_paged_kernel(q, kc.float(), vc.float(), items, table,
+                                  pos, block_kv=BLK, k_scales=ks,
+                                  v_scales=vs)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_quant_smoke_serve_matches_cpu(cuda, layout):
+    """A SMOKE float32 serve at kv_dtype int8: the card's greedy tokens
+    equal the plain versions' on the CPU, and the quantized kernels ran."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (300, 40)]
+    decode = flash_decode_paged_kernel if layout == "paged" \
+        else flash_decode_kernel
+    before = decode.launches_by_dtype.get("int8", 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, init_params(cfg, seed=1, device=dev),
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, kv_dtype="int8",
+                                  cache_layout=layout),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        outs.append([r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=8))])
+    assert outs[0] == outs[1]
+    assert decode.launches_by_dtype.get("int8", 0) > before

@@ -81,8 +81,7 @@ def test_engine_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("option", [
-    {"attention": "dense"}, {"kv_dtype": "fp8"},
-    {"prefill_mode": "monolithic"}, {"kv_dtype": "int8"},
+    {"attention": "dense"}, {"prefill_mode": "monolithic"},
     {"drift_threshold": 0.5}, {"num_model_shards": 3},
     {"seq_shards": 2}, {"replan_every": 8}, {"preemption": True},
     {"prefix_cache": True}])
