@@ -35,7 +35,25 @@ Phases, in order; any failure exits non-zero:
    quantized kernels, with the cache's resident bytes beside the bf16
    engine's; then SMOKE-size float32 serves on the card, paged and
    contiguous, in bf16 and int8, must give the same greedy tokens as the
-   same serves on the CPU (plain versions).
+   same serves on the CPU (plain versions);
+6. Yi-6B (32 heads over 4 KV heads: G = 8, head_dim 128) with random
+   weights from a seeded torch generator on the card: phases 3 and 4 at
+   its shapes,
+   with the f32 forms of #1, #2 and #3 checked, timed and bounded too;
+   Yi-6B's widths at 2 layers in float32, paged and contiguous, bf16 /
+   int8 / fp8 caches: the card's greedy tokens (the head_dim-128 f32 and
+   code kernels) must equal the plain versions' on the CPU; then three
+   full-width serves of the same 8 prompts (paged bf16, the main path;
+   contiguous bf16, whose tokens must equal the paged serve's; paged int8
+   through the code forms), each completing every request.
+
+Each kernel form of the last JSON line but one is named ``<kernel>``,
+``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's shapes,
+``...@yi-6b``; its ``launches`` are those of the run that launches it on a
+serving path (a full-width serve; the library-path run for #4 and #5; the
+2-layer float32 serves for Yi-6B's f32 forms and the code decodes no
+full-width serve runs; the paged int8 serve for Yi-6B's bf16-q fp8
+prefill, which no serve launches, so its count is 0).
 
 The last two lines are a JSON object of per-kernel numbers and the card
 line, then ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -54,8 +72,26 @@ BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 F32_ATOL = 1e-4                # f32 output: sums taken in another order
 BF16_ATOL = 2.0 ** -6          # bf16 output: one bf16 ulp at |x| < 4
-B, H, HKV, D, BLK = 8, 9, 3, 64, 128   # SmolLM-135M decode shapes
-SMAX = 4096
+B, BLK, SMAX = 8, 128, 4096    # decode rows, KV block, max_seq_len
+
+
+@dataclasses.dataclass(frozen=True)
+class Shapes:
+    """A model's attention shapes for the kernel phases, and the suffix of
+    its kernel-form names."""
+    arch: str
+    H: int
+    HKV: int
+    D: int
+    tag: str
+
+    @property
+    def G(self) -> int:
+        return self.H // self.HKV
+
+
+SMOL = Shapes("smollm-135m", 9, 3, 64, "")
+YI = Shapes("yi-6b", 32, 4, 128, "@yi-6b")
 SERVE_LENS = (300, 1010, 3500, 2048, 700, 1500, 2900, 513)
 # dense flash attention checks: (tag, causal, Sq, Skv); the first is timed
 FLASH_CASES = (("causal,4096", True, 4096, 4096),
@@ -63,6 +99,8 @@ FLASH_CASES = (("causal,4096", True, 4096, 4096),
                ("causal,ragged 1000x3001", True, 1000, 3001))
 SERVES = (("paged", "packed"), ("contiguous", "packed"),
           ("paged", "padded"), ("contiguous", "padded"))
+# Yi-6B's full-width serves: (cache layout, KV dtype), all packed decode
+YI_SERVES = (("paged", "bf16"), ("contiguous", "bf16"), ("paged", "int8"))
 QUANT_KINDS = ("int8", "fp8")
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
@@ -78,19 +116,31 @@ SERVE_KERNELS = {
 # the libraries whose bf16 kernels must run on tensor cores
 TENSOR_CORE_LIBS = ("sparse_prefill_paged", "sparse_prefill_contig",
                     "flash_attention")
-REPLACES = {
+# each kernel and the TPU kernel it replaces
+KERNELS = {
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:510",
     "sparse_prefill_paged": "src/repro/kernels/sparse_prefill.py:111",
     "flash_decode_contig": "src/repro/kernels/flash_decode.py:214",
     "sparse_prefill_contig": "src/repro/kernels/sparse_prefill.py:111",
     "flash_attention": "src/repro/kernels/flash_attn.py:83",
-    "sparse_decode": "src/repro/kernels/sparse_decode.py:190",
-    **{f"{n}.{k}": f for n, f in (
-        ("flash_decode_paged", "src/repro/kernels/flash_decode.py:510"),
-        ("flash_decode_contig", "src/repro/kernels/flash_decode.py:214"),
-        ("sparse_prefill_paged", "src/repro/kernels/sparse_prefill.py:111"))
-       for k in QUANT_KINDS}}
-CODE_DTYPE_NAMES = {"int8": "int8", "fp8": "float8_e4m3fn"}
+    "sparse_decode": "src/repro/kernels/sparse_decode.py:190"}
+CODE_KERNELS = ("flash_decode_paged", "flash_decode_contig",
+                "sparse_prefill_paged")
+PATH_KERNELS = ("flash_decode_paged", "sparse_prefill_paged",
+                "flash_decode_contig", "sparse_prefill_contig")
+# every kernel form of the kernels line: SmolLM-135M's bf16 kernels and
+# code forms, then Yi-6B's bf16 kernels, f32 forms and code forms
+FORMS = (*KERNELS,
+         *(f"{n}.{k}" for n in CODE_KERNELS for k in QUANT_KINDS),
+         *(f"{n}{YI.tag}" for n in KERNELS),
+         *(f"{n}.f32{YI.tag}" for n in PATH_KERNELS),
+         *(f"{n}.{k}{YI.tag}" for n in CODE_KERNELS for k in QUANT_KINDS))
+KIND_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn", "f32": "float32"}
+
+
+def form(kernel: str, kind: str | None, sh: Shapes) -> str:
+    """The name of a kernel form: ``<kernel>[.<kind>]<shape tag>``."""
+    return f"{kernel}{'.' + kind if kind else ''}{sh.tag}"
 
 
 def fail(msg: str) -> None:
@@ -120,12 +170,13 @@ def reset_counts():
 
 
 def read_counts(names):
-    """Launches of each name: a kernel's (all its launches) or, for
-    ``<kernel>.<kind>``, those of its codes-and-scales form on ``kind``."""
+    """Launches of each form name: a kernel's (all its launches) or, for
+    ``<kernel>.<kind>``, those over ``kind``'s K/V dtype (the shape tag
+    names the run, not a count)."""
     c, got = counters(), {}
     for n in names:
-        base, _, kind = n.partition(".")
-        got[n] = (c[base].launches_by_dtype.get(CODE_DTYPE_NAMES[kind], 0)
+        base, _, kind = n.partition("@")[0].partition(".")
+        got[n] = (c[base].launches_by_dtype.get(KIND_DTYPES[kind], 0)
                   if kind else c[base].launches)
     return got
 
@@ -252,57 +303,61 @@ def slot_rows(pool, table):
                                             pool.shape[3]).contiguous()
 
 
-def decode_mask(items, table, pos, G):
-    """Boolean ``[B, Hkv*G, 1, T*blk]`` mask of the (row, key) pairs the
-    items select, and the selected (physical block, kv head) tiles."""
+def decode_mask(items, table, pos, sh: Shapes):
+    """Boolean ``[B, H, 1, T*blk]`` mask of the (row, key) pairs the items
+    select, and the selected (physical block, kv head) tiles."""
     import numpy as np
     it_np, tb_np, pos_np = (t.cpu().numpy() for t in (items, table, pos))
     T = tb_np.shape[1]
     kpos = np.arange(T * BLK)
-    mask = np.zeros((tb_np.shape[0], HKV * G, 1, T * BLK), bool)
+    mask = np.zeros((tb_np.shape[0], sh.H, 1, T * BLK), bool)
     tiles = set()
     for b, h, lb, _, _, valid in it_np:
         if valid and tb_np[b, lb] >= 0:
             tiles.add((int(tb_np[b, lb]), int(h)))
             sl = slice(lb * BLK, (lb + 1) * BLK)
-            mask[b, h * G:(h + 1) * G, 0, sl] = kpos[sl] <= pos_np[b]
+            mask[b, h * sh.G:(h + 1) * sh.G, 0, sl] = kpos[sl] <= pos_np[b]
     return mask, tiles
 
 
-def decode_bound(q, items, table, mask, ntiles, with_table: bool):
-    """Bytes: q, the selected K/V tiles, the item table (and block table),
-    positions and the f32 (out, m, l); operations: the unmasked (query
-    row, key) pairs, q.k on bf16 inputs at the tensor rate, p.V in true
-    f32 (the kernel's contract) at the f32 rate."""
-    G = q.shape[2]
-    nbytes = (q.numel() * 2 + ntiles * 2 * BLK * D * 2 + items.numel() * 4
-              + (table.numel() * 4 if with_table else 0) + B * 4
-              + B * HKV * G * (D + 2) * 4)
-    flops = 2 * D * int(mask.sum())
-    return nbytes, flops, flops
+def decode_bound(items, table, mask, ntiles, with_table: bool, sh: Shapes,
+                 elem: int):
+    """Bytes: q, the selected K/V tiles (``elem`` bytes an element), the
+    item table (and block table), positions and the f32 (out, m, l);
+    operations: the unmasked (query row, key) pairs, q.k on bf16 inputs at
+    the tensor rate (f32 inputs at the f32 rate), p.V in true f32 (the
+    kernel's contract) at the f32 rate.  Returns (bytes, bf16 operations,
+    f32 operations)."""
+    nbytes = (B * sh.H * sh.D * elem + ntiles * 2 * BLK * sh.D * elem
+              + items.numel() * 4 + (table.numel() * 4 if with_table else 0)
+              + B * 4 + B * sh.H * (sh.D + 2) * 4)
+    flops = 2 * sh.D * int(mask.sum())
+    return (nbytes, flops, flops) if elem == 2 else (nbytes, 0, 2 * flops)
 
 
-def check_decode(eng, gen, dev, results):
-    """The paged (#1) and contiguous (#3) decode kernels on the engine's
-    layer-0 work at 8 rows of 3000-4096 tokens: packed items, the padded
-    table from per-slot block ids, -1 table entries, a window; and the two
-    layouts bit for bit on equal cache contents."""
+def decode_case(eng, gen, dev, sh: Shapes, mag=None):
+    """Layer 0's decode work of the engine at 8 rows of 3000-4096 tokens:
+    positions, the block table, packed items, the padded table from
+    per-slot block ids, the table with -1 entries, and float32 K/V pools
+    (N(0, 1), or scaled per tile by ``mag``) and q."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_decode import (
-        decode_items_from_ids, flash_decode_kernel, flash_decode_paged_kernel,
-        packed_decode_attention, packed_decode_attention_paged)
-    G = H // HKV
+    from repro_torch.kernels.flash_decode import decode_items_from_ids
     T = SMAX // BLK
     N = B * T + 1
     pos = torch.randint(3000, SMAX, (B,), generator=gen, dtype=torch.int32)
     nblocks = (pos + 1 + BLK - 1) // BLK
     table = random_table(gen, B, nblocks, N - 1, T).to(dev)
     pos = pos.to(dev)
-    kp = torch.randn((N, HKV, BLK, D), generator=gen).to(dev, torch.bfloat16)
-    vp = torch.randn((N, HKV, BLK, D), generator=gen).to(dev, torch.bfloat16)
-    kc, vc = slot_rows(kp, table), slot_rows(vp, table)
-    q = torch.randn((B, HKV, G, D), generator=gen).to(dev, torch.bfloat16)
+    shape = (N, sh.HKV, BLK, sh.D)
+    if mag:
+        scale = mag[0] + (mag[1] - mag[0]) * torch.rand(
+            (N, sh.HKV, 1, 1), generator=gen)
+        kf = torch.randn(shape, generator=gen) * scale
+        vf = torch.randn(shape, generator=gen) * scale
+    else:
+        kf, vf = (torch.randn(shape, generator=gen) for _ in range(2))
+    q = torch.randn((B, sh.HKV, sh.G, sh.D), generator=gen)
     sig = eng._nb_sig(pos.cpu().numpy())
     items = eng._plan_for(sig)[0][0].contiguous()       # layer 0's list
     bids = torch.from_numpy(np.stack(
@@ -312,57 +367,81 @@ def check_decode(eng, gen, dev, results):
     holes[:4, 0] = -1                                    # unmapped sinks
     for r in range(4, B):
         holes[r, int(nblocks[r]) - 1] = -1               # unmapped newest
+    return pos, table, items, padded, holes, kf.to(dev), vf.to(dev), q.to(dev)
 
-    def paged(fn, it, tb=table, **kw):
-        return fn(q, kp, vp, it, tb, pos, block_kv=BLK, **kw)
 
-    def contig(fn, it, **kw):
-        return fn(q, kc, vc, it, pos, block_kv=BLK, **kw)
-
-    errs = {}
-    for tag, it, tb, kw in (("packed", items, table, {}),
-                            ("padded", padded, table, {}),
-                            ("unmapped", items, holes, {}),
-                            ("window", items, table, {"window": 640})):
-        errs["paged", tag] = check(
-            "flash_decode_paged", tag,
-            paged(flash_decode_paged_kernel, it, tb, **kw),
-            paged(packed_decode_attention_paged, it, tb, **kw), F32_ATOL)
-    for tag, it, kw in (("packed", items, {}), ("padded", padded, {}),
-                        ("window", items, {"window": 640})):
-        got = contig(flash_decode_kernel, it, **kw)
-        errs["contig", tag] = check("flash_decode_contig", tag, got,
-                                    contig(packed_decode_attention, it, **kw),
-                                    F32_ATOL)
-        same = all(torch.equal(a, b) for a, b in zip(
-            got, paged(flash_decode_paged_kernel, it, **kw)))
-        print(f"decode[{tag}]: contiguous {'==' if same else '!='} paged, "
-              f"bit for bit")
-        if not same:
-            fail(f"the contiguous and paged decode kernels differ ({tag})")
-
-    mask, tiles = decode_mask(items, table, pos, G)
+def check_decode(eng, gen, dev, results, sh: Shapes, dtypes):
+    """The paged (#1) and contiguous (#3) decode kernels on the engine's
+    layer-0 work at 8 rows of 3000-4096 tokens, q and caches in each of
+    ``dtypes``: packed items, the padded table from per-slot block ids, -1
+    table entries, a window; the two layouts bit for bit on equal cache
+    contents; each form timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_kernel, flash_decode_paged_kernel,
+        packed_decode_attention, packed_decode_attention_paged)
+    pos, table, items, padded, holes, kf, vf, qf = decode_case(eng, gen, dev,
+                                                               sh)
+    mask, tiles = decode_mask(items, table, pos, sh)
     mask_t = torch.from_numpy(mask).to(dev)
-    qs = q.reshape(B, HKV * G, 1, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes, bf, f32 = decode_bound(q, items, table, mask, len(tiles), True)
-    # library yardstick: SDPA over the same selected keys as a mask on K/V
-    # gathered from the pool beforehand (the gather is not timed)
-    measure(results, "flash_decode_paged",
-            lambda: paged(flash_decode_paged_kernel, items),
-            lambda: paged(packed_decode_attention_paged, items),
-            lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
-            nbytes, bf, f32, errs["paged", "packed"],
-            f" ({len(tiles)} selected tiles)")
-    nbytes, bf, f32 = decode_bound(q, items, table, mask, len(tiles), False)
-    measure(results, "flash_decode_contig",
-            lambda: contig(flash_decode_kernel, items),
-            lambda: contig(packed_decode_attention, items),
-            lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
-            nbytes, bf, f32, errs["contig", "packed"])
+    for dtype in dtypes:
+        kind = None if dtype == torch.bfloat16 else "f32"
+        sfx = "" if kind is None else f",{kind}"
+        q, kp, vp = (t.to(dtype) for t in (qf, kf, vf))
+        kc, vc = slot_rows(kp, table), slot_rows(vp, table)
+
+        def paged(fn, it, tb=table, **kw):
+            return fn(q, kp, vp, it, tb, pos, block_kv=BLK, **kw)
+
+        def contig(fn, it, **kw):
+            return fn(q, kc, vc, it, pos, block_kv=BLK, **kw)
+
+        errs = {}
+        pname = form("flash_decode_paged", kind, sh)
+        cname = form("flash_decode_contig", kind, sh)
+        for tag, it, tb, kw in (("packed", items, table, {}),
+                                ("padded", padded, table, {}),
+                                ("unmapped", items, holes, {}),
+                                ("window", items, table, {"window": 640})):
+            errs["paged", tag] = check(
+                pname, tag, paged(flash_decode_paged_kernel, it, tb, **kw),
+                paged(packed_decode_attention_paged, it, tb, **kw), F32_ATOL)
+        for tag, it, kw in (("packed", items, {}), ("padded", padded, {}),
+                            ("window", items, {"window": 640})):
+            got = contig(flash_decode_kernel, it, **kw)
+            errs["contig", tag] = check(
+                cname, tag, got, contig(packed_decode_attention, it, **kw),
+                F32_ATOL)
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, paged(flash_decode_paged_kernel, it, **kw)))
+            print(f"decode{sh.tag}[{tag}{sfx}]: contiguous "
+                  f"{'==' if same else '!='} paged, bit for bit")
+            if not same:
+                fail(f"the contiguous and paged decode kernels differ "
+                     f"({sh.arch}, {tag}{sfx})")
+        qs = q.reshape(B, sh.H, 1, sh.D)
+        elem = q.element_size()
+        # library yardstick: SDPA over the same selected keys as a mask on
+        # K/V gathered from the pool beforehand (the gather is not timed)
+        nbytes, bf, f32 = decode_bound(items, table, mask, len(tiles), True,
+                                       sh, elem)
+        measure(results, pname,
+                lambda: paged(flash_decode_paged_kernel, items),
+                lambda: paged(packed_decode_attention_paged, items),
+                lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
+                nbytes, bf, f32, errs["paged", "packed"],
+                f" ({len(tiles)} selected tiles)")
+        nbytes, bf, f32 = decode_bound(items, table, mask, len(tiles), False,
+                                       sh, elem)
+        measure(results, cname,
+                lambda: contig(flash_decode_kernel, items),
+                lambda: contig(packed_decode_attention, items),
+                lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
+                nbytes, bf, f32, errs["contig", "packed"])
 
 
-def prefill_mask(items, table, q_off, C, kv_len, T):
+def prefill_mask(items, table, q_off, C, kv_len, T, sh: Shapes):
     """Boolean ``[H, C, T*blk]`` mask of the (query, key) pairs the items
     select, the selected (physical block, kv head) tiles and the valid
     item count."""
@@ -370,7 +449,7 @@ def prefill_mask(items, table, q_off, C, kv_len, T):
     it_np, tb_np = items.cpu().numpy(), table.cpu().numpy()
     qpos = q_off + np.arange(C)
     kpos = np.arange(T * BLK)
-    mask = np.zeros((H, C, T * BLK), bool)
+    mask = np.zeros((sh.H, C, T * BLK), bool)
     tiles, nvalid = set(), 0
     for h, qb, lb, _, _, valid, kvh in it_np:
         if valid and tb_np[lb] >= 0:
@@ -394,11 +473,13 @@ def run_lengths(items):
     return [int(n) for n in valid[ends] - valid[starts]]
 
 
-def check_prefill(eng, gen, dev, results):
+def check_prefill(eng, gen, dev, results, sh: Shapes, timed_dtypes):
     """The paged (#2) and contiguous sparse prefill kernels on a 256-token
     chunk of a 2304-token prompt at q_offset 0 and 2048, bf16 and f32, over
     the engine's chunk work lists; the contiguous form reads the slot row
-    [Hkv, 4096, D] in place, and the two layouts agree bit for bit."""
+    [Hkv, 4096, D] in place, and the two layouts agree bit for bit.  The
+    forms in ``timed_dtypes`` are timed at q_offset 2048 beside their bound
+    and SDPA."""
     import torch
     from repro_torch.kernels.sparse_prefill import (
         sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
@@ -407,10 +488,15 @@ def check_prefill(eng, gen, dev, results):
     T = SMAX // BLK
     N = T + 1
     table = random_table(gen, 1, [prompt // BLK], N - 1, T)[0].to(dev)
-    kp = torch.randn((N, HKV, BLK, D), generator=gen).to(dev, torch.bfloat16)
-    vp = torch.randn((N, HKV, BLK, D), generator=gen).to(dev, torch.bfloat16)
+    shape = (N, sh.HKV, BLK, sh.D)
+    kp = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    vp = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
     kc, vc = slot_rows(kp, table[None])[0], slot_rows(vp, table[None])[0]
-    q = torch.randn((H, C, D), generator=gen).to(dev, torch.bfloat16)
+    q = torch.randn((sh.H, C, sh.D), generator=gen).to(dev, torch.bfloat16)
+    pname = lambda dt: form("sparse_prefill_paged",  # noqa: E731
+                            None if dt == torch.bfloat16 else "f32", sh)
+    cname = lambda dt: form("sparse_prefill_contig",  # noqa: E731
+                            None if dt == torch.bfloat16 else "f32", sh)
     errs, timed = {}, {}
     for q_offset in (0, 2048):
         items = eng._chunk_worklists(prompt, q_offset, C)[0].contiguous()
@@ -423,17 +509,17 @@ def check_prefill(eng, gen, dev, results):
             qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
             got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw)
             errs["paged", tag] = check(
-                "sparse_prefill_paged", tag, got_p,
+                pname(torch.bfloat16), tag, got_p,
                 worklist_attention_paged(qd, pk, pv, items, table, **kw),
                 atol)
             got_c = sparse_prefill_attention(qd, ck, cv, items, **kw)
             errs["contig", tag] = check(
-                "sparse_prefill_contig", tag, got_c,
+                cname(torch.bfloat16), tag, got_c,
                 worklist_attention(qd, ck, cv, items, **kw), atol)
             if not torch.equal(got_p, got_c):
                 fail(f"the contiguous and paged prefill kernels differ "
-                     f"({tag})")
-            print(f"prefill[{tag}]: contiguous == paged, bit for bit")
+                     f"({sh.arch}, {tag})")
+            print(f"prefill{sh.tag}[{tag}]: contiguous == paged, bit for bit")
 
     # the kernel is bound by each CTA's serial chain of tiles: time it at
     # both offsets beside the longest run's tile count
@@ -442,31 +528,42 @@ def check_prefill(eng, gen, dev, results):
                   kv_len=q_offset + C)
         ms = time_ms(lambda: sparse_prefill_paged(q, kp, vp, items, table,
                                                   **kw), graph=True)
-        print(f"sparse_prefill_paged at q_offset {q_offset}: longest run "
-              f"{max(run_lengths(items))} tiles, kernel {ms:.4f} ms")
+        print(f"{pname(torch.bfloat16)} at q_offset {q_offset}: longest "
+              f"run {max(run_lengths(items))} tiles, kernel {ms:.4f} ms")
     items = timed[2048]
     kw = dict(block_q=BLK, block_kv=BLK, q_offset=2048, kv_len=2048 + C)
-    mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C, T)
+    mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C, T,
+                                       sh)
     mask_t = torch.from_numpy(mask[None]).to(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library = lambda: sdpa(q[None], kc[None], vc[None],  # noqa: E731
-                           attn_mask=mask_t, enable_gqa=True)
-    # unmasked (query, key) pairs only; both products on bf16 inputs at
-    # the tensor rate (p may be rounded to bf16 within the bf16 tolerance)
-    flops = 2 * D * int(mask.sum())
-    base = (2 * q.numel() * 2 + len(tiles) * 2 * BLK * D * 2
-            + items.numel() * 4)
+    # unmasked (query, key) pairs only; bf16: both products on bf16 inputs
+    # at the tensor rate (p may be rounded to bf16 within the bf16
+    # tolerance); f32: both at the f32 rate
+    flops = 2 * sh.D * int(mask.sum())
     note = f" (chunk {C} at q_offset 2048, {nvalid} tiles)"
-    measure(results, "sparse_prefill_paged",
-            lambda: sparse_prefill_paged(q, kp, vp, items, table, **kw),
-            lambda: worklist_attention_paged(q, kp, vp, items, table, **kw),
-            library, base + table.numel() * 4, 2 * flops, 0,
-            errs["paged", "q_offset=2048,bfloat16"], note)
-    measure(results, "sparse_prefill_contig",
-            lambda: sparse_prefill_attention(q, kc, vc, items, **kw),
-            lambda: worklist_attention(q, kc, vc, items, **kw),
-            library, base, 2 * flops, 0,
-            errs["contig", "q_offset=2048,bfloat16"], note)
+    for dtype in timed_dtypes:
+        qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+        elem = qd.element_size()
+        base = (2 * qd.numel() * elem + len(tiles) * 2 * BLK * sh.D * elem
+                + items.numel() * 4)
+        ops = (2 * flops, 0) if elem == 2 else (0, 2 * flops)
+        tag = f"q_offset=2048,{str(dtype)[6:]}"
+        library = (lambda qd=qd, ck=ck, cv=cv: sdpa(
+            qd[None], ck[None], cv[None], attn_mask=mask_t,
+            enable_gqa=True))
+        measure(results, pname(dtype),
+                lambda qd=qd, pk=pk, pv=pv: sparse_prefill_paged(
+                    qd, pk, pv, items, table, **kw),
+                lambda qd=qd, pk=pk, pv=pv: worklist_attention_paged(
+                    qd, pk, pv, items, table, **kw),
+                library, base + table.numel() * 4, *ops,
+                errs["paged", tag], note)
+        measure(results, cname(dtype),
+                lambda qd=qd, ck=ck, cv=cv: sparse_prefill_attention(
+                    qd, ck, cv, items, **kw),
+                lambda qd=qd, ck=ck, cv=cv: worklist_attention(
+                    qd, ck, cv, items, **kw),
+                library, base, *ops, errs["contig", tag], note)
 
 
 def quant_pool(pool, kind):
@@ -488,43 +585,23 @@ def slot_scales(scales, table):
     return torch.where((table >= 0)[:, None, :], got, 1.0).contiguous()
 
 
-def check_quant_decode(eng, gen, dev, results):
+def check_quant_decode(eng, gen, dev, results, sh: Shapes):
     """#1 and #3 over int8 / fp8 codes with per-block scales at the engine's
     layer-0 shapes (8 rows of 3000-4096 tokens): packed items, the padded
     table, -1 table entries; the two layouts bit for bit; each form timed
     beside its bound and SDPA on the dequantized bf16 K/V."""
-    import numpy as np
     import torch
     from repro_torch.kernels.flash_decode import (
-        decode_items_from_ids, flash_decode_kernel, flash_decode_paged_kernel,
+        flash_decode_kernel, flash_decode_paged_kernel,
         packed_decode_attention, packed_decode_attention_paged)
-    G = H // HKV
-    T = SMAX // BLK
-    N = B * T + 1
-    pos = torch.randint(3000, SMAX, (B,), generator=gen, dtype=torch.int32)
-    nblocks = (pos + 1 + BLK - 1) // BLK
-    table = random_table(gen, B, nblocks, N - 1, T).to(dev)
-    pos = pos.to(dev)
     # magnitudes that differ from block to block, so the scales do too
     # (0.25-1x the N(0, 1) values of the bf16 checks)
-    mag = 0.25 + 0.75 * torch.rand((N, HKV, 1, 1), generator=gen)
-    kf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
-        dev, torch.bfloat16)
-    vf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
-        dev, torch.bfloat16)
-    q = torch.randn((B, HKV, G, D), generator=gen).to(dev, torch.bfloat16)
-    sig = eng._nb_sig(pos.cpu().numpy())
-    items = eng._plan_for(sig)[0][0].contiguous()
-    bids = torch.from_numpy(np.stack(
-        [eng._decode_ids_for_nblocks(n)[0] for n in sig])).to(dev)
-    padded = decode_items_from_ids(bids)
-    holes = table.clone()
-    holes[:4, 0] = -1
-    for r in range(4, B):
-        holes[r, int(nblocks[r]) - 1] = -1
-    mask, tiles = decode_mask(items, table, pos, G)
+    pos, table, items, padded, holes, kf, vf, q = decode_case(
+        eng, gen, dev, sh, mag=(0.25, 1.0))
+    kf, vf, q = (t.to(torch.bfloat16) for t in (kf, vf, q))
+    mask, tiles = decode_mask(items, table, pos, sh)
     mask_t = torch.from_numpy(mask).to(dev)
-    qs = q.reshape(B, HKV * G, 1, D)
+    qs = q.reshape(B, sh.H, 1, sh.D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for kind in QUANT_KINDS:
         kc, ks, kdq = quant_pool(kf, kind)
@@ -542,36 +619,36 @@ def check_quant_decode(eng, gen, dev, results):
                       v_scales=sv)
 
         errs = {}
+        pname = form("flash_decode_paged", kind, sh)
+        cname = form("flash_decode_contig", kind, sh)
         for tag, it, tb in (("packed", items, table),
                             ("padded", padded, table),
                             ("unmapped", items, holes)):
             errs["paged", tag] = check(
-                f"flash_decode_paged.{kind}", tag,
-                paged(flash_decode_paged_kernel, it, tb),
+                pname, tag, paged(flash_decode_paged_kernel, it, tb),
                 paged(packed_decode_attention_paged, it, tb), F32_ATOL)
         for tag, it in (("packed", items), ("padded", padded)):
             got = contig(flash_decode_kernel, it)
             errs["contig", tag] = check(
-                f"flash_decode_contig.{kind}", tag, got,
-                contig(packed_decode_attention, it), F32_ATOL)
+                cname, tag, got, contig(packed_decode_attention, it),
+                F32_ATOL)
             same = all(torch.equal(a, b) for a, b in zip(
                 got, paged(flash_decode_paged_kernel, it)))
-            print(f"decode.{kind}[{tag}]: contiguous "
+            print(f"decode.{kind}{sh.tag}[{tag}]: contiguous "
                   f"{'==' if same else '!='} paged, bit for bit")
             if not same:
                 fail(f"the {kind} contiguous and paged decode kernels "
-                     f"differ ({tag})")
+                     f"differ ({sh.arch}, {tag})")
         kdc, vdc = slot_rows(kdq, table), slot_rows(vdq, table)
-        for name, layout in (("flash_decode_paged", paged),
-                             ("flash_decode_contig", contig)):
+        for name, layout in ((pname, paged), (cname, contig)):
             kern = flash_decode_paged_kernel if layout is paged \
                 else flash_decode_kernel
             plain = packed_decode_attention_paged if layout is paged \
                 else packed_decode_attention
-            nbytes = quant_decode_bytes(q, items, table, len(tiles),
-                                        layout is paged)
-            flops = 2 * D * int(mask.sum())
-            measure(results, f"{name}.{kind}",
+            nbytes = quant_decode_bytes(items, table, len(tiles),
+                                        layout is paged, sh)
+            flops = 2 * sh.D * int(mask.sum())
+            measure(results, name,
                     lambda kern=kern, layout=layout: layout(kern, items),
                     lambda plain=plain, layout=layout: layout(plain, items),
                     lambda: sdpa(qs, kdc, vdc, attn_mask=mask_t,
@@ -581,19 +658,17 @@ def check_quant_decode(eng, gen, dev, results):
                          "packed"], f" ({len(tiles)} selected tiles)")
 
 
-def quant_decode_bytes(q, items, table, ntiles, with_table: bool):
+def quant_decode_bytes(items, table, ntiles, with_table: bool, sh: Shapes):
     """Bytes of a codes-and-scales decode: q (float32, as the kernel reads
     it), the selected code tiles at one byte and their two float32
     scales, the item table (and block table), positions, and the f32
     (out, m, l)."""
-    G = q.shape[2]
-    nbytes = (q.numel() * 4 + ntiles * 2 * (BLK * D + 4) + items.numel() * 4
-              + (table.numel() * 4 if with_table else 0) + B * 4
-              + B * HKV * G * (D + 2) * 4)
-    return nbytes
+    return (B * sh.H * sh.D * 4 + ntiles * 2 * (BLK * sh.D + 4)
+            + items.numel() * 4 + (table.numel() * 4 if with_table else 0)
+            + B * 4 + B * sh.H * (sh.D + 2) * 4)
 
 
-def check_quant_prefill(eng, gen, dev, results):
+def check_quant_prefill(eng, gen, dev, results, sh: Shapes):
     """#2 paged over int8 / fp8 code pools with per-block scales: a
     256-token chunk at q_offset 0 and 2048 against the plain version (bf16
     q), timed at 2048 beside its bound and SDPA on the dequantized K/V."""
@@ -604,14 +679,14 @@ def check_quant_prefill(eng, gen, dev, results):
     T = SMAX // BLK
     N = T + 1
     table = random_table(gen, 1, [prompt // BLK], N - 1, T)[0].to(dev)
-    mag = 0.25 + 0.75 * torch.rand((N, HKV, 1, 1), generator=gen)
-    kf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
-        dev, torch.bfloat16)
-    vf = (torch.randn((N, HKV, BLK, D), generator=gen) * mag).to(
-        dev, torch.bfloat16)
-    q = torch.randn((H, C, D), generator=gen).to(dev, torch.bfloat16)
+    shape = (N, sh.HKV, BLK, sh.D)
+    mag = 0.25 + 0.75 * torch.rand((N, sh.HKV, 1, 1), generator=gen)
+    kf = (torch.randn(shape, generator=gen) * mag).to(dev, torch.bfloat16)
+    vf = (torch.randn(shape, generator=gen) * mag).to(dev, torch.bfloat16)
+    q = torch.randn((sh.H, C, sh.D), generator=gen).to(dev, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for kind in QUANT_KINDS:
+        name = form("sparse_prefill_paged", kind, sh)
         kc, ks, kdq = quant_pool(kf, kind)
         vc, vs, vdq = quant_pool(vf, kind)
         errs, timed = {}, {}
@@ -621,20 +696,20 @@ def check_quant_prefill(eng, gen, dev, results):
                       kv_len=q_offset + C, k_scales=ks, v_scales=vs)
             timed[q_offset] = (items, kw)
             errs[q_offset] = check(
-                f"sparse_prefill_paged.{kind}", f"q_offset={q_offset}",
+                name, f"q_offset={q_offset}",
                 sparse_prefill_paged(q, kc, vc, items, table, **kw),
                 worklist_attention_paged(q, kc, vc, items, table, **kw),
                 BF16_ATOL)
         items, kw = timed[2048]
         mask, tiles, nvalid = prefill_mask(items, table, 2048, C, 2048 + C,
-                                           T)
+                                           T, sh)
         mask_t = torch.from_numpy(mask[None]).to(dev)
         kdc = slot_rows(kdq, table[None])[0]
         vdc = slot_rows(vdq, table[None])[0]
-        flops = 2 * D * int(mask.sum())
-        nbytes = (2 * q.numel() * 2 + len(tiles) * 2 * (BLK * D + 4)
+        flops = 2 * sh.D * int(mask.sum())
+        nbytes = (2 * q.numel() * 2 + len(tiles) * 2 * (BLK * sh.D + 4)
                   + items.numel() * 4 + table.numel() * 4)
-        measure(results, f"sparse_prefill_paged.{kind}",
+        measure(results, name,
                 lambda: sparse_prefill_paged(q, kc, vc, items, table, **kw),
                 lambda: worklist_attention_paged(q, kc, vc, items, table,
                                                  **kw),
@@ -644,80 +719,83 @@ def check_quant_prefill(eng, gen, dev, results):
                 f" (chunk {C} at q_offset 2048, {nvalid} tiles)")
 
 
-def check_flash_attention(gen, dev, results):
-    """The dense flash attention (#4) at 9 heads over 3 KV heads: causal
-    and not at Sq = Skv = 4096, and a ragged causal case with Sq != Skv."""
+def check_flash_attention(gen, dev, results, sh: Shapes):
+    """The dense flash attention (#4) at the model's heads over its KV
+    heads: causal and not at Sq = Skv = 4096, and a ragged causal case
+    with Sq != Skv."""
     import torch
     from repro_torch.kernels.flash_attn import (
         flash_attention, flash_attention_reference)
+    name = form("flash_attention", None, sh)
     errs = {}
     for tag, causal, sq, skv in FLASH_CASES:
-        q = torch.randn((H, sq, D), generator=gen).to(dev)
-        k = torch.randn((HKV, skv, D), generator=gen).to(dev)
-        v = torch.randn((HKV, skv, D), generator=gen).to(dev)
+        q = torch.randn((sh.H, sq, sh.D), generator=gen).to(dev)
+        k = torch.randn((sh.HKV, skv, sh.D), generator=gen).to(dev)
+        v = torch.randn((sh.HKV, skv, sh.D), generator=gen).to(dev)
         for dtype, atol in ((torch.bfloat16, BF16_ATOL),
                             (torch.float32, F32_ATOL)):
             args = [t.to(dtype) for t in (q, k, v)]
             errs[tag, dtype] = check(
-                "flash_attention", f"{tag},{str(dtype)[6:]}",
+                name, f"{tag},{str(dtype)[6:]}",
                 flash_attention(*args, causal=causal),
                 flash_attention_reference(*args, causal=causal), atol)
     tag, _, S, _ = FLASH_CASES[0]
     q, k, v = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
-               for s in ((H, S, D), (HKV, S, D), (HKV, S, D)))
+               for s in ((sh.H, S, sh.D), (sh.HKV, S, sh.D),
+                         (sh.HKV, S, sh.D)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = H * S * (S + 1) // 2                         # causal, unmasked
-    measure(results, "flash_attention",
+    pairs = sh.H * S * (S + 1) // 2                      # causal, unmasked
+    measure(results, name,
             lambda: flash_attention(q, k, v, causal=True),
             lambda: flash_attention_reference(q, k, v, causal=True),
             lambda: sdpa(q[None], k[None], v[None], is_causal=True,
                          enable_gqa=True),
-            (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * D * pairs, 0,
+            (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * sh.D * pairs, 0,
             errs[tag, torch.bfloat16], f" ({tag})")
 
 
-def legacy_case(eng, gen, dev, cache_len=4000):
+def legacy_case(eng, gen, dev, sh: Shapes, cache_len=4000):
     """The legacy decode's full-width work: 8 rows, one static cache
     length, each (row, kv head) the engine's layer-0 selection."""
     import torch
     from repro_torch.kernels.sparse_decode import build_decode_worklist
-    G = H // HKV
     q, kc, vc = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
-                 for s in ((B, HKV, G, D), (B, HKV, SMAX, D),
-                           (B, HKV, SMAX, D)))
+                 for s in ((B, sh.HKV, sh.G, sh.D), (B, sh.HKV, SMAX, sh.D),
+                           (B, sh.HKV, SMAX, sh.D)))
     ids = eng.decode_block_ids(cache_len)[0]             # [Hkv, nb]
-    sels = [[ids[h][ids[h] >= 0] for h in range(HKV)] for _ in range(B)]
+    sels = [[ids[h][ids[h] >= 0] for h in range(sh.HKV)] for _ in range(B)]
     items = torch.from_numpy(build_decode_worklist(
-        sels, num_devices=1, kv_heads_per_device=HKV, block=BLK).items[0])
+        sels, num_devices=1, kv_heads_per_device=sh.HKV,
+        block=BLK).items[0])
     return q, kc, vc, items.to(dev), cache_len
 
 
-def check_sparse_decode(eng, gen, dev, results):
+def check_sparse_decode(eng, gen, dev, results, sh: Shapes):
     """The legacy budgeted decode (#5) at full width, bf16 and f32."""
     import torch
     from repro_torch.kernels.sparse_decode import (
         sparse_decode_attention, sparse_decode_reference)
-    q, kc, vc, items, cache_len = legacy_case(eng, gen, dev)
+    name = form("sparse_decode", None, sh)
+    q, kc, vc, items, cache_len = legacy_case(eng, gen, dev, sh)
     errs = {}
     for dtype, atol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
         args = [t.to(dtype) for t in (q, kc, vc)]
         errs[dtype] = check(
-            "sparse_decode", str(dtype)[6:],
+            name, str(dtype)[6:],
             sparse_decode_attention(*args, items, cache_len=cache_len),
             sparse_decode_reference(*args, items, cache_len=cache_len), atol)
-    G = H // HKV
     pos = torch.full((B,), cache_len - 1, dtype=torch.int32)
     ident = torch.arange(SMAX // BLK, dtype=torch.int32).expand(B, -1)
-    mask, tiles = decode_mask(items, ident, pos, G)
+    mask, tiles = decode_mask(items, ident, pos, sh)
     mask_t = torch.from_numpy(mask).to(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs = q.reshape(B, HKV * G, 1, D)
-    flops = 2 * D * int(mask.sum())
+    qs = q.reshape(B, sh.H, 1, sh.D)
+    flops = 2 * sh.D * int(mask.sum())
     # bytes: q, the selected tiles, the items, out in q's dtype
-    nbytes = (2 * q.numel() * 2 + len(tiles) * B * 2 * BLK * D * 2
+    nbytes = (2 * q.numel() * 2 + len(tiles) * B * 2 * BLK * sh.D * 2
               + items.numel() * 4)
-    measure(results, "sparse_decode",
+    measure(results, name,
             lambda: sparse_decode_attention(q, kc, vc, items,
                                             cache_len=cache_len),
             lambda: sparse_decode_reference(q, kc, vc, items,
@@ -726,25 +804,46 @@ def check_sparse_decode(eng, gen, dev, results):
             nbytes, flops, flops, errs[torch.bfloat16])
 
 
-def run_library_path(eng, gen, dev):
+def run_library_path(eng, gen, dev, sh: Shapes):
     """The dense and legacy kernels run only behind the library entry
     points: drive each once at full width and count the launches."""
     import torch
     from repro_torch.kernels import ops
     q, k, v = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
-               for s in ((H, SMAX, D), (HKV, SMAX, D), (HKV, SMAX, D)))
-    lq, lk, lv, items, cache_len = legacy_case(eng, gen, dev)
+               for s in ((sh.H, SMAX, sh.D), (sh.HKV, SMAX, sh.D),
+                         (sh.HKV, SMAX, sh.D)))
+    lq, lk, lv, items, cache_len = legacy_case(eng, gen, dev, sh)
     reset_counts()
     out = ops.flash_attention(q, k, v, causal=True)
     dec = ops.sparse_decode(lq, lk, lv, items, cache_len=cache_len)
     torch.cuda.synchronize()
-    launches = read_counts(("flash_attention", "sparse_decode"))
-    ok = (tuple(out.shape) == (H, SMAX, D) and bool(out.isfinite().all())
-          and bool(dec.isfinite().all()))
-    print(f"library path: ops.flash_attention + ops.sparse_decode, "
+    names = [form(n, None, sh) for n in ("flash_attention", "sparse_decode")]
+    launches = read_counts(names)
+    ok = (tuple(out.shape) == (sh.H, SMAX, sh.D)
+          and bool(out.isfinite().all()) and bool(dec.isfinite().all()))
+    print(f"library path{sh.tag}: ops.flash_attention + ops.sparse_decode, "
           f"launches {launches}, outputs {'finite' if ok else 'BAD'}")
     if not ok or not all(launches.values()):
         fail(f"a library kernel did not run: {launches}")
+    return launches
+
+
+def check_kernels(eng, gen, dev, results, sh: Shapes, dtypes):
+    """Phases 3 and 4 at ``sh``'s shapes: every kernel form against its
+    plain version, timed; the decode and prefill forms of ``dtypes``
+    timed (bf16 and, with float32, the f32 forms).  Returns the library
+    path's launches."""
+    import torch
+    t0 = time.time()
+    check_decode(eng, gen, dev, results, sh, dtypes)
+    check_prefill(eng, gen, dev, results, sh, dtypes)
+    check_quant_decode(eng, gen, dev, results, sh)
+    check_quant_prefill(eng, gen, dev, results, sh)
+    check_flash_attention(gen, dev, results, sh)
+    check_sparse_decode(eng, gen, dev, results, sh)
+    print(f"kernel checks ({sh.arch}): {time.time() - t0:.1f} s")
+    launches = run_library_path(eng, gen, dev, sh)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -759,15 +858,17 @@ def build_engine(cfg, params, dev, **kw):
                   device=dev)
 
 
-def run_serve(eng, prompts, tag):
+def run_serve(eng, prompts, tag, sh: Shapes, also=()):
     """Serve ``prompts`` (32 greedy tokens each); check completion, the
     launches of this layout's (and KV dtype's) kernels and the block
-    accounting.  Returns the tokens and the launch counts."""
+    accounting.  Returns the tokens and the launch counts, with those of
+    the forms ``also`` (read, not required)."""
     import numpy as np
     import torch
     from repro_torch.serving import SamplingParams
     sp = SamplingParams(max_tokens=32)
-    names = SERVE_KERNELS[eng.ecfg.cache_layout, eng.ecfg.kv_dtype]
+    names = [n + sh.tag for n in SERVE_KERNELS[eng.ecfg.cache_layout,
+                                                eng.ecfg.kv_dtype]]
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
@@ -781,6 +882,7 @@ def run_serve(eng, prompts, tag):
     ttft = [r.ttft for r in done]
     itl = [x for r in done for x in r.itl]
     st, bs = eng.decode_stats, eng._batcher.stats
+    tag = f"{sh.arch}:{tag}" if sh.tag else tag
     print(f"serve[{tag}]: {len(ok)}/{len(prompts)} requests complete in "
           f"{wall:.2f} s; TTFT mean {np.mean(ttft):.3f} s max "
           f"{np.max(ttft):.3f} s (host clock, queueing included); ITL mean "
@@ -801,22 +903,31 @@ def run_serve(eng, prompts, tag):
         fail(f"{tag}: a kernel of the path never launched: {launches}")
     if fails or alloc.allocated_blocks:
         fail(f"{tag}: block audit failed: {fails}")
-    return [r.generated for r in done], launches
+    others = read_counts(also)
+    if others:
+        print(f"serve[{tag}]: launches of other forms {others}")
+    return [r.generated for r in done], {**launches, **others}
 
 
-def run_serves(cfg, params, dev):
-    """The four full-width serves; all must give the default's tokens."""
+def serve_prompts(cfg):
     import numpy as np
     rng = np.random.default_rng(0)
     # 1010 + 32 crosses the 1024 block boundary during decode
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in SERVE_LENS]
-    print(f"serve prompts: lens {list(SERVE_LENS)}")
+    print(f"serve prompts ({cfg.name}): lens {list(SERVE_LENS)}")
+    return prompts
+
+
+def run_serves(cfg, params, dev):
+    """SmolLM-135M's four full-width serves (all must give the default's
+    tokens), then its quantized serves."""
+    prompts = serve_prompts(cfg)
     tokens, launches = {}, {}
     for layout, worklist in SERVES:
         tag = f"{layout},{worklist}"
         eng = build_engine(cfg, params, dev, cache_layout=layout,
                            decode_worklist=worklist)
-        tokens[tag], got = run_serve(eng, prompts, tag)
+        tokens[tag], got = run_serve(eng, prompts, tag, SMOL)
         if worklist == "packed":
             launches.update(got)          # the packed serves' counts
         del eng
@@ -834,31 +945,64 @@ def run_serves(cfg, params, dev):
         for layout in ("paged", "contiguous"):
             eng = build_engine(cfg, params, dev, cache_layout=layout,
                                kv_dtype=kind)
-            _, got = run_serve(eng, prompts, f"{layout},packed,{kind}")
+            _, got = run_serve(eng, prompts, f"{layout},packed,{kind}", SMOL)
             launches.update({n: c for n, c in got.items() if "." in n})
             del eng
     return launches
 
 
-def serve_smoke_parity(dev):
-    """SMOKE float32, both layouts: greedy tokens on the card == the plain
-    versions on the CPU (sums in another order only)."""
-    import numpy as np
+def run_yi_serves(cfg, params, dev):
+    """Yi-6B's full-width serves (``YI_SERVES``, packed decode): the
+    contiguous bf16 serve must give the paged one's tokens, and the code
+    serves complete every request through the code forms.  The int8
+    serve also reads the bf16-q fp8 prefill's count, which no serve here
+    launches (the kernels line's launches are all from serves)."""
     import torch
-    from repro_torch.configs import get_config
+    prompts = serve_prompts(cfg)
+    tokens, launches = {}, {}
+    for layout, kind in YI_SERVES:
+        tag = f"{layout},packed,{kind}"
+        eng = build_engine(cfg, params, dev, cache_layout=layout,
+                           kv_dtype=kind)
+        also = ([form("sparse_prefill_paged", "fp8", YI)]
+                if kind == "int8" else [])
+        tokens[layout, kind], got = run_serve(eng, prompts, tag, YI, also)
+        launches.update(got)
+        del eng
+        torch.cuda.empty_cache()
+    same = tokens["contiguous", "bf16"] == tokens["paged", "bf16"]
+    print(f"serve[{YI.arch}:contiguous,packed,bf16]: greedy tokens "
+          f"{'==' if same else '!='} paged,packed,bf16")
+    if not same:
+        fail("Yi-6B: the contiguous tokens differ from the paged serve's")
+    return launches
+
+
+def to_device(tree, dev):
+    """A params tree (dicts, lists of tensors) with every tensor copied to
+    ``dev``: the same weights on the card and on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
+    """float32 serves of ``cfg`` on the card and on the CPU (plain
+    versions), paged and contiguous, at each KV dtype of ``kinds``, with
+    the card's weights ``params`` (copied to the CPU): the greedy tokens
+    must be equal (sums in another order only)."""
+    import torch
     from repro_torch.core.sparsity import synthetic_head_curves
-    from repro_torch.models.transformer import init_params
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
-    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
-                              dtype=torch.float32)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n)
-               for n in (300, 40, 520, 129)]
-    for kind in ("bf16", "int8"):
+    devs = (dev, torch.device("cpu"))
+    params = [params, to_device(params, devs[1])]
+    for kind in kinds:
         for layout in ("paged", "contiguous"):
-            outs = {}
-            for d in (dev, torch.device("cpu")):
-                eng = Engine(cfg, init_params(cfg, seed=1, device=d),
+            outs = []
+            for d, p in zip(devs, params):
+                eng = Engine(cfg, p,
                              EngineConfig(max_seq_len=1024, num_slots=4,
                                           budget_per_head=256,
                                           cache_layout=layout,
@@ -866,14 +1010,65 @@ def serve_smoke_parity(dev):
                              synthetic_head_curves(cfg.num_layers,
                                                    cfg.num_heads),
                              device=d)
-                outs[d.type] = [r.generated for r in eng.serve(
-                    prompts, SamplingParams(max_tokens=12))]
-            same = outs["cuda"] == outs["cpu"]
-            print(f"smoke f32 serve[{layout},{kind}]: card tokens "
+                outs.append([r.generated for r in eng.serve(
+                    prompts, SamplingParams(max_tokens=max_tokens))])
+                del eng
+            same = outs[0] == outs[1]
+            print(f"{tag} f32 serve[{layout},{kind}]: card tokens "
                   f"{'==' if same else '!='} CPU plain-version tokens")
             if not same:
-                fail(f"{layout},{kind}: card {outs['cuda']} != cpu "
-                     f"{outs['cpu']}")
+                fail(f"{tag} {layout},{kind}: card {outs[0]} != cpu "
+                     f"{outs[1]}")
+
+
+def serve_smoke_parity(dev):
+    """SMOKE float32, both layouts, bf16 and int8 caches: greedy tokens on
+    the card == the plain versions on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 520, 129)]
+    smoke_parity(cfg, dev, prompts, ("bf16", "int8"),
+                 init_params(cfg, seed=1, device=dev), 12, "smoke")
+
+
+def yi_parity_config():
+    """Yi-6B's widths and G at 2 layers, in float32."""
+    import torch
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                               dtype=torch.float32)
+
+
+def yi_f32_parity(dev, params):
+    """Yi-6B's widths and G at 2 layers in float32, both layouts, bf16 /
+    int8 / fp8 caches: the card's tokens (the head_dim-128 f32 and code
+    kernels) == the plain versions' on the CPU.  Returns the launches of
+    the f32 forms and of the code decodes no full-width serve runs (the
+    code decodes take q in float32 whatever the model's dtype)."""
+    import numpy as np
+    cfg = yi_parity_config()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (200, 40, 130)]
+    t0 = time.time()
+    reset_counts()
+    smoke_parity(cfg, dev, prompts, ("bf16",) + QUANT_KINDS, params, 8,
+                 "yi-6b 2-layer")
+    launches = read_counts(
+        [form(n, "f32", YI) for n in PATH_KERNELS]
+        + [form("flash_decode_contig", k, YI) for k in QUANT_KINDS]
+        + [form("flash_decode_paged", "fp8", YI)])
+    print(f"yi-6b 2-layer f32 parity: launches {launches}, "
+          f"{time.time() - t0:.1f} s")
+    if not all(launches.values()):
+        fail(f"yi-6b 2-layer: a kernel form never launched: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -899,6 +1094,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {card}")
+    t_start = time.time()
 
     t0 = time.time()
     logs = kbuild.build()
@@ -917,27 +1113,49 @@ def main() -> int:
     eng = build_engine(cfg, params, dev)     # its planner makes the work
     print(f"full-width {cfg.name}: {cfg.num_params / 1e6:.1f}M params, "
           f"set-up {time.time() - t0:.1f} s")
-    check_decode(eng, gen, dev, results)
-    check_prefill(eng, gen, dev, results)
-    check_quant_decode(eng, gen, dev, results)
-    check_quant_prefill(eng, gen, dev, results)
-    check_flash_attention(gen, dev, results)
-    check_sparse_decode(eng, gen, dev, results)
-    print(f"kernel checks: {time.time() - t0:.1f} s")
-    launches = run_library_path(eng, gen, dev)
+    launches = check_kernels(eng, gen, dev, results, SMOL,
+                             (torch.bfloat16,))
     del eng
 
     t0 = time.time()
     launches.update(run_serves(cfg, params, dev))
     serve_smoke_parity(dev)
-    print(f"serve phases: {time.time() - t0:.1f} s")
+    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    del params
+
+    # Yi-6B's weights come from a torch generator on the card: no check
+    # compares them with another device's but the 2-layer parity, which
+    # copies the card's to the CPU
+    t0 = time.time()
+    cfg = yi_parity_config()
+    params = init_params(cfg, seed=3, device=dev, host_rng=False)
+    eng = build_engine(cfg, params, dev)     # layer 0's plan: any depth
+    launches.update(check_kernels(eng, gen, dev, results, YI,
+                                  (torch.bfloat16, torch.float32)))
+    del eng
+    launches.update(yi_f32_parity(dev, params))
+    del params
+    print(f"kernel and parity phases (yi-6b): {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg = get_config("yi-6b")
+    params = init_params(cfg, seed=0, device=dev, host_rng=False)
+    torch.cuda.synchronize()
+    print(f"full-width {cfg.name}: {cfg.num_params / 1e9:.3f}B params, "
+          f"weight init {1e3 * (time.time() - t0):.1f} ms (seeded torch "
+          f"generator on the card)")
+    t0 = time.time()
+    launches.update(run_yi_serves(cfg, params, dev))
+    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    print(f"chip_smoke: {time.time() - t_start:.1f} s after the device "
+          f"check")
 
     src = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"{src}{name.partition('.')[0]}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
-         **results[name]} for name in REPLACES]}))
+         "source": f"{src}{name.partition('.')[0].partition('@')[0]}.cu",
+         "replaces": KERNELS[name.partition('.')[0].partition('@')[0]],
+         "launches": launches[name], **results[name]} for name in FORMS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

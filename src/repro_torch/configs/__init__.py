@@ -46,9 +46,10 @@ class TransformerConfig:
 
 
 def _registry():
-    from repro_torch.configs import smollm_135m
-    return {"smollm-135m": {"full": smollm_135m.FULL,
-                            "smoke": smollm_135m.SMOKE}}
+    from repro_torch.configs import smollm_135m, yi_6b
+    return {name: {"full": mod.FULL, "smoke": mod.SMOKE}
+            for name, mod in (("smollm-135m", smollm_135m),
+                              ("yi-6b", yi_6b))}
 
 
 def get_config(arch: str, smoke: bool = False) -> TransformerConfig:

@@ -24,6 +24,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNEL_SOURCES = ("flash_decode_paged", "flash_decode_contig",
                   "sparse_prefill_paged", "sparse_prefill_contig",
                   "flash_attention", "sparse_decode")
+# what every kernel source is instantiated for: these head_dims, GQA groups
+# of at most MAX_GROUP query heads per kv head (the decode kernels), and
+# float32 prefill / flash blocks of at most f32_max_block_q(head_dim) rows
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 8
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
@@ -91,6 +96,12 @@ def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def f32_max_block_q(head_dim: int) -> int:
+    """The largest block_q of the float32 prefill and flash kernels: one
+    thread per query row up to head_dim 64, two at 128, 1024 threads."""
+    return 1024 // (2 if head_dim > 64 else 1)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -19,8 +19,8 @@
 //    its tiles are the dense kv blocks 0..last.  The grid goes over (q
 //    slice, head) with the last q slices, which walk the most tiles when
 //    causal, first, so the longest CTAs do not set the tail;
-//  * f32: the scalar body, one thread per query row and CTA per (q block,
-//    head), as before.
+//  * f32: the scalar body, one thread per query row (two at head_dim 128)
+//    and CTA per (q block, head), as before.
 //
 // What bounds it.  The larger of the bytes (q, K, V read once, out written
 // once) over 3.35 TB/s and the FLOPs of the unmasked (query, key) pairs
@@ -41,17 +41,19 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        int n_rep, int bq, int bkv,
                                        bool causal, float scale) {
   const int qblk = blockIdx.x, head = blockIdx.y, kvh = head / n_rep;
-  const int qpos = qblk * bq + threadIdx.x;
+  constexpr int kSplit = prefill::kRowSplit<D>, DT = D / kSplit;
+  const int qpos = qblk * bq + threadIdx.x / kSplit;
+  const int d0 = (threadIdx.x % kSplit) * DT;  // this thread's dims
   const bool row_ok = qpos < Sq;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);  // [bkv][D]
   T* v_s = k_s + (size_t)bkv * D;           // [bkv][D]
 
-  float qr[D], acc[D];
-  const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D;
+  float qr[DT], acc[DT];
+  const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D + d0;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DT; ++d) {
     qr[d] = row_ok ? prefill::to_f32(qrow[d]) : 0.f;
     acc[d] = 0.f;
   }
@@ -67,13 +69,14 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
     prefill::stage_tile<T, D>(k_s, v_s, k + row0 * D, v + row0 * D,
                               min(bkv, Skv - kb * bkv), bkv);
-    prefill::row_tile_update<T, D>(qr, acc, m, l, k_s, v_s, bkv, kb * bkv,
-                                   scale, keep);
+    prefill::row_tile_update<T, D, kSplit>(qr, acc, m, l, k_s, v_s, bkv,
+                                           kb * bkv, scale, keep, 1.f, 1.f,
+                                           d0);
   }
   if (row_ok) {
-    T* orow = out + ((size_t)head * Sq + qpos) * D;
+    T* orow = out + ((size_t)head * Sq + qpos) * D + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d)
+    for (int d = 0; d < DT; ++d)
       prefill::from_f32(acc[d] / fmaxf(l, 1e-30f), orow + d);
   }
 }
@@ -89,8 +92,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
+  const int threads = bq * prefill::kRowSplit<D>;
+  if (threads > 1024) return cudaErrorInvalidValue;
   const dim3 grid((Sq + bq - 1) / bq, H);
-  kern<<<grid, bq, smem, stream>>>(
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, n_rep, bq,
       bkv, causal, scale);
@@ -168,14 +173,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, one
-// thread per query row, block_q <= 1024); q, k, v and out share it;
-// head_dim 32 or 64.  Returns the launch's cudaError_t.
+// thread per query row up to head_dim 64, two at 128; block_q <= 1024 or
+// 512); q, k, v and out share it; head_dim 32, 64 or 128.  Returns the
+// launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int H, int Hkv, int Sq, int Skv,
                                int D, int block_q, int block_kv, int causal,
                                float scale, int dtype, void* stream) {
   if (H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Skv < 1 || block_q < 1 ||
-      block_kv < 1 || (dtype == 1 && block_q > 1024))
+      block_kv < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rep = H / Hkv;
@@ -184,8 +190,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   return FN(q, k, v, out, H, Sq, Skv, n_rep, block_q, block_kv, c, scale, s)
   if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>);
   if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>);
+  if (dtype == 0 && D == 128) FLASH_LAUNCH(launch_tc<128>);
   if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>));
   if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>));
+  if (dtype == 1 && D == 128) FLASH_LAUNCH((launch<float, 128>));
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }

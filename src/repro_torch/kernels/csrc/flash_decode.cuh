@@ -46,6 +46,11 @@
 // version reads K and V straight from device memory (row-per-thread for q.k,
 // column-per-thread for p.V); cp.async / TMA staging and splitting long runs
 // across CTAs are later work.
+//
+// Instantiations: head_dim 32, 64 and 128, each at two GQA group bounds
+// (G <= 4 and G <= 8) that size the per-group register arrays.  At G = 8,
+// D = 128 a thread keeps 8 output columns and the dynamic shared memory is
+// q (4 KB) and the tile's scores (4 KB at 128 keys).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,7 +65,10 @@ namespace decode {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 4;  // GQA group bound: SmolLM-135M has G = 3
+// GQA group bounds, each a template instantiation: G <= 4 (SmolLM-135M has
+// G = 3) keeps the small register arrays, 4 < G <= 8 (Yi-6B has G = 8)
+// takes the wider ones.
+constexpr int kSmallG = 4, kMaxG = 8;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
 constexpr int D_BATCH = 0, D_KVHEAD = 1, D_KVBLK = 2, D_FIRST = 3,
@@ -128,15 +136,14 @@ struct SlotTiles {
   }
 };
 
-// Block-wide max or sum of kMaxG per-thread values; every thread gets the
+// Block-wide max or sum of N per-thread values; every thread gets the
 // result.  Must be reached by all threads of the block.  Inlined, so the
 // caller's arrays stay in registers instead of a local-memory stack frame.
-template <bool kMax>
-__device__ __forceinline__ void block_reduce(float (&v)[kMaxG],
-                                             float (*red)[kMaxG]) {
+template <bool kMax, int N>
+__device__ __forceinline__ void block_reduce(float (&v)[N], float (*red)[N]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < N; ++g) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       const float o = __shfl_xor_sync(0xffffffffu, v[g], off);
@@ -146,7 +153,7 @@ __device__ __forceinline__ void block_reduce(float (&v)[kMaxG],
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < N; ++g) {
     float r = red[0][g];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w)
@@ -160,8 +167,9 @@ __device__ __forceinline__ void block_reduce(float (&v)[kMaxG],
 // the legacy decode gets every row's last position cache_len - 1 in pos.
 // TQ is q's element type, TK the cache's; with codes (kIsCode<TK>) the
 // tile scales come in k_scales / v_scales, otherwise those are unused.
+// MaxG (kSmallG or kMaxG) sizes the per-group arrays; G <= MaxG.
 template <typename TQ, typename TK, typename OutT, int D, class Tiles,
-          bool kLegacy>
+          bool kLegacy, int MaxG>
 __global__ void __launch_bounds__(kThreads)
     decode_runs_kernel(const TQ* __restrict__ q,  // [B, Hkv, G, D]
                        const TK* __restrict__ k,  // pool or slot cache
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
                        int blk, Tiles tiles, float scale, int window,
                        const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales) {
-  constexpr int kAcc = (kMaxG * D + kThreads - 1) / kThreads;
+  constexpr int kAcc = (MaxG * D + kThreads - 1) / kThreads;
   constexpr bool kQuant = kIsCode<TK>;
   auto starts = [](const int* t) {
     return t[D_FIRST] == 1 && (!kLegacy || t[D_VALID] == 1);
@@ -192,12 +200,12 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float smem[];
   float* q_s = smem;           // [G][D] query rows in f32
   float* p_s = smem + G * D;   // [G][blk] scores, then probabilities
-  __shared__ float red[kWarps][kMaxG];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG], mnew_s[kMaxG];
+  __shared__ float red[kWarps][MaxG];
+  __shared__ float m_s[MaxG], l_s[MaxG], alpha_s[MaxG], mnew_s[MaxG];
 
   const TQ* qb = q + ((size_t)b * Hkv + h) * G * D;
   for (int idx = tid; idx < G * D; idx += kThreads) q_s[idx] = to_f32(qb[idx]);
-  if (tid < kMaxG) {
+  if (tid < MaxG) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
@@ -229,29 +237,29 @@ __global__ void __launch_bounds__(kThreads)
         ksc = k_scales[sidx];
         vsc = v_scales[sidx];
       }
-      float mx[kMaxG];
+      float mx[MaxG];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) mx[g] = kNegInf;
+      for (int g = 0; g < MaxG; ++g) mx[g] = kNegInf;
       // scores: one key row per thread
       for (int kk = tid; kk < blk; kk += kThreads) {
         const int kpos = kvblk * blk + kk;
         bool msk = kpos <= p;
         if (window > 0) msk = msk && (kpos > p - window);
-        float s[kMaxG];
+        float s[MaxG];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+        for (int g = 0; g < MaxG; ++g) s[g] = 0.f;
         if (msk) {
           const TK* krow = kt + (size_t)kk * D;
 #pragma unroll 8
           for (int d = 0; d < D; ++d) {
             const float kf = to_f32(krow[d]);
 #pragma unroll
-            for (int g = 0; g < kMaxG; ++g)
+            for (int g = 0; g < MaxG; ++g)
               if (g < G) s[g] = fmaf(q_s[g * D + d], kf, s[g]);
           }
         }
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
+        for (int g = 0; g < MaxG; ++g) {
           if (g < G) {
             float sv;
             if constexpr (kQuant)
@@ -270,12 +278,12 @@ __global__ void __launch_bounds__(kThreads)
         alpha_s[tid] = expf(m_s[tid] - mn);
       }
       __syncthreads();
-      float ls[kMaxG];
+      float ls[MaxG];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) ls[g] = 0.f;
+      for (int g = 0; g < MaxG; ++g) ls[g] = 0.f;
       for (int kk = tid; kk < blk; kk += kThreads) {
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
+        for (int g = 0; g < MaxG; ++g) {
           if (g < G) {
             const float sv = p_s[g * blk + kk];
             const float pr = (sv == -CUDART_INF_F) ? 0.f : expf(sv - mnew_s[g]);
@@ -326,7 +334,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TQ, typename TK, int D, class Tiles, bool kLegacy>
+template <typename TQ, typename TK, int D, class Tiles, bool kLegacy,
+          int MaxG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scales, const float* v_scales,
                    const int* items, const int* pos, void* out,
@@ -336,7 +345,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (kIsCode<TK> && (k_scales == nullptr || v_scales == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)(G * D + G * blk) * sizeof(float);
-  auto kern = decode_runs_kernel<TQ, TK, OutT, D, Tiles, kLegacy>;
+  auto kern = decode_runs_kernel<TQ, TK, OutT, D, Tiles, kLegacy, MaxG>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -351,7 +360,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype: the cache's element type: 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32, with k_scales /
-// v_scales; flash decode only); head_dim 32 or 64.  Returns the launch's
+// v_scales; flash decode only); head_dim 32, 64 or 128; G <= kMaxG, taken
+// by the kSmallG instantiation up to kSmallG.  Returns the launch's
 // cudaError_t.
 template <class Tiles, bool kLegacy>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
@@ -362,19 +372,24 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
                      int window, cudaStream_t stream) {
   if (L <= 0 || G < 1 || G > kMaxG || blk < 1) return cudaErrorInvalidValue;
 #define DECODE_LAUNCH(TQ, TK, DD)                                            \
-  return launch<TQ, TK, DD, Tiles, kLegacy>(                                \
-      q, k, v, k_scales, v_scales, items, pos, out, m_out, l_out, L, Hkv,   \
-      G, blk, tiles, scale, window, stream)
-  if (dtype == 0 && D == 32) DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16, 32);
-  if (dtype == 0 && D == 64) DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16, 64);
-  if (dtype == 1 && D == 32) DECODE_LAUNCH(float, float, 32);
-  if (dtype == 1 && D == 64) DECODE_LAUNCH(float, float, 64);
+  return G <= kSmallG                                                       \
+             ? launch<TQ, TK, DD, Tiles, kLegacy, kSmallG>(                 \
+                   q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
+                   l_out, L, Hkv, G, blk, tiles, scale, window, stream)     \
+             : launch<TQ, TK, DD, Tiles, kLegacy, kMaxG>(                   \
+                   q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
+                   l_out, L, Hkv, G, blk, tiles, scale, window, stream)
+#define DECODE_DIMS(DT, TQ, TK)                                              \
+  if (dtype == DT && D == 32) DECODE_LAUNCH(TQ, TK, 32);                     \
+  if (dtype == DT && D == 64) DECODE_LAUNCH(TQ, TK, 64);                     \
+  if (dtype == DT && D == 128) DECODE_LAUNCH(TQ, TK, 128)
+  DECODE_DIMS(0, __nv_bfloat16, __nv_bfloat16);
+  DECODE_DIMS(1, float, float);
   if constexpr (!kLegacy) {
-    if (dtype == 2 && D == 32) DECODE_LAUNCH(float, int8_t, 32);
-    if (dtype == 2 && D == 64) DECODE_LAUNCH(float, int8_t, 64);
-    if (dtype == 3 && D == 32) DECODE_LAUNCH(float, __nv_fp8_e4m3, 32);
-    if (dtype == 3 && D == 64) DECODE_LAUNCH(float, __nv_fp8_e4m3, 64);
+    DECODE_DIMS(2, float, int8_t);
+    DECODE_DIMS(3, float, __nv_fp8_e4m3);
   }
+#undef DECODE_DIMS
 #undef DECODE_LAUNCH
   return cudaErrorInvalidValue;
 }

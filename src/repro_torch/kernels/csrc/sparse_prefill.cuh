@@ -40,7 +40,10 @@
 //    f32 accumulation: q stays in registers as A fragments, K (K-major)
 //    and V (N-contiguous, the transpose bit) are B operands in shared
 //    memory, read through descriptors with the 128-byte (D = 64) or
-//    64-byte (D = 32) swizzle, and P goes from the S accumulator into A
+//    64-byte (D = 32) swizzle; at D = 128 a tile is two 64-column panels
+//    with the 128-byte swizzle (see swz), S takes its k steps 0-3 from
+//    panel 0 and 4-7 from panel 1, and P.V is two m64n64k16 products per
+//    16-key step, one per panel.  P goes from the S accumulator into A
 //    fragments as bf16 (l sums the rounded p, so the output is a mean of V
 //    rows under the weights P.V used).  The online softmax runs once per
 //    64-key step on the S fragment (row max over the quad of lanes sharing
@@ -52,8 +55,9 @@
 //    while tile j multiplies.  The CTA skips a 64-key step that lies wholly
 //    above its rows' causal diagonal or past klim.
 //  * f32: the scalar body (namespace prefill): one thread owns one query
-//    row, two passes per tile in f32 FMA.  TF32 tensor cores would not hold
-//    the f32 results within 1e-4 of the plain version.
+//    row (two threads, a half each, at D = 128), two passes per tile in
+//    f32 FMA.  TF32 tensor cores would not hold the f32 results within 1e-4
+//    of the plain version.
 //
 // Both addressings run the same body for a dtype, so they give the same
 // bits on equal K/V.
@@ -180,26 +184,43 @@ __device__ __forceinline__ void stage_tile(T* k_s, T* v_s, const T* k,
   __syncthreads();
 }
 
+// Threads per query row of the scalar body: one up to head_dim 64; at 128
+// two threads share a row, each holding half of its q and acc (64 + 64
+// registers, where one thread per row would need 256 and spill).
+template <int D>
+constexpr int kRowSplit = D > 64 ? 2 : 1;
+
+// q.k over one thread's share of a row (dims [d0, d0 + D / kSplit) of
+// krow); with kSplit = 2 the two threads of a row, neighbouring lanes, sum
+// their halves.
+template <typename T, int D, int kSplit>
+__device__ __forceinline__ float row_dot(const float (&qr)[D / kSplit],
+                                         const T* krow) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < D / kSplit; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
+  if constexpr (kSplit == 2)
+    s += __shfl_xor_sync(3u << (threadIdx.x & 30), s, 1);
+  return s;
+}
+
 // One query row's online-softmax update over one staged tile: keys kk in
 // [0, bkv) at positions kbase + kk take part where keep(kpos) holds.  A code
-// tile (kIsCode<T>) is rescaled after the dots by its ks / vs.
-template <typename T, int D, class Keep>
-__device__ __forceinline__ void row_tile_update(const float (&qr)[D],
-                                                float (&acc)[D], float& m,
-                                                float& l, const T* k_s,
-                                                const T* v_s, int bkv,
-                                                int kbase, float scale,
-                                                Keep keep, float ks = 1.f,
-                                                float vs = 1.f) {
+// tile (kIsCode<T>) is rescaled after the dots by its ks / vs.  The thread
+// holds dims [d0, d0 + D / kSplit) of the row's q and acc.
+template <typename T, int D, int kSplit = 1, class Keep>
+__device__ __forceinline__ void row_tile_update(
+    const float (&qr)[D / kSplit], float (&acc)[D / kSplit], float& m,
+    float& l, const T* k_s, const T* v_s, int bkv, int kbase, float scale,
+    Keep keep, float ks = 1.f, float vs = 1.f, int d0 = 0) {
   constexpr bool kQuant = kIsCode<T>;
+  constexpr int DT = D / kSplit;
+  if constexpr (kSplit == 1) d0 = 0;
   // pass 1: row max over the tile (masked scores count as NEG_INF)
   float mx = kNegInf;
   for (int kk = 0; kk < bkv; ++kk) {
     if (keep(kbase + kk)) {
-      const T* krow = k_s + (size_t)kk * D;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
+      const float s = row_dot<T, D, kSplit>(qr, k_s + (size_t)kk * D + d0);
       if constexpr (kQuant)
         mx = fmaxf(mx, s * scale * ks);
       else
@@ -210,27 +231,24 @@ __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
   const float alpha = expf(m - m_new);
   // pass 2: probabilities and p.V
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] *= alpha;
+  for (int d = 0; d < DT; ++d) acc[d] *= alpha;
   float lsum = 0.f;
   for (int kk = 0; kk < bkv; ++kk) {
     if (keep(kbase + kk)) {
-      const T* krow = k_s + (size_t)kk * D;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
-      const T* vrow = v_s + (size_t)kk * D;
+      const float s = row_dot<T, D, kSplit>(qr, k_s + (size_t)kk * D + d0);
+      const T* vrow = v_s + (size_t)kk * D + d0;
       if constexpr (kQuant) {
         const float p = expf(s * scale * ks - m_new);
         lsum += p;
         const float pv = p * vs;
 #pragma unroll
-        for (int d = 0; d < D; ++d)
+        for (int d = 0; d < DT; ++d)
           acc[d] = fmaf(pv, to_f32(vrow[d]), acc[d]);
       } else {
         const float p = expf(s * scale - m_new);
         lsum += p;
 #pragma unroll
-        for (int d = 0; d < D; ++d)
+        for (int d = 0; d < DT; ++d)
           acc[d] = fmaf(p, to_f32(vrow[d]), acc[d]);
       }
     }
@@ -240,7 +258,8 @@ __device__ __forceinline__ void row_tile_update(const float (&qr)[D],
 }
 
 // T is q's and out's element type, TK the K/V tiles' (T, or codes with
-// their scales in k_scales / v_scales).
+// their scales in k_scales / v_scales).  kRowSplit<D> threads per query
+// row: the block has bq * kRowSplit<D> threads.
 template <typename T, typename TK, int D, class Tiles>
 __global__ void sparse_prefill_kernel(
     const T* __restrict__ q,   // [H, Sq, D]
@@ -256,7 +275,9 @@ __global__ void sparse_prefill_kernel(
   if (it[F_FIRST] != 1) return;
   // runs are homogeneous in (head, q_blk): build_worklist emits them so
   const int head = it[F_HEAD], qblk = it[F_QBLK];
-  const int r = threadIdx.x;
+  constexpr int kSplit = kRowSplit<D>, DT = D / kSplit;
+  const int r = threadIdx.x / kSplit;
+  const int d0 = (threadIdx.x % kSplit) * DT;  // this thread's dims
   const int qpos = qblk * bq + r;         // chunk-local row
   const bool row_ok = qpos < Sq;
   const int qg = qpos + q_offset;          // global query position
@@ -265,10 +286,10 @@ __global__ void sparse_prefill_kernel(
   TK* k_s = reinterpret_cast<TK*>(smem_raw);  // [bkv][D]
   TK* v_s = k_s + (size_t)bkv * D;            // [bkv][D]
 
-  float qr[D], acc[D];
-  const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D;
+  float qr[DT], acc[DT];
+  const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D + d0;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DT; ++d) {
     qr[d] = row_ok ? to_f32(qrow[d]) : 0.f;
     acc[d] = 0.f;
   }
@@ -288,18 +309,20 @@ __global__ void sparse_prefill_kernel(
       stage_tile<TK, D>(k_s, v_s, k + row0 * D, v + row0 * D, rows, bkv);
       if constexpr (kIsCode<TK>) {
         const size_t si = tiles.scale_index(row0);
-        row_tile_update<TK, D>(qr, acc, m, l, k_s, v_s, bkv, kvblk * bkv,
-                               scale, keep, k_scales[si], v_scales[si]);
+        row_tile_update<TK, D, kSplit>(qr, acc, m, l, k_s, v_s, bkv,
+                                       kvblk * bkv, scale, keep,
+                                       k_scales[si], v_scales[si], d0);
       } else {
-        row_tile_update<TK, D>(qr, acc, m, l, k_s, v_s, bkv, kvblk * bkv,
-                               scale, keep);
+        row_tile_update<TK, D, kSplit>(qr, acc, m, l, k_s, v_s, bkv,
+                                       kvblk * bkv, scale, keep, 1.f, 1.f,
+                                       d0);
       }
     }
     if (valid && jt[F_LAST] == 1) {
       if (row_ok) {
-        T* orow = out + ((size_t)head * Sq + qpos) * D;
+        T* orow = out + ((size_t)head * Sq + qpos) * D + d0;
 #pragma unroll
-        for (int d = 0; d < D; ++d)
+        for (int d = 0; d < DT; ++d)
           from_f32(l > 0.f ? acc[d] / fmaxf(l, 1e-30f) : 0.f, orow + d);
       }
       return;
@@ -414,6 +437,34 @@ __device__ __forceinline__ void wgmma(float (&d)[4][4], const unsigned (&a)[4],
         "n"(TransB));
 }
 
+// The n64 product into half P (0 or 1) of a [16][4] accumulator: dims
+// 64P..64P+63 of a head_dim-128 O, whose V tile is two 64-column panels.
+template <int TransB, int P>
+__device__ __forceinline__ void wgmma_half(float (&d)[16][4],
+                                           const unsigned (&a)[4],
+                                           uint64_t desc) {
+  constexpr int o = 8 * P;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[o][0]), "+f"(d[o][1]), "+f"(d[o][2]), "+f"(d[o][3]),
+        "+f"(d[o + 1][0]), "+f"(d[o + 1][1]), "+f"(d[o + 1][2]),
+        "+f"(d[o + 1][3]), "+f"(d[o + 2][0]), "+f"(d[o + 2][1]),
+        "+f"(d[o + 2][2]), "+f"(d[o + 2][3]), "+f"(d[o + 3][0]),
+        "+f"(d[o + 3][1]), "+f"(d[o + 3][2]), "+f"(d[o + 3][3]),
+        "+f"(d[o + 4][0]), "+f"(d[o + 4][1]), "+f"(d[o + 4][2]),
+        "+f"(d[o + 4][3]), "+f"(d[o + 5][0]), "+f"(d[o + 5][1]),
+        "+f"(d[o + 5][2]), "+f"(d[o + 5][3]), "+f"(d[o + 6][0]),
+        "+f"(d[o + 6][1]), "+f"(d[o + 6][2]), "+f"(d[o + 6][3]),
+        "+f"(d[o + 7][0]), "+f"(d[o + 7][1]), "+f"(d[o + 7][2]),
+        "+f"(d[o + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TransB));
+}
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&h);
@@ -421,12 +472,30 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 
 // Element offset of (row r, 16-byte chunk c) in a [rows][D] bf16 tile whose
 // chunks are XOR-swizzled as wgmma's 128-byte (D = 64) or 64-byte (D = 32)
-// swizzle reads them, the tile starting on a 1024-byte boundary.
+// swizzle reads them, the tile starting on a 1024-byte boundary.  A
+// head_dim-128 row (256 bytes) is wider than the 128-byte swizzle span: its
+// tile is two 64-column panels, interleaved by 8-row group (group g holds
+// panel 0's rows 8g..8g+7, 1024 bytes, then panel 1's), each panel's rows
+// 128-byte-swizzled.  A 64-key step's K rows are then 8-row groups 2048
+// bytes apart, and panel 1 sits 1024 bytes after panel 0 in every group.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(D == 32 || D == 64, "head_dim 32 or 64");
-  const int x = D == 64 ? (r & 7) : ((r >> 1) & 3);
-  return r * D + ((c ^ x) << 3);
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  if constexpr (D == 128) {
+    return (r >> 3) * 1024 + (c >> 3) * 512 + (r & 7) * 64 +
+           (((c & 7) ^ (r & 7)) << 3);
+  } else {
+    const int x = D == 64 ? (r & 7) : ((r >> 1) & 3);
+    return r * D + ((c ^ x) << 3);
+  }
+}
+
+// Element offset, from a 64-key step's first K row, of the 16 dims of k
+// step kq (the start of wgmma's B operand in S = Q.K^T): 32 bytes into the
+// swizzled rows, in panel kq / 4 at head_dim 128.
+template <int D>
+__device__ __forceinline__ constexpr int k_step_offset(int kq) {
+  return D == 128 ? (kq >> 2) * 512 + (kq & 3) * 16 : kq * 16;
 }
 
 // One staged K/V tile: its first row (units of D elements), how many of
@@ -461,7 +530,8 @@ __device__ __forceinline__ void stage_async(bf16* ks, bf16* vs, const bf16* k,
 template <int D>
 struct GroupRows {
   unsigned qf[D / 16][4];  // q as A fragments, one per 16-dim k step
-  float acc[D / 8][4];     // O accumulator, one block per 8 dims
+  float acc[D / 8][4];     // O accumulator, one block per 8 dims (at D =
+                           // 128: 64 registers, q's fragments 32)
   float m[2], l[2];        // running max (log2 units), this lane's partial sum
   int qlim[2];             // row h sees keys kpos <= qlim[h]; -1: no row
   int gmax;                // the largest qlim of the CTA
@@ -506,7 +576,7 @@ struct GroupRows {
                                        int c0, int kbase, int bkv, int klim,
                                        float scale_log2,
                                        float v_scale = 1.f) {
-    constexpr int SW = D == 64 ? 1 : 2;  // 128- or 64-byte swizzle
+    constexpr int SW = D == 32 ? 2 : 1;  // 64- or 128-byte swizzle
     constexpr int SBO = 8 * D * 2;       // bytes from one 8-row group to next
     const int t = threadIdx.x & 3;
     // S = Q.K^T: D/16 k steps of m64n64k16, B = the step's 64 K rows
@@ -520,7 +590,8 @@ struct GroupRows {
     wgmma_fence();
 #pragma unroll
     for (int kq = 0; kq < D / 16; ++kq)
-      wgmma<0>(s, qf[kq], gmma_desc(ks + c0 * D + kq * 16, SBO, SW));
+      wgmma<0>(s, qf[kq],
+               gmma_desc(ks + c0 * D + k_step_offset<D>(kq), SBO, SW));
     wgmma_commit();
     wgmma_wait0();
     reg_fence(s);
@@ -572,9 +643,10 @@ struct GroupRows {
       acc[dn][2] *= alpha[1];
       acc[dn][3] *= alpha[1];
     }
-    // O += P.V: 4 k steps of 16 keys, m64nDk16; P's A fragment of step j
-    // is S's accumulator blocks 2j and 2j+1, and B = 16 V rows, stored
-    // N-contiguous (the transpose bit)
+    // O += P.V: 4 k steps of 16 keys, m64nDk16 (at D = 128 two m64n64k16,
+    // one per V panel); P's A fragment of step j is S's accumulator blocks
+    // 2j and 2j+1, and B = 16 V rows, stored N-contiguous (the transpose
+    // bit)
     unsigned pf[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -587,8 +659,15 @@ struct GroupRows {
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wgmma<1>(acc, pf[j], gmma_desc(vs + (c0 + 16 * j) * D, SBO, SW));
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (D == 128) {
+        const bf16* vj = vs + (c0 + 16 * j) * D;
+        wgmma_half<1, 0>(acc, pf[j], gmma_desc(vj, SBO, SW));
+        wgmma_half<1, 1>(acc, pf[j], gmma_desc(vj + 512, SBO, SW));
+      } else {
+        wgmma<1>(acc, pf[j], gmma_desc(vs + (c0 + 16 * j) * D, SBO, SW));
+      }
+    }
     wgmma_commit();
     wgmma_wait0();
     reg_fence(acc);
@@ -632,14 +711,26 @@ __device__ __forceinline__ bf16* align_smem(unsigned char* raw) {
 // Stage buffers: K0, V0, K1, V1 (kBufs = 4; the code form's one bf16 K, V
 // pair: 2), each [bkv_pad][D].  Rows in [bkv, bkv_pad) are never copied
 // into; they are zeroed once here so that the 64-key steps past a tile's
-// end multiply zeros.
+// end multiply zeros.  At head_dim 128 those rows are not one range of the
+// panel layout, so they are zeroed chunk by chunk through swz.
 template <int D, int kBufs = 4>
 __device__ __forceinline__ void zero_tail(bf16* smem, int bkv, int bkv_pad) {
-  const int tail = (bkv_pad - bkv) * D;
   const size_t tile = (size_t)bkv_pad * D;
-  for (int e = threadIdx.x; e < kBufs * tail; e += blockDim.x)
-    smem[(e / tail) * tile + (size_t)bkv * D + e % tail] =
-        __float2bfloat16(0.f);
+  if constexpr (D == 128) {
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+    const int tail = (bkv_pad - bkv) * CPR;
+    for (int e = threadIdx.x; e < kBufs * tail; e += blockDim.x) {
+      const int x = e % tail;
+      *reinterpret_cast<uint4*>(smem + (e / tail) * tile +
+                                swz<D>(bkv + x / CPR, x % CPR)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    const int tail = (bkv_pad - bkv) * D;
+    for (int e = threadIdx.x; e < kBufs * tail; e += blockDim.x)
+      smem[(e / tail) * tile + (size_t)bkv * D + e % tail] =
+          __float2bfloat16(0.f);
+  }
 }
 
 // Run the CTA's rows over the tiles `src` yields through the 2-stage
@@ -904,7 +995,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* items, void* out, int L, int Sq, int bq,
                        int bkv, Tiles tiles, int q_offset, int klim,
                        float scale, cudaStream_t stream) {
-  if (bq > 1024) return cudaErrorInvalidValue;  // one thread per row
+  const int threads = bq * kRowSplit<D>;  // kRowSplit<D> threads per row
+  if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)bkv * D * sizeof(TK);
   auto kern = sparse_prefill_kernel<float, TK, D, Tiles>;
   if (smem > 48 * 1024) {
@@ -912,7 +1004,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<L, bq, smem, stream>>>(
+  kern<<<L, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), items, static_cast<float*>(out), L, Sq,
       bq, bkv, tiles, q_offset, klim, scale, k_scales, v_scales);
@@ -920,10 +1012,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }
 
 // dtype: q's (and out's) element type, 0 = bfloat16 (tensor-core body),
-// 1 = float32 (scalar body, block_q <= 1024).  kv_dtype: the K/V tiles',
-// equal to dtype, or 2 = int8 / 3 = fp8 e4m3 codes with k_scales /
-// v_scales (tiles with scales only: the pool).  head_dim 32 or 64.
-// Returns the launch's cudaError_t.
+// 1 = float32 (scalar body, block_q * kRowSplit<D> <= 1024).  kv_dtype:
+// the K/V tiles', equal to dtype, or 2 = int8 / 3 = fp8 e4m3 codes with
+// k_scales / v_scales (tiles with scales only: the pool).  head_dim 32, 64
+// or 128.  Returns the launch's cudaError_t.
 template <class Tiles>
 cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
                      const void* k, const void* v, const float* k_scales,
@@ -935,34 +1027,26 @@ cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
 #define PREFILL_LAUNCH(FN, DD, TK)                                          \
   return FN<DD, TK, Tiles>(q, k, v, k_scales, v_scales, items, out, L, Sq,  \
                            bq, bkv, tiles, q_offset, klim, scale, stream)
+#define PREFILL_DIMS(FN, TK)                                                \
+  if (D == 32) PREFILL_LAUNCH(FN, 32, TK);                                  \
+  if (D == 64) PREFILL_LAUNCH(FN, 64, TK);                                  \
+  if (D == 128) PREFILL_LAUNCH(FN, 128, TK);                                \
+  return cudaErrorInvalidValue
   if (kv_dtype == dtype) {
-    if (dtype == 0 && D == 32) PREFILL_LAUNCH(launch_tc, 32, tc::bf16);
-    if (dtype == 0 && D == 64) PREFILL_LAUNCH(launch_tc, 64, tc::bf16);
-    if (dtype == 1 && D == 32) PREFILL_LAUNCH(launch_f32, 32, float);
-    if (dtype == 1 && D == 64) PREFILL_LAUNCH(launch_f32, 64, float);
+    if (dtype == 0) { PREFILL_DIMS(launch_tc, tc::bf16); }
+    if (dtype == 1) { PREFILL_DIMS(launch_f32, float); }
     return cudaErrorInvalidValue;
   }
   if constexpr (Tiles::kHasScales) {
     if (k_scales == nullptr || v_scales == nullptr)
       return cudaErrorInvalidValue;
     using fp8 = __nv_fp8_e4m3;
-    if (dtype == 0 && kv_dtype == 2 && D == 32)
-      PREFILL_LAUNCH(launch_tc, 32, int8_t);
-    if (dtype == 0 && kv_dtype == 2 && D == 64)
-      PREFILL_LAUNCH(launch_tc, 64, int8_t);
-    if (dtype == 0 && kv_dtype == 3 && D == 32)
-      PREFILL_LAUNCH(launch_tc, 32, fp8);
-    if (dtype == 0 && kv_dtype == 3 && D == 64)
-      PREFILL_LAUNCH(launch_tc, 64, fp8);
-    if (dtype == 1 && kv_dtype == 2 && D == 32)
-      PREFILL_LAUNCH(launch_f32, 32, int8_t);
-    if (dtype == 1 && kv_dtype == 2 && D == 64)
-      PREFILL_LAUNCH(launch_f32, 64, int8_t);
-    if (dtype == 1 && kv_dtype == 3 && D == 32)
-      PREFILL_LAUNCH(launch_f32, 32, fp8);
-    if (dtype == 1 && kv_dtype == 3 && D == 64)
-      PREFILL_LAUNCH(launch_f32, 64, fp8);
+    if (dtype == 0 && kv_dtype == 2) { PREFILL_DIMS(launch_tc, int8_t); }
+    if (dtype == 0 && kv_dtype == 3) { PREFILL_DIMS(launch_tc, fp8); }
+    if (dtype == 1 && kv_dtype == 2) { PREFILL_DIMS(launch_f32, int8_t); }
+    if (dtype == 1 && kv_dtype == 3) { PREFILL_DIMS(launch_f32, fp8); }
   }
+#undef PREFILL_DIMS
 #undef PREFILL_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import (
-    check_launch, count_launch, kernel_function, reset_launches)
+    HEAD_DIMS, check_launch, count_launch, f32_max_block_q, kernel_function,
+    reset_launches)
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -69,14 +70,29 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     return out[:, :sq].to(q.dtype)
 
 
+def check_flash_kernel_args(q, k, v, block_q: int) -> None:
+    """Raise unless the flash-attention kernel is built for q, k, v of
+    one dtype (bf16 / f32), q's head_dim (32, 64 or 128) and this
+    block_q."""
+    dh = q.shape[-1]
+    if (q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES
+            or dh not in HEAD_DIMS or block_q < 1
+            or (q.dtype == torch.float32 and block_q > f32_max_block_q(dh))):
+        raise ValueError(
+            f"flash_attention kernel takes q, k, v of one dtype (bf16/f32), "
+            f"head_dim 32/64/128 and block_q >= 1 (<= 1024 in f32, 512 at "
+            f"head_dim 128); got {q.dtype}/{k.dtype}/{v.dtype}, {dh}, "
+            f"{block_q}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_kv: int = 128, scale: float | None = None):
     """Dense flash attention (see module docstring).
 
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors launch
     the CUDA kernel (q, k, v of one dtype: bf16 runs its tensor-core body,
-    f32 its scalar body with block_q <= 1024; head_dim 32/64) or raise;
-    there is no fallback.  ``launches`` counts kernel launches.
+    f32 its scalar body with block_q <= 1024, or 512 at head_dim 128;
+    head_dim 32/64/128) or raise; there is no fallback.  ``launches`` counts kernel launches.
     """
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be [H, Sq, D] and k/v [Hkv, Skv, D] of one "
@@ -99,13 +115,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
-    if (q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES
-            or dh not in (32, 64) or block_q < 1
-            or (q.dtype == torch.float32 and block_q > 1024)):
-        raise ValueError(
-            f"flash_attention kernel takes q, k, v of one dtype (bf16/f32), "
-            f"head_dim 32/64 and block_q >= 1 (<= 1024 in f32); got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}, {dh}, {block_q}")
+    check_flash_kernel_args(q, k, v, block_q)
     out = torch.empty_like(q)
     scale_v = float(dh ** -0.5) if scale is None else float(scale)
     fn = kernel_function("flash_attention", _ARGTYPES)

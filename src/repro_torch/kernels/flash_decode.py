@@ -40,7 +40,8 @@ import torch
 from repro_torch.core.worklist import (
     D_BATCH, D_FIRST, D_KVBLK, D_KVHEAD, D_LAST, D_VALID, DEC_FIELDS)
 from repro_torch.kernels.build import (
-    check_launch, count_launch, kernel_function, reset_launches)
+    HEAD_DIMS, MAX_GROUP, check_launch, count_launch, kernel_function,
+    reset_launches)
 
 NEG_INF = -1e30
 # the kernels' element-type codes: caches that q shares, and code caches
@@ -251,8 +252,8 @@ def flash_decode_paged_kernel(q, k_pool, v_pool, items, table, pos, *,
 
     CPU tensors run :func:`packed_decode_attention_paged`.  CUDA tensors
     launch the CUDA kernel (bf16 or f32 pools, or int8 / fp8 code pools
-    with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64, G <= 4) or
-    raise; there is no fallback.  ``launches`` counts kernel launches,
+    with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64/128, G <= 8)
+    or raise; there is no fallback.  ``launches`` counts kernel launches,
     ``launches_by_dtype`` per pool dtype.
     """
     B, hkv, G, dh = q.shape
@@ -296,8 +297,8 @@ def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
 
     CPU tensors run :func:`packed_decode_attention`.  CUDA tensors launch
     the CUDA kernel (bf16 or f32 caches, or int8 / fp8 code caches with
-    ``k_scales`` / ``v_scales [B, Hkv, Smax / block_kv]``; head_dim 32/64,
-    G <= 4) or raise; there is no fallback.  ``launches`` counts kernel
+    ``k_scales`` / ``v_scales [B, Hkv, Smax / block_kv]``; head_dim
+    32/64/128, G <= 8) or raise; there is no fallback.  ``launches`` counts kernel
     launches, ``launches_by_dtype`` per cache dtype.
     """
     B, hkv, G, dh = q.shape
@@ -346,17 +347,23 @@ def _partials(q):
 
 
 def check_cuda_decode(name: str, q, k, k_scales=None):
-    """Raise unless ``q`` lies on CUDA and the kernel ``name`` takes the
-    cache's dtype (bf16 / f32, or int8 / fp8 codes where ``k_scales`` is
-    given), the head_dim and the GQA group size."""
+    """Raise unless ``q`` lies on CUDA and the kernel ``name`` takes its
+    arguments (:func:`check_decode_kernel_args`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
+    check_decode_kernel_args(name, q, k, k_scales)
+
+
+def check_decode_kernel_args(name: str, q, k, k_scales=None):
+    """Raise unless the decode kernel ``name`` is built for the cache's
+    dtype (bf16 / f32, or int8 / fp8 codes where ``k_scales`` is given),
+    q's head_dim (32, 64 or 128) and its GQA group (G <= 8)."""
     dh, G = q.shape[-1], q.shape[-2]
     kinds = CODE_DTYPES if k_scales is not None else DTYPES
-    if k.dtype not in kinds or dh not in (32, 64) or G > 4:
+    if k.dtype not in kinds or dh not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"{name} kernel takes bf16/f32 caches (int8/fp8 "
-                         f"codes with scales), head_dim 32/64 and G <= 4; "
-                         f"got {k.dtype}, {dh}, {G}")
+                         f"codes with scales), head_dim 32/64/128 and G <= "
+                         f"{MAX_GROUP}; got {k.dtype}, {dh}, {G}")
 
 
 def check_scales(q, k, k_scales, v_scales, shape: tuple) -> None:

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 from repro_torch.core.worklist import (
     F_FIRST, F_HEAD, F_KVBLK, F_KVHEAD, F_LAST, F_QBLK, F_VALID, ITEM_FIELDS)
 from repro_torch.kernels.build import (
-    check_launch, count_launch, kernel_function, reset_launches)
+    HEAD_DIMS, check_launch, count_launch, f32_max_block_q, kernel_function,
+    reset_launches)
 from repro_torch.kernels.flash_decode import (
     CODE_DTYPES, check_scales, kernel_dtype, scale_ptrs)
 
@@ -163,8 +164,9 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
 
     CPU tensors run :func:`worklist_attention_paged`.  CUDA tensors launch
     the CUDA kernel (q bf16 or f32 with pools of its dtype, or int8 / fp8
-    code pools with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64;
-    f32 block_q <= 1024) or raise; there is no fallback.  ``launches``
+    code pools with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim
+    32/64/128; f32 block_q <= 1024, or 512 at head_dim 128) or raise; there
+    is no fallback.  ``launches``
     counts kernel launches, ``launches_by_dtype`` per pool dtype.
     """
     hq, sq, dh = q.shape
@@ -217,7 +219,8 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
 
     CPU tensors run :func:`worklist_attention`.  CUDA tensors launch
     ``csrc/sparse_prefill_contig.cu`` (q and K/V of one dtype, bf16 or f32;
-    head_dim 32/64; f32 block_q <= 1024) or raise; there is no fallback.
+    head_dim 32/64/128; f32 block_q <= 1024, or 512 at head_dim 128) or
+    raise; there is no fallback.
     ``launches`` counts kernel launches.
     """
     hq, sq, dh = q.shape
@@ -252,20 +255,30 @@ reset_launches(sparse_prefill_paged, sparse_prefill_attention)
 
 
 def _check_cuda(name: str, q, k, block_q: int, k_scales=None):
-    """Raise unless q lies on CUDA and the kernel takes its dtype (bf16 /
-    f32) with K/V of the same dtype, or with int8 / fp8 codes where
-    ``k_scales`` is given, at this head_dim and block_q."""
+    """Raise unless q lies on CUDA and the kernel takes its arguments
+    (:func:`check_prefill_kernel_args`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
+    check_prefill_kernel_args(name, q, k, block_q, k_scales)
+
+
+def check_prefill_kernel_args(name: str, q, k, block_q: int,
+                              k_scales=None):
+    """Raise unless the prefill kernel ``name`` is built for q's dtype
+    (bf16 / f32) with K/V of the same dtype, or with int8 / fp8 codes where
+    ``k_scales`` is given, at q's head_dim (32, 64 or 128) and this
+    block_q."""
     dh = q.shape[-1]
     kv_ok = (k.dtype in CODE_DTYPES if k_scales is not None
              else k.dtype == q.dtype)
-    if (not kv_ok or q.dtype not in _DTYPES or dh not in (32, 64)
-            or block_q < 1 or (q.dtype == torch.float32 and block_q > 1024)):
+    if (not kv_ok or q.dtype not in _DTYPES or dh not in HEAD_DIMS
+            or block_q < 1 or (q.dtype == torch.float32
+                               and block_q > f32_max_block_q(dh))):
         raise ValueError(
             f"{name} kernel takes bf16/f32 q with K/V of its dtype (or "
-            f"int8/fp8 codes with scales), head_dim 32/64 and block_q >= 1 "
-            f"(<= 1024 in f32); got {q.dtype}/{k.dtype}, {dh}, {block_q}")
+            f"int8/fp8 codes with scales), head_dim 32/64/128 and block_q "
+            f">= 1 (<= 1024 in f32, 512 at head_dim 128); got "
+            f"{q.dtype}/{k.dtype}, {dh}, {block_q}")
 
 
 def _check_common(q, k, v, items, table=None):

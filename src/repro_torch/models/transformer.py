@@ -30,17 +30,32 @@ from repro_torch.models import common
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
-    """Random weights from a numpy seed, with the reference's shapes and
-    init scales (``N(0, 1/in_dim)`` projections, ``N(0, 1/d_model)``
+                device: str | torch.device = "cuda",
+                host_rng: bool = True) -> dict:
+    """Random weights from a seed, with the reference's shapes and init
+    scales (``N(0, 1/in_dim)`` projections, ``N(0, 1/d_model)``
     embeddings, unit norms).  Projections and embeddings are in
-    ``cfg.dtype``; norm weights are float32."""
-    rng = np.random.default_rng(seed)
+    ``cfg.dtype``; norm weights are float32.  The normals come from
+    numpy's generator (the same values on every device), or, with
+    ``host_rng=False``, from a torch generator on ``device`` (no host
+    draw: for billions of weights on a GPU; the values are that
+    generator's)."""
+    if host_rng:
+        rng = np.random.default_rng(seed)
+
+        def normal(shape, scale):
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w *= np.float32(scale)
+            return torch.from_numpy(w).to(device=device, dtype=cfg.dtype)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def normal(shape, scale):
+            return torch.randn(shape, generator=gen, device=device).mul_(
+                scale).to(cfg.dtype)
 
     def dense(din, dout):
-        w = rng.standard_normal((din, dout), dtype=np.float32)
-        w *= np.float32(1.0 / np.sqrt(din))
-        return torch.from_numpy(w).to(device=device, dtype=cfg.dtype)
+        return normal((din, dout), 1.0 / np.sqrt(din))
 
     def ones():
         return torch.ones(cfg.d_model, dtype=torch.float32, device=device)
@@ -57,10 +72,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             "mlp": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
                     "down": dense(cfg.d_ff, d)},
         })
-    emb = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32)
-    emb *= np.float32(1.0 / np.sqrt(d))
-    params = {"embed": torch.from_numpy(emb).to(device=device,
-                                                dtype=cfg.dtype),
+    params = {"embed": normal((cfg.vocab_size, d), 1.0 / np.sqrt(d)),
               "layers": layers, "ln_f": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.vocab_size)

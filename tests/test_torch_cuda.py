@@ -146,17 +146,20 @@ def prefill_case(seed, H=4, Hkv=2, D=32, prompt=640, q_offset=256,
     return q, kp, vp, items, table
 
 
-# head_dim 64 is SmolLM-135M's, 32 its SMOKE size's: the two the kernels
-# dispatch
-@pytest.mark.parametrize("D", [32, 64])
+# head_dim 64 is SmolLM-135M's, 32 its SMOKE size's, 128 Yi-6B's: the three
+# the kernels dispatch.  The decode's GQA group G runs under a bound of 4
+# (SmolLM-135M's 3) or of 8 (Yi-6B's 8); the prefill's takes any group
+# (2 is the cases' own, 8 Yi-6B's)
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("holes,window,layout", [
     (False, None, "packed"), (True, 200, "packed"), (True, None, "padded")])
 def test_cuda_decode_kernel_matches_plain(cuda, dtype, holes, window,
-                                          layout, D):
+                                          layout, D, G):
     q, kp, vp, items, table, pos = (t.to(cuda) for t in as_torch(
-        *decode_case(5, D=D, holes=holes, layout=layout)))
-    q = q.reshape(3, 2, 3, D).to(dtype)
+        *decode_case(5, G=G, D=D, holes=holes, layout=layout)))
+    q = q.reshape(3, 2, G, D).to(dtype)
     kp, vp = kp.to(dtype), vp.to(dtype)
     before = flash_decode_paged_kernel.launches
     got = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
@@ -168,12 +171,13 @@ def test_cuda_decode_kernel_matches_plain(cuda, dtype, holes, window,
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
-def test_cuda_prefill_kernel_matches_plain(cuda, dtype, atol, D):
+def test_cuda_prefill_kernel_matches_plain(cuda, dtype, atol, D, G):
     q, kp, vp, items, table = (t.to(cuda) for t in as_torch(
-        *prefill_case(6, D=D, hole=True)))
+        *prefill_case(6, H=2 * G, D=D, hole=True)))
     args = (q.to(dtype), kp.to(dtype), vp.to(dtype), items, table)
     kw = dict(q_offset=256, kv_len=600)
     before = sparse_prefill_paged.launches
@@ -204,18 +208,19 @@ def test_cuda_identity_table_prefill_matches_plain(cuda):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window,layout", [
     (None, "packed"), (200, "packed"), (None, "padded")])
 def test_cuda_contiguous_decode_kernel_matches_plain(cuda, dtype, window,
-                                                     layout, D):
-    q, kp, vp, items, table, pos = decode_case(8, D=D, layout=layout)
+                                                     layout, D, G):
+    q, kp, vp, items, table, pos = decode_case(8, G=G, D=D, layout=layout)
     kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
-    q, kc, vc, items, pos = (t.to(cuda) for t in as_torch(
-        q, kc, vc, items, pos))
-    q = q.reshape(3, 2, 3, D).to(dtype)
-    kc, vc = kc.to(dtype), vc.to(dtype)
+    q, kp, vp, kc, vc, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table, pos))
+    q = q.reshape(3, 2, G, D).to(dtype)
+    kp, vp, kc, vc = (t.to(dtype) for t in (kp, vp, kc, vc))
     before = flash_decode_kernel.launches
     got = flash_decode_kernel(q, kc, vc, items, pos, block_kv=BLK,
                               window=window)
@@ -224,6 +229,10 @@ def test_cuda_contiguous_decode_kernel_matches_plain(cuda, dtype, window,
                                    window=window)
     for g, w in zip(got, want):     # f32 sums in another order
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    paged = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
+                                      block_kv=BLK, window=window)
+    for a, b in zip(got, paged):
+        assert torch.equal(a, b), "one body: both layouts, the same bits"
 
 
 @pytest.mark.parametrize("form", ["packed", "ids"])
@@ -251,11 +260,13 @@ def test_cuda_decode_layouts_give_the_same_bits(cuda, form):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
-def test_cuda_contiguous_prefill_kernel_matches_plain(cuda, dtype, atol, D):
-    q, kp, vp, items, table = prefill_case(10, D=D)
+def test_cuda_contiguous_prefill_kernel_matches_plain(cuda, dtype, atol, D,
+                                                      G):
+    q, kp, vp, items, table = prefill_case(10, H=2 * G, D=D)
     kc = as_slot_cache(kp, table[None])[0]
     vc = as_slot_cache(vp, table[None])[0]
     args = [t.to(cuda) for t in as_torch(q, kc, vc, items)]
@@ -273,17 +284,18 @@ def test_cuda_contiguous_prefill_kernel_matches_plain(cuda, dtype, atol, D):
     assert torch.equal(got, paged), "one body: both layouts, the same bits"
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 @pytest.mark.parametrize("causal,sq,skv", [
     (True, 384, 384), (False, 384, 384), (True, 200, 330),
     (False, 330, 200)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, atol, causal, sq,
-                                            skv, D):
+                                            skv, D, G):
     rng = np.random.default_rng(11)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(cuda, dtype) for s in ((6, sq, D), (2, skv, D),
+               .to(cuda, dtype) for s in ((2 * G, sq, D), (2, skv, D),
                                           (2, skv, D)))
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
@@ -292,12 +304,13 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, atol, causal, sq,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
-def test_cuda_sparse_decode_matches_plain(cuda, dtype, atol, D):
+def test_cuda_sparse_decode_matches_plain(cuda, dtype, atol, D, G):
     rng = np.random.default_rng(12)
-    B, Hkv, G, S, cache_len = 3, 2, 3, 4 * BLK, 3 * BLK + 17
+    B, Hkv, S, cache_len = 3, 2, 4 * BLK, 3 * BLK + 17
     q, kc, vc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                  .to(cuda, dtype) for s in ((B, Hkv, G, D), (B, Hkv, S, D),
                                             (B, Hkv, S, D)))
@@ -343,23 +356,24 @@ def _tc_prefill(cuda, q, kp, vp, items, table, *, q_offset, kv_len, blk=BLK,
     return got
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("q_offset", [0, 2048])
 @pytest.mark.parametrize("hole", [False, True])
-def test_cuda_tc_prefill_matches_plain(cuda, D, q_offset, hole):
+def test_cuda_tc_prefill_matches_plain(cuda, D, q_offset, hole, G):
     """An uncovered run, replicate-last padding rows, kv_len inside the
     chunk, a contiguous last tile of fewer than block_kv rows, and -1
     table entries."""
     chunk = 256
     q, kp, vp, items, table = prefill_case(
-        13, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
+        13, H=2 * G, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
         hole=hole)
     got = _tc_prefill(cuda, q, kp, vp, items, table, q_offset=q_offset,
                       kv_len=q_offset + chunk - 40, layouts=not hole)
     assert not got[1, :BLK].any(), "an uncovered run's rows stay zero"
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_cuda_tc_prefill_fully_masked_tiles(cuda, D):
     """A run whose first tile lies wholly above the causal diagonal, and a
     run with no kept key at all (its rows are written as zeros)."""
@@ -385,7 +399,7 @@ def test_cuda_tc_prefill_fully_masked_tiles(cuda, D):
     assert got[0].abs().sum() > 0
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_cuda_tc_prefill_odd_blocks(cuda, D):
     """block_q = block_kv = 80: q blocks that are not whole 64-row CTA
     slices and tiles that end inside a 64-key step."""
@@ -403,7 +417,7 @@ def test_cuda_tc_prefill_odd_blocks(cuda, D):
                 blk=blk)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,skv,bq,bkv", [
     (1000, 3001, 128, 128), (333, 517, 96, 80)])
@@ -421,10 +435,10 @@ def test_cuda_tc_flash_attention_ragged(cuda, D, causal, sq, skv, bq, bkv):
 
 # -- the codes-and-scales forms (int8 / fp8 pools with per-block scales) ----
 
-def _quant_decode(cuda, seed, kind, D, **kw):
+def _quant_decode(cuda, seed, kind, D, G=3, **kw):
     """A decode case over a code pool on the card: q in (-1, 1), codes and
     one scale per (block, kv head)."""
-    q, kp, vp, items, table, pos = decode_case(seed, D=D, **kw)
+    q, kp, vp, items, table, pos = decode_case(seed, G=G, D=D, **kw)
     rng = np.random.default_rng(300 + seed)
     q = rng.uniform(-1.0, 1.0, size=q.shape).astype(np.float32)
     ks, vs = (code_scales(rng, kp.shape[:2], kind) for _ in range(2))
@@ -432,18 +446,19 @@ def _quant_decode(cuda, seed, kind, D, **kw):
               for p in (kp, vp))
     q, ks, vs, items, table, pos = (t.to(cuda) for t in as_torch(
         q, ks, vs, items, table, pos))
-    return q.reshape(3, 2, 3, D), kc, vc, ks, vs, items, table, pos
+    return q.reshape(3, 2, G, D), kc, vc, ks, vs, items, table, pos
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("holes,window,layout", [
     (False, None, "packed"), (True, 200, "packed"), (True, None, "padded")])
 def test_cuda_quant_decode_kernel_matches_plain(cuda, kind, holes, window,
-                                                layout, D):
+                                                layout, D, G):
     """#1 over a code pool: scales at the physical block, -1 entries."""
     q, kc, vc, ks, vs, items, table, pos = _quant_decode(
-        cuda, 17, kind, D, holes=holes, layout=layout)
+        cuda, 17, kind, D, G, holes=holes, layout=layout)
     kw = dict(block_kv=BLK, window=window, k_scales=ks, v_scales=vs)
     before = flash_decode_paged_kernel.launches_by_dtype.get(
         str(kc.dtype)[6:], 0)
@@ -455,16 +470,17 @@ def test_cuda_quant_decode_kernel_matches_plain(cuda, kind, holes, window,
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("window,layout", [(None, "packed"),
                                            (200, "padded")])
 def test_cuda_quant_contiguous_decode_matches_plain(cuda, kind, window,
-                                                    layout, D):
+                                                    layout, D, G):
     """#3 over a code slot cache: scales per (row, kv head, block), and
     the same bits as #1 on equal contents."""
     q, kc, vc, ks, vs, items, table, pos = _quant_decode(
-        cuda, 18, kind, D, layout=layout)
+        cuda, 18, kind, D, G, layout=layout)
     tb = table.cpu().numpy()
     slot = lambda p: code_tensor(as_slot_cache(  # noqa: E731
         p.view(torch.uint8).cpu().numpy(), tb), kind).to(cuda)
@@ -486,19 +502,20 @@ def test_cuda_quant_contiguous_decode_matches_plain(cuda, kind, window,
         assert torch.equal(a, b), "one body: both layouts, the same bits"
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 @pytest.mark.parametrize("q_offset,hole", [(0, False), (2048, True)])
 def test_cuda_quant_prefill_matches_plain(cuda, kind, dtype, atol, q_offset,
-                                          hole, D):
+                                          hole, D, G):
     """#2 paged over a code pool: the tensor-core body (bf16 q) and the
     scalar one (f32 q), an uncovered run, -1 table entries, kv_len inside
     the chunk."""
     chunk = 256
     q, kp, vp, items, table = prefill_case(
-        19, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
+        19, H=2 * G, D=D, prompt=q_offset + chunk, q_offset=q_offset, chunk=chunk,
         hole=hole)
     rng = np.random.default_rng(19)
     ks, vs = (code_scales(rng, kp.shape[:2], kind) for _ in range(2))
@@ -587,3 +604,49 @@ def test_cuda_quant_smoke_serve_matches_cpu(cuda, layout):
             prompts, SamplingParams(max_tokens=8))])
     assert outs[0] == outs[1]
     assert decode.launches_by_dtype.get("int8", 0) > before
+
+
+# -- shapes no kernel is built for, and a serve at Yi-6B's widths ---------
+
+
+def test_cuda_wrappers_refuse_unbuilt_shapes(cuda):
+    """head_dim 16 and 256 and G > 8 raise on the card: no kernel is
+    built for them and nothing else runs in their place."""
+    for dh, g in ((16, 8), (256, 8), (128, 9)):
+        q = torch.zeros((1, 1, g, dh), device=cuda, dtype=torch.bfloat16)
+        kc = torch.zeros((1, 1, BLK, dh), device=cuda, dtype=torch.bfloat16)
+        items = torch.zeros((1, 6), device=cuda, dtype=torch.int32)
+        pos = torch.zeros((1,), device=cuda, dtype=torch.int32)
+        with pytest.raises(ValueError, match="head_dim 32/64/128"):
+            flash_decode_kernel(q, kc, kc, items, pos, block_kv=BLK)
+    q = torch.zeros((2, 8, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32/64/128"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_cuda_yi_two_layer_f32_serve_matches_cpu(cuda, kind):
+    """Yi-6B's widths and G at 2 layers, float32, a small vocabulary: the
+    card's greedy tokens (the head_dim-128 f32 kernels) equal the plain
+    versions' on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                              vocab_size=512, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (300, 40)]
+    before = flash_decode_paged_kernel.launches
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, init_params(cfg, seed=2, device=dev),
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, kv_dtype=kind),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        outs.append([r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=6))])
+    assert outs[0] == outs[1]
+    assert flash_decode_paged_kernel.launches > before
