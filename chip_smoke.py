@@ -45,19 +45,26 @@ Phases, in order; any failure exits non-zero:
    code kernels) must equal the plain versions' on the CPU; then three
    full-width serves of the same 8 prompts (paged bf16, the main path;
    contiguous bf16, whose tokens must equal the paged serve's; paged int8
-   through the code forms), each completing every request.
+   through the code forms), each completing every request;
+7. Gemma3-1B (4 heads over 1 KV head: G = 4, head_dim 256; five
+   sliding-window layers of 512 positions to one global) the same way:
+   phases 3 and 4 at its shapes (the decodes also with its window), its
+   widths at 6 layers (one ``LLLLLG`` period) in float32 with a prompt
+   longer than the window (card tokens == CPU tokens, bf16 / int8 / fp8
+   caches, both layouts), and three full-width serves (26 layers).
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
-``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's shapes,
-``...@yi-6b``; its ``launches`` are those of the run that launches it on a
-serving path (a full-width serve; the library-path run for #4 and #5; the
-2-layer float32 serves for Yi-6B's f32 forms and the code decodes no
-full-width serve runs; the paged int8 serve for Yi-6B's bf16-q fp8
-prefill, which no serve launches, so its count is 0).
+``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
+Gemma3-1B's shapes, ``...@yi-6b`` / ``...@gemma3-1b``; its ``launches`` are
+those of the run that launches it on a serving path (a full-width serve;
+the library-path run for #4 and #5; the float32 parity serves for the f32
+forms and the code decodes no full-width serve runs; the paged int8 serve
+for the bf16-q fp8 prefill, which no serve launches, so its count is 0).
 
 The last two lines are a JSON object of per-kernel numbers and the card
 line, then ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -72,18 +79,34 @@ BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 F32_ATOL = 1e-4                # f32 output: sums taken in another order
 BF16_ATOL = 2.0 ** -6          # bf16 output: one bf16 ulp at |x| < 4
+# A quantized float32 parity serve, the card replaying the CPU's tokens,
+# gives each model call and row its largest card-vs-CPU logit difference.
+# Sound serves differ as the K/V the two devices quantize differ by f32
+# rounding, so codes next to a rounding boundary land one step apart (the
+# paged pool requantizes a block per decode token, so there the noise
+# reaches every call).  The median difference must stay under the model's
+# QUANT_MEDIAN_ATOL, set between its sound serves' largest median and that
+# of the planted control (q rounded to bf16 in the code decodes), which
+# every parity with an int8 cache runs and must refuse; the largest under
+# QUANT_LOGIT_ATOL, twice the largest sound reading, against a fault
+# confined to a few rows (PERF.md §6, PR 20).
+QUANT_LOGIT_ATOL = 3e-2
+QUANT_MEDIAN_ATOL = {"smollm-135m-smoke": 5e-4, "yi-6b": 1.5e-3,
+                     "gemma3-1b": 5.6e-3}
 B, BLK, SMAX = 8, 128, 4096    # decode rows, KV block, max_seq_len
 
 
 @dataclasses.dataclass(frozen=True)
 class Shapes:
-    """A model's attention shapes for the kernel phases, and the suffix of
-    its kernel-form names."""
+    """A model's attention shapes for the kernel phases, the suffix of its
+    kernel-form names, and the decode checks' sliding window (the model's
+    own where it has one)."""
     arch: str
     H: int
     HKV: int
     D: int
     tag: str
+    window: int = 640
 
     @property
     def G(self) -> int:
@@ -92,6 +115,7 @@ class Shapes:
 
 SMOL = Shapes("smollm-135m", 9, 3, 64, "")
 YI = Shapes("yi-6b", 32, 4, 128, "@yi-6b")
+GEMMA = Shapes("gemma3-1b", 4, 1, 256, "@gemma3-1b", 512)
 SERVE_LENS = (300, 1010, 3500, 2048, 700, 1500, 2900, 513)
 # dense flash attention checks: (tag, causal, Sq, Skv); the first is timed
 FLASH_CASES = (("causal,4096", True, 4096, 4096),
@@ -99,8 +123,9 @@ FLASH_CASES = (("causal,4096", True, 4096, 4096),
                ("causal,ragged 1000x3001", True, 1000, 3001))
 SERVES = (("paged", "packed"), ("contiguous", "packed"),
           ("paged", "padded"), ("contiguous", "padded"))
-# Yi-6B's full-width serves: (cache layout, KV dtype), all packed decode
-YI_SERVES = (("paged", "bf16"), ("contiguous", "bf16"), ("paged", "int8"))
+# Yi-6B's and Gemma3-1B's full-width serves: (cache layout, KV dtype), all
+# packed decode
+FULL_SERVES = (("paged", "bf16"), ("contiguous", "bf16"), ("paged", "int8"))
 QUANT_KINDS = ("int8", "fp8")
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
@@ -129,12 +154,15 @@ CODE_KERNELS = ("flash_decode_paged", "flash_decode_contig",
 PATH_KERNELS = ("flash_decode_paged", "sparse_prefill_paged",
                 "flash_decode_contig", "sparse_prefill_contig")
 # every kernel form of the kernels line: SmolLM-135M's bf16 kernels and
-# code forms, then Yi-6B's bf16 kernels, f32 forms and code forms
+# code forms, then Yi-6B's and Gemma3-1B's bf16 kernels, f32 forms and code
+# forms
 FORMS = (*KERNELS,
          *(f"{n}.{k}" for n in CODE_KERNELS for k in QUANT_KINDS),
-         *(f"{n}{YI.tag}" for n in KERNELS),
-         *(f"{n}.f32{YI.tag}" for n in PATH_KERNELS),
-         *(f"{n}.{k}{YI.tag}" for n in CODE_KERNELS for k in QUANT_KINDS))
+         *(f for sh in (YI, GEMMA) for f in (
+             *(f"{n}{sh.tag}" for n in KERNELS),
+             *(f"{n}.f32{sh.tag}" for n in PATH_KERNELS),
+             *(f"{n}.{k}{sh.tag}" for n in CODE_KERNELS
+               for k in QUANT_KINDS))))
 KIND_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn", "f32": "float32"}
 
 
@@ -403,12 +431,13 @@ def check_decode(eng, gen, dev, results, sh: Shapes, dtypes):
         for tag, it, tb, kw in (("packed", items, table, {}),
                                 ("padded", padded, table, {}),
                                 ("unmapped", items, holes, {}),
-                                ("window", items, table, {"window": 640})):
+                                ("window", items, table,
+                                 {"window": sh.window})):
             errs["paged", tag] = check(
                 pname, tag, paged(flash_decode_paged_kernel, it, tb, **kw),
                 paged(packed_decode_attention_paged, it, tb, **kw), F32_ATOL)
         for tag, it, kw in (("packed", items, {}), ("padded", padded, {}),
-                            ("window", items, {"window": 640})):
+                            ("window", items, {"window": sh.window})):
             got = contig(flash_decode_kernel, it, **kw)
             errs["contig", tag] = check(
                 cname, tag, got, contig(packed_decode_attention, it, **kw),
@@ -588,8 +617,8 @@ def slot_scales(scales, table):
 def check_quant_decode(eng, gen, dev, results, sh: Shapes):
     """#1 and #3 over int8 / fp8 codes with per-block scales at the engine's
     layer-0 shapes (8 rows of 3000-4096 tokens): packed items, the padded
-    table, -1 table entries; the two layouts bit for bit; each form timed
-    beside its bound and SDPA on the dequantized bf16 K/V."""
+    table, -1 table entries, a window; the two layouts bit for bit; each
+    form timed beside its bound and SDPA on the dequantized bf16 K/V."""
     import torch
     from repro_torch.kernels.flash_decode import (
         flash_decode_kernel, flash_decode_paged_kernel,
@@ -610,30 +639,33 @@ def check_quant_decode(eng, gen, dev, results, sh: Shapes):
             slot_rows(vc.view(torch.int8), table).view(vc.dtype)
         sk, sv = slot_scales(ks, table), slot_scales(vs, table)
 
-        def paged(fn, it, tb=table):
+        def paged(fn, it, tb=table, **kw):
             return fn(q, kc, vc, it, tb, pos, block_kv=BLK, k_scales=ks,
-                      v_scales=vs)
+                      v_scales=vs, **kw)
 
-        def contig(fn, it):
+        def contig(fn, it, **kw):
             return fn(q, ck, cv, it, pos, block_kv=BLK, k_scales=sk,
-                      v_scales=sv)
+                      v_scales=sv, **kw)
 
         errs = {}
         pname = form("flash_decode_paged", kind, sh)
         cname = form("flash_decode_contig", kind, sh)
-        for tag, it, tb in (("packed", items, table),
-                            ("padded", padded, table),
-                            ("unmapped", items, holes)):
+        win = {"window": sh.window}
+        for tag, it, tb, kw in (("packed", items, table, {}),
+                                ("padded", padded, table, {}),
+                                ("unmapped", items, holes, {}),
+                                ("window", items, table, win)):
             errs["paged", tag] = check(
-                pname, tag, paged(flash_decode_paged_kernel, it, tb),
-                paged(packed_decode_attention_paged, it, tb), F32_ATOL)
-        for tag, it in (("packed", items), ("padded", padded)):
-            got = contig(flash_decode_kernel, it)
+                pname, tag, paged(flash_decode_paged_kernel, it, tb, **kw),
+                paged(packed_decode_attention_paged, it, tb, **kw), F32_ATOL)
+        for tag, it, kw in (("packed", items, {}), ("padded", padded, {}),
+                            ("window", items, win)):
+            got = contig(flash_decode_kernel, it, **kw)
             errs["contig", tag] = check(
-                cname, tag, got, contig(packed_decode_attention, it),
+                cname, tag, got, contig(packed_decode_attention, it, **kw),
                 F32_ATOL)
             same = all(torch.equal(a, b) for a, b in zip(
-                got, paged(flash_decode_paged_kernel, it)))
+                got, paged(flash_decode_paged_kernel, it, **kw)))
             print(f"decode.{kind}{sh.tag}[{tag}]: contiguous "
                   f"{'==' if same else '!='} paged, bit for bit")
             if not same:
@@ -951,8 +983,8 @@ def run_serves(cfg, params, dev):
     return launches
 
 
-def run_yi_serves(cfg, params, dev):
-    """Yi-6B's full-width serves (``YI_SERVES``, packed decode): the
+def run_full_serves(cfg, params, dev, sh: Shapes):
+    """A model's full-width serves (``FULL_SERVES``, packed decode): the
     contiguous bf16 serve must give the paged one's tokens, and the code
     serves complete every request through the code forms.  The int8
     serve also reads the bf16-q fp8 prefill's count, which no serve here
@@ -960,21 +992,22 @@ def run_yi_serves(cfg, params, dev):
     import torch
     prompts = serve_prompts(cfg)
     tokens, launches = {}, {}
-    for layout, kind in YI_SERVES:
+    for layout, kind in FULL_SERVES:
         tag = f"{layout},packed,{kind}"
         eng = build_engine(cfg, params, dev, cache_layout=layout,
                            kv_dtype=kind)
-        also = ([form("sparse_prefill_paged", "fp8", YI)]
+        also = ([form("sparse_prefill_paged", "fp8", sh)]
                 if kind == "int8" else [])
-        tokens[layout, kind], got = run_serve(eng, prompts, tag, YI, also)
+        tokens[layout, kind], got = run_serve(eng, prompts, tag, sh, also)
         launches.update(got)
         del eng
         torch.cuda.empty_cache()
     same = tokens["contiguous", "bf16"] == tokens["paged", "bf16"]
-    print(f"serve[{YI.arch}:contiguous,packed,bf16]: greedy tokens "
+    print(f"serve[{sh.arch}:contiguous,packed,bf16]: greedy tokens "
           f"{'==' if same else '!='} paged,packed,bf16")
     if not same:
-        fail("Yi-6B: the contiguous tokens differ from the paged serve's")
+        fail(f"{sh.arch}: the contiguous tokens differ from the paged "
+             f"serve's")
     return launches
 
 
@@ -988,37 +1021,133 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
+@contextlib.contextmanager
+def sampled_logits(record: list, forced: list | None = None):
+    """While the block runs, append the logits each model call's tokens are
+    sampled from (float32, on the CPU) to ``record``.  With ``forced``
+    (another serve's record), call i takes the greedy tokens of
+    ``forced[i]`` instead of its own: the serve replays that serve's
+    tokens."""
+    from repro_torch.serving import engine as serving
+    sample = serving.sample
+
+    def recorded(logits, params):
+        tokens = sample(logits, params)
+        if forced is not None:
+            tokens = forced[len(record)].argmax(-1).to(tokens)
+        record.append(logits.float().cpu())
+        return tokens
+
+    serving.sample = recorded
+    try:
+        yield record
+    finally:
+        serving.sample = sample
+
+
+@contextlib.contextmanager
+def bf16_q_code_decodes():
+    """The quantized parity's planted control: while the block runs, the
+    decodes (#1 / #3, the code forms in a quantized serve) take q rounded
+    to bf16, a fault of the size of reading q at the wrong precision."""
+    import torch
+    from repro_torch.kernels import ops
+    names = ("flash_decode", "flash_decode_packed", "flash_decode_paged",
+             "flash_decode_packed_paged")
+    orig = {n: getattr(ops, n) for n in names}
+
+    def rounded(fn):
+        def call(q, *args, **kw):
+            return fn(q.to(torch.bfloat16).to(q.dtype), *args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, rounded(orig[n]))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
+def forced_logit_diff(card, cpu) -> tuple[float, float, int]:
+    """A teacher-forced serve's card-vs-CPU logit differences, each model
+    call and row's largest: their median and maximum (NaN if any is NaN),
+    and the rows whose greedy argmax differs (near-ties within them)."""
+    import torch
+    if len(card) != len(cpu):
+        fail(f"{len(card)} model calls on the card, {len(cpu)} on the CPU")
+    rows = torch.cat([(a - b).abs().amax(-1) for a, b in zip(card, cpu)])
+    flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum())
+                for a, b in zip(card, cpu))
+    return rows.median().item(), rows.max().item(), flips
+
+
 def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
     """float32 serves of ``cfg`` on the card and on the CPU (plain
     versions), paged and contiguous, at each KV dtype of ``kinds``, with
-    the card's weights ``params`` (copied to the CPU): the greedy tokens
-    must be equal (sums in another order only)."""
+    the card's weights ``params`` (copied to the CPU).  bf16 cache: the
+    greedy tokens must be equal (sums in another order only).  int8 / fp8:
+    the card replays the CPU's tokens (greedy tokens could part at a
+    near-tie, as codes one step apart move the logits a little) and the
+    logit differences of every model call must hold ``QUANT_MEDIAN_ATOL``
+    and ``QUANT_LOGIT_ATOL``; then the planted control
+    (:func:`bf16_q_code_decodes`, paged int8) must fail that check."""
     import torch
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
-    devs = (dev, torch.device("cpu"))
-    params = [params, to_device(params, devs[1])]
+    cpu = torch.device("cpu")
+    cpu_params = to_device(params, cpu)
+    med_atol = QUANT_MEDIAN_ATOL[cfg.name]
+
+    def serve(d, layout, kind, forced=None):
+        eng = Engine(cfg, params if d == dev else cpu_params,
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, cache_layout=layout,
+                                  kv_dtype=kind),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=d)
+        with sampled_logits([], forced) as rec:
+            out = [r.generated for r in eng.serve(
+                prompts, SamplingParams(max_tokens=max_tokens))]
+        return out, rec
+
+    def held(sub, card, rec) -> bool:
+        med, worst, flips = forced_logit_diff(card, rec)
+        ok = med <= med_atol and worst <= QUANT_LOGIT_ATOL
+        print(f"{sub}: card replaying the CPU's tokens over {len(rec)} model "
+              f"calls, logit difference median {med:.3e} (tolerance "
+              f"{med_atol:g}), max {worst:.3e} (tolerance "
+              f"{QUANT_LOGIT_ATOL:g}); greedy argmax differs in {flips} "
+              f"rows: {'held' if ok else 'NOT held'}")
+        return ok
+
+    records = {}
     for kind in kinds:
         for layout in ("paged", "contiguous"):
-            outs = []
-            for d, p in zip(devs, params):
-                eng = Engine(cfg, p,
-                             EngineConfig(max_seq_len=1024, num_slots=4,
-                                          budget_per_head=256,
-                                          cache_layout=layout,
-                                          kv_dtype=kind),
-                             synthetic_head_curves(cfg.num_layers,
-                                                   cfg.num_heads),
-                             device=d)
-                outs.append([r.generated for r in eng.serve(
-                    prompts, SamplingParams(max_tokens=max_tokens))])
-                del eng
-            same = outs[0] == outs[1]
-            print(f"{tag} f32 serve[{layout},{kind}]: card tokens "
-                  f"{'==' if same else '!='} CPU plain-version tokens")
-            if not same:
-                fail(f"{tag} {layout},{kind}: card {outs[0]} != cpu "
-                     f"{outs[1]}")
+            sub = f"{tag} f32 serve[{layout},{kind}]"
+            want, rec = records[layout, kind] = serve(cpu, layout, kind)
+            if kind == "bf16":
+                got, _ = serve(dev, layout, kind)
+                same = got == want
+                print(f"{sub}: card tokens {'==' if same else '!='} CPU "
+                      f"plain-version tokens")
+                if not same:
+                    fail(f"{tag} {layout},{kind}: card {got} != cpu {want}")
+                continue
+            got, card = serve(dev, layout, kind, forced=rec)
+            if got != want:
+                fail(f"{sub}: the card did not replay the CPU's tokens")
+            if not held(sub, card, rec):
+                fail(f"{sub}: card and CPU logits differ beyond tolerance")
+    if "int8" in kinds:
+        rec = records["paged", "int8"][1]
+        with bf16_q_code_decodes():
+            _, card = serve(dev, "paged", "int8", forced=rec)
+        if held(f"{tag} f32 serve[paged,int8] control (q rounded to bf16 "
+                f"in the code decodes)", card, rec):
+            fail(f"{tag}: the quantized parity check passes its planted "
+                 f"control")
 
 
 def serve_smoke_parity(dev):
@@ -1037,37 +1166,80 @@ def serve_smoke_parity(dev):
                  init_params(cfg, seed=1, device=dev), 12, "smoke")
 
 
-def yi_parity_config():
-    """Yi-6B's widths and G at 2 layers, in float32."""
+# the float32 parity models: (layers, prompt lengths); Gemma3-1B's 6
+# layers are one LLLLLG period, and its 700-token prompt reaches past the
+# 512-token window of the local layers' decode
+PARITY = {"yi-6b": (2, (200, 40, 130)), "gemma3-1b": (6, (700, 40, 260))}
+
+
+def parity_config(sh: Shapes):
+    """The model's widths and G at ``PARITY``'s depth, in float32."""
     import torch
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("yi-6b"), num_layers=2,
+    return dataclasses.replace(get_config(sh.arch),
+                               num_layers=PARITY[sh.arch][0],
                                dtype=torch.float32)
 
 
-def yi_f32_parity(dev, params):
-    """Yi-6B's widths and G at 2 layers in float32, both layouts, bf16 /
-    int8 / fp8 caches: the card's tokens (the head_dim-128 f32 and code
-    kernels) == the plain versions' on the CPU.  Returns the launches of
-    the f32 forms and of the code decodes no full-width serve runs (the
-    code decodes take q in float32 whatever the model's dtype)."""
+def f32_parity(dev, params, sh: Shapes):
+    """The model's widths and G at ``PARITY``'s depth in float32, both
+    layouts, bf16 / int8 / fp8 caches: the card's tokens (the model's
+    head_dim in the f32 and code kernels) == the plain versions' on the
+    CPU.  Returns the launches of the f32 forms and of the code decodes no
+    full-width serve runs (the code decodes take q in float32 whatever the
+    model's dtype)."""
     import numpy as np
-    cfg = yi_parity_config()
+    cfg = parity_config(sh)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
-               for n in (200, 40, 130)]
+               for n in PARITY[sh.arch][1]]
+    tag = f"{sh.arch} {cfg.num_layers}-layer"
     t0 = time.time()
     reset_counts()
-    smoke_parity(cfg, dev, prompts, ("bf16",) + QUANT_KINDS, params, 8,
-                 "yi-6b 2-layer")
+    smoke_parity(cfg, dev, prompts, ("bf16",) + QUANT_KINDS, params, 8, tag)
     launches = read_counts(
-        [form(n, "f32", YI) for n in PATH_KERNELS]
-        + [form("flash_decode_contig", k, YI) for k in QUANT_KINDS]
-        + [form("flash_decode_paged", "fp8", YI)])
-    print(f"yi-6b 2-layer f32 parity: launches {launches}, "
+        [form(n, "f32", sh) for n in PATH_KERNELS]
+        + [form("flash_decode_contig", k, sh) for k in QUANT_KINDS]
+        + [form("flash_decode_paged", "fp8", sh)])
+    print(f"{tag} f32 parity: launches {launches}, "
           f"{time.time() - t0:.1f} s")
     if not all(launches.values()):
-        fail(f"yi-6b 2-layer: a kernel form never launched: {launches}")
+        fail(f"{tag}: a kernel form never launched: {launches}")
+    return launches
+
+
+def model_phases(dev, gen, results, sh: Shapes):
+    """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
+    f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
+    weights from a torch generator on the card (no check compares them
+    with another device's but the parity, which copies the card's to the
+    CPU); then its full-width serves.  Returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    t0 = time.time()
+    cfg = parity_config(sh)
+    params = init_params(cfg, seed=3, device=dev, host_rng=False)
+    eng = build_engine(cfg, params, dev)     # layer 0's plan: any depth
+    launches = check_kernels(eng, gen, dev, results, sh,
+                             (torch.bfloat16, torch.float32))
+    del eng
+    launches.update(f32_parity(dev, params, sh))
+    del params
+    print(f"kernel and parity phases ({sh.arch}): {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg = get_config(sh.arch)
+    params = init_params(cfg, seed=0, device=dev, host_rng=False)
+    torch.cuda.synchronize()
+    print(f"full-width {cfg.name}: {cfg.num_params / 1e9:.3f}B params, "
+          f"weight init {1e3 * (time.time() - t0):.1f} ms (seeded torch "
+          f"generator on the card)")
+    t0 = time.time()
+    launches.update(run_full_serves(cfg, params, dev, sh))
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
     return launches
 
 
@@ -1123,30 +1295,8 @@ def main() -> int:
     print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
 
-    # Yi-6B's weights come from a torch generator on the card: no check
-    # compares them with another device's but the 2-layer parity, which
-    # copies the card's to the CPU
-    t0 = time.time()
-    cfg = yi_parity_config()
-    params = init_params(cfg, seed=3, device=dev, host_rng=False)
-    eng = build_engine(cfg, params, dev)     # layer 0's plan: any depth
-    launches.update(check_kernels(eng, gen, dev, results, YI,
-                                  (torch.bfloat16, torch.float32)))
-    del eng
-    launches.update(yi_f32_parity(dev, params))
-    del params
-    print(f"kernel and parity phases (yi-6b): {time.time() - t0:.1f} s")
-
-    t0 = time.time()
-    cfg = get_config("yi-6b")
-    params = init_params(cfg, seed=0, device=dev, host_rng=False)
-    torch.cuda.synchronize()
-    print(f"full-width {cfg.name}: {cfg.num_params / 1e9:.3f}B params, "
-          f"weight init {1e3 * (time.time() - t0):.1f} ms (seeded torch "
-          f"generator on the card)")
-    t0 = time.time()
-    launches.update(run_yi_serves(cfg, params, dev))
-    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    for sh in (YI, GEMMA):
+        launches.update(model_phases(dev, gen, results, sh))
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the device "
           f"check")
 

@@ -10,7 +10,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference ``TransformerConfig`` fields the serving path reads
-    (dense-FFN GQA decoder, global causal attention)."""
+    (dense-FFN GQA decoder).  ``attn_pattern`` is cycled over the layers:
+    'G' global causal attention, 'L' causal attention within the last
+    ``local_window`` positions (the decode kernels' ``window``)."""
 
     name: str = "lm"
     num_layers: int = 2
@@ -21,6 +23,8 @@ class TransformerConfig:
     vocab_size: int = 1024
     head_dim: int | None = None
     rope_theta: float = 10000.0
+    attn_pattern: str = "G"
+    local_window: int = 4096
     dtype: torch.dtype = torch.bfloat16
     block_q: int = 128
     block_kv: int = 128
@@ -34,6 +38,9 @@ class TransformerConfig:
     def group_size(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    def layer_kind(self, layer: int) -> str:
+        return self.attn_pattern[layer % len(self.attn_pattern)]
+
     @property
     def num_params(self) -> int:
         """Exact parameter count (embeddings included once if tied)."""
@@ -46,10 +53,11 @@ class TransformerConfig:
 
 
 def _registry():
-    from repro_torch.configs import smollm_135m, yi_6b
+    from repro_torch.configs import gemma3_1b, smollm_135m, yi_6b
     return {name: {"full": mod.FULL, "smoke": mod.SMOKE}
             for name, mod in (("smollm-135m", smollm_135m),
-                              ("yi-6b", yi_6b))}
+                              ("yi-6b", yi_6b),
+                              ("gemma3-1b", gemma3_1b))}
 
 
 def get_config(arch: str, smoke: bool = False) -> TransformerConfig:

@@ -27,7 +27,7 @@ KERNEL_SOURCES = ("flash_decode_paged", "flash_decode_contig",
 # what every kernel source is instantiated for: these head_dims, GQA groups
 # of at most MAX_GROUP query heads per kv head (the decode kernels), and
 # float32 prefill / flash blocks of at most f32_max_block_q(head_dim) rows
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 8
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -100,8 +100,10 @@ def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
 
 def f32_max_block_q(head_dim: int) -> int:
     """The largest block_q of the float32 prefill and flash kernels: one
-    thread per query row up to head_dim 64, two at 128, 1024 threads."""
-    return 1024 // (2 if head_dim > 64 else 1)
+    thread per query row up to head_dim 64, two at 128, 1024 threads; at
+    256 a CTA takes a 64-row slice of the block (four threads per row), so
+    the block is not bounded by the threads: 1024, as at 64."""
+    return 512 if head_dim == 128 else 1024
 
 
 def check_launch(name: str, err: int) -> None:

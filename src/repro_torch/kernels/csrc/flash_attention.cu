@@ -20,7 +20,9 @@
 //    slice, head) with the last q slices, which walk the most tiles when
 //    causal, first, so the longest CTAs do not set the tail;
 //  * f32: the scalar body, one thread per query row (two at head_dim 128)
-//    and CTA per (q block, head), as before.
+//    and CTA per (q block, head), as before; at head_dim 256 four threads
+//    per row, a CTA per (64-row slice of a q block, head), K/V staged 64
+//    keys at a time.
 //
 // What bounds it.  The larger of the bytes (q, K, V read once, out written
 // once) over 3.35 TB/s and the FLOPs of the unmasked (query, key) pairs
@@ -33,6 +35,9 @@
 
 namespace {
 
+// kRowSplit<D> threads per query row; a CTA per (q block, head), or at
+// prefill::kSliced<D> per (64-row slice of a q block, head) with K/V staged
+// prefill::kSliceKeys keys at a time.
 template <typename T, int D>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
@@ -40,15 +45,22 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        T* __restrict__ out, int Sq, int Skv,
                                        int n_rep, int bq, int bkv,
                                        bool causal, float scale) {
-  const int qblk = blockIdx.x, head = blockIdx.y, kvh = head / n_rep;
+  using prefill::kSliceKeys;
+  using prefill::kSliceRows;
+  constexpr bool kSlice = prefill::kSliced<D>;
+  const int nslices = kSlice ? (bq + kSliceRows - 1) / kSliceRows : 1;
+  const int qblk = kSlice ? blockIdx.x / nslices : blockIdx.x;
+  const int slice = kSlice ? blockIdx.x % nslices : 0;
+  const int head = blockIdx.y, kvh = head / n_rep;
   constexpr int kSplit = prefill::kRowSplit<D>, DT = D / kSplit;
-  const int qpos = qblk * bq + threadIdx.x / kSplit;
+  const int r = slice * kSliceRows + threadIdx.x / kSplit;  // in the block
+  const int qpos = qblk * bq + r;
   const int d0 = (threadIdx.x % kSplit) * DT;  // this thread's dims
-  const bool row_ok = qpos < Sq;
+  const bool row_ok = (!kSlice || r < bq) && qpos < Sq;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);  // [bkv][D]
-  T* v_s = k_s + (size_t)bkv * D;           // [bkv][D]
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [bkv or kSliceKeys][D]
+  T* v_s = k_s + (size_t)(kSlice ? kSliceKeys : bkv) * D;
 
   float qr[DT], acc[DT];
   const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D + d0;
@@ -61,17 +73,31 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
   auto keep = [&](int kpos) {
     return row_ok && kpos < Skv && (!causal || kpos <= qpos);
   };
-  const int nkv = (Skv + bkv - 1) / bkv;
-  // causal: tiles with k_start > q_start + bq - 1 are skipped
-  const int last = causal ? min(nkv - 1, (qblk * bq + bq - 1) / bkv)
-                          : nkv - 1;
-  for (int kb = 0; kb <= last; ++kb) {
-    const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
-    prefill::stage_tile<T, D>(k_s, v_s, k + row0 * D, v + row0 * D,
-                              min(bkv, Skv - kb * bkv), bkv);
-    prefill::row_tile_update<T, D, kSplit>(qr, acc, m, l, k_s, v_s, bkv,
-                                           kb * bkv, scale, keep, 1.f, 1.f,
-                                           d0);
+  if constexpr (kSlice) {
+    // no row of the slice keeps a key at or past kend
+    const int kend = causal ? min(Skv, qblk * bq + min(bq, (slice + 1) *
+                                                               kSliceRows))
+                            : Skv;
+    for (int kb = 0; kb * bkv < kend; ++kb) {
+      const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
+      prefill::sliced_tile_update<T, D, kSplit>(
+          qr, acc, m, l, k_s, v_s, k + row0 * D, v + row0 * D,
+          min(bkv, Skv - kb * bkv), bkv, kb * bkv, kend, scale, keep, 1.f,
+          1.f, d0);
+    }
+  } else {
+    const int nkv = (Skv + bkv - 1) / bkv;
+    // causal: tiles with k_start > q_start + bq - 1 are skipped
+    const int last = causal ? min(nkv - 1, (qblk * bq + bq - 1) / bkv)
+                            : nkv - 1;
+    for (int kb = 0; kb <= last; ++kb) {
+      const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
+      prefill::stage_tile<T, D>(k_s, v_s, k + row0 * D, v + row0 * D,
+                                min(bkv, Skv - kb * bkv), bkv);
+      prefill::row_tile_update<T, D, kSplit>(qr, acc, m, l, k_s, v_s, bkv,
+                                             kb * bkv, scale, keep, 1.f,
+                                             1.f, d0);
+    }
   }
   if (row_ok) {
     T* orow = out + ((size_t)head * Sq + qpos) * D + d0;
@@ -85,17 +111,22 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int H, int Sq, int Skv, int n_rep, int bq, int bkv,
                    bool causal, float scale, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)bkv * D * sizeof(T);
+  constexpr bool kSlice = prefill::kSliced<D>;
+  const int rows = kSlice ? prefill::kSliceRows : bq;  // query rows a CTA
+  const int threads = rows * prefill::kRowSplit<D>;
+  if (threads > 1024) return cudaErrorInvalidValue;
+  const size_t smem =
+      2 * (size_t)(kSlice ? prefill::kSliceKeys : bkv) * D * sizeof(T);
   auto kern = flash_attention_kernel<T, D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int threads = bq * prefill::kRowSplit<D>;
-  if (threads > 1024) return cudaErrorInvalidValue;
-  const dim3 grid((Sq + bq - 1) / bq, H);
-  kern<<<grid, threads, smem, stream>>>(
+  const long long nx =
+      (long long)((Sq + bq - 1) / bq) * ((bq + rows - 1) / rows);
+  if (nx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<dim3((unsigned)nx, H), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, n_rep, bq,
       bkv, causal, scale);
@@ -140,7 +171,7 @@ __global__ void __launch_bounds__(prefill::tc::kWarps * 32)
   bf16* smem = align_smem(smem_raw);
   const size_t qoff = ((size_t)head * Sq + qrow0) * D;
   GroupRows<D> w;
-  w.init(q + qoff, nrows, qrow0, causal);
+  w.init(q + qoff, nrows, qrow0, causal, smem);
   DenseSource src{(long long)(head / n_rep) * Skv, Skv, bkv, 0, last};
   run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, Skv, scale_log2);
   w.store(out + qoff, nrows, false);
@@ -173,9 +204,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, one
-// thread per query row up to head_dim 64, two at 128; block_q <= 1024 or
-// 512); q, k, v and out share it; head_dim 32, 64 or 128.  Returns the
-// launch's cudaError_t.
+// thread per query row up to head_dim 64, two at 128 (block_q <= 1024 or
+// 512), four at 256 over 64-row slices); q, k, v and out share it; head_dim
+// 32, 64, 128 or 256.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int H, int Hkv, int Sq, int Skv,
                                int D, int block_q, int block_kv, int causal,
@@ -191,9 +222,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>);
   if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>);
   if (dtype == 0 && D == 128) FLASH_LAUNCH(launch_tc<128>);
+  if (dtype == 0 && D == 256) FLASH_LAUNCH(launch_tc<256>);
   if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>));
   if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>));
   if (dtype == 1 && D == 128) FLASH_LAUNCH((launch<float, 128>));
+  if (dtype == 1 && D == 256) FLASH_LAUNCH((launch<float, 256>));
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -47,10 +47,16 @@
 // column-per-thread for p.V); cp.async / TMA staging and splitting long runs
 // across CTAs are later work.
 //
-// Instantiations: head_dim 32, 64 and 128, each at two GQA group bounds
-// (G <= 4 and G <= 8) that size the per-group register arrays.  At G = 8,
-// D = 128 a thread keeps 8 output columns and the dynamic shared memory is
-// q (4 KB) and the tile's scores (4 KB at 128 keys).
+// Instantiations: head_dim 32, 64, 128 and 256, each at two GQA group
+// bounds (G <= 4 and G <= 8) that size the per-group register arrays.  At
+// G = 8, D = 128 a thread keeps 8 output columns and the dynamic shared
+// memory is q (4 KB) and the tile's scores (4 KB at 128 keys); at G <= 4,
+// D = 256 (Gemma3-1B's G = 4) the same 8 columns, q 4 KB and scores 2 KB.
+//
+// Sliding windows (Gemma3's local layers): a tile wholly outside the window
+// scores -inf everywhere, so its row max stays kNegInf, alpha = exp(0) = 1
+// and no p is added; a run whose every tile is outside finalizes to out 0,
+// m -1e30, l 0, as the reference's scan, with no NaN.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -360,7 +366,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype: the cache's element type: 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32, with k_scales /
-// v_scales; flash decode only); head_dim 32, 64 or 128; G <= kMaxG, taken
+// v_scales; flash decode only); head_dim 32, 64, 128 or 256; G <= kMaxG, taken
 // by the kSmallG instantiation up to kSmallG.  Returns the launch's
 // cudaError_t.
 template <class Tiles, bool kLegacy>
@@ -382,7 +388,8 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
 #define DECODE_DIMS(DT, TQ, TK)                                              \
   if (dtype == DT && D == 32) DECODE_LAUNCH(TQ, TK, 32);                     \
   if (dtype == DT && D == 64) DECODE_LAUNCH(TQ, TK, 64);                     \
-  if (dtype == DT && D == 128) DECODE_LAUNCH(TQ, TK, 128)
+  if (dtype == DT && D == 128) DECODE_LAUNCH(TQ, TK, 128);                   \
+  if (dtype == DT && D == 256) DECODE_LAUNCH(TQ, TK, 256)
   DECODE_DIMS(0, __nv_bfloat16, __nv_bfloat16);
   DECODE_DIMS(1, float, float);
   if constexpr (!kLegacy) {

@@ -43,7 +43,14 @@
 //    64-byte (D = 32) swizzle; at D = 128 a tile is two 64-column panels
 //    with the 128-byte swizzle (see swz), S takes its k steps 0-3 from
 //    panel 0 and 4-7 from panel 1, and P.V is two m64n64k16 products per
-//    16-key step, one per panel.  P goes from the S accumulator into A
+//    16-key step, one per panel.  At D = 256 the tile is four such panels
+//    and two budgets change (see GroupRows and run_steps): q (64 x 256) is
+//    staged in shared memory and S reads it through descriptors, since q's
+//    A fragments (64 registers) beside O (128) and S (32) would not fit in
+//    255 registers; and the ring holds one 64-key step of K and V per stage
+//    (a 128-key bf16 pair is 128 KB), so shared memory is q 32 KB + 2 x (K +
+//    V) 64 KB = 160 KB.  P.V is four m64n64k16 per 16 keys, one per panel.
+//    P goes from the S accumulator into A
 //    fragments as bf16 (l sums the rounded p, so the output is a mean of V
 //    rows under the weights P.V used).  The online softmax runs once per
 //    64-key step on the S fragment (row max over the quad of lanes sharing
@@ -57,7 +64,9 @@
 //  * f32: the scalar body (namespace prefill): one thread owns one query
 //    row (two threads, a half each, at D = 128), two passes per tile in
 //    f32 FMA.  TF32 tensor cores would not hold the f32 results within 1e-4
-//    of the plain version.
+//    of the plain version.  At D = 256 a CTA takes a 64-row slice of the q
+//    block with four threads per row (64 + 64 floats of q and acc each) and
+//    stages K/V 64 keys at a time (a 128-key f32 K/V pair is 256 KB).
 //
 // Both addressings run the same body for a dtype, so they give the same
 // bits on equal K/V.
@@ -186,13 +195,13 @@ __device__ __forceinline__ void stage_tile(T* k_s, T* v_s, const T* k,
 
 // Threads per query row of the scalar body: one up to head_dim 64; at 128
 // two threads share a row, each holding half of its q and acc (64 + 64
-// registers, where one thread per row would need 256 and spill).
+// registers, where one thread per row would need 256 and spill); at 256
+// four, a quarter each.
 template <int D>
-constexpr int kRowSplit = D > 64 ? 2 : 1;
+constexpr int kRowSplit = D > 128 ? 4 : D > 64 ? 2 : 1;
 
 // q.k over one thread's share of a row (dims [d0, d0 + D / kSplit) of
-// krow); with kSplit = 2 the two threads of a row, neighbouring lanes, sum
-// their halves.
+// krow); the kSplit threads of a row, neighbouring lanes, sum their parts.
 template <typename T, int D, int kSplit>
 __device__ __forceinline__ float row_dot(const float (&qr)[D / kSplit],
                                          const T* krow) {
@@ -201,6 +210,11 @@ __device__ __forceinline__ float row_dot(const float (&qr)[D / kSplit],
   for (int d = 0; d < D / kSplit; ++d) s = fmaf(qr[d], to_f32(krow[d]), s);
   if constexpr (kSplit == 2)
     s += __shfl_xor_sync(3u << (threadIdx.x & 30), s, 1);
+  if constexpr (kSplit == 4) {
+    const unsigned quad = 0xFu << (threadIdx.x & 28);
+    s += __shfl_xor_sync(quad, s, 1);
+    s += __shfl_xor_sync(quad, s, 2);
+  }
   return s;
 }
 
@@ -257,9 +271,38 @@ __device__ __forceinline__ void row_tile_update(
   m = m_new;
 }
 
+// head_dim 256 (kSliced<D>): a CTA owns a 64-row slice of a q block, four
+// threads per row, and stages K/V kSliceKeys keys at a time (K + V of a
+// 64-key f32 step: 128 KB, where a 128-key tile would take 256 KB).
+constexpr int kSliceRows = 64, kSliceKeys = 64;
+template <int D>
+constexpr bool kSliced = D > 128;
+
+// One query row's online-softmax update over a tile at `k` / `v` (row-major
+// [bkv, D], its first `rows` rows existing), staged kSliceKeys keys at a
+// time into k_s / v_s; the steps from key position `kend` on, where no row
+// of the CTA keeps a key, are skipped.  Every thread of the CTA calls it
+// with the same tile (it holds barriers).
+template <typename TK, int D, int kSplit, class Keep>
+__device__ __forceinline__ void sliced_tile_update(
+    const float (&qr)[D / kSplit], float (&acc)[D / kSplit], float& m,
+    float& l, TK* k_s, TK* v_s, const TK* k, const TK* v, int rows, int bkv,
+    int kbase, int kend, float scale, Keep keep, float ks, float vs,
+    int d0) {
+  for (int c0 = 0; c0 < bkv && kbase + c0 < kend; c0 += kSliceKeys) {
+    const int n = min(kSliceKeys, bkv - c0);
+    stage_tile<TK, D>(k_s, v_s, k + (size_t)c0 * D, v + (size_t)c0 * D,
+                      max(0, min(rows - c0, n)), n);
+    row_tile_update<TK, D, kSplit>(qr, acc, m, l, k_s, v_s, n, kbase + c0,
+                                   scale, keep, ks, vs, d0);
+  }
+}
+
 // T is q's and out's element type, TK the K/V tiles' (T, or codes with
 // their scales in k_scales / v_scales).  kRowSplit<D> threads per query
-// row: the block has bq * kRowSplit<D> threads.
+// row: the block has bq * kRowSplit<D> threads, one CTA per item; at
+// kSliced<D>, kSliceRows * kRowSplit<D> threads and a CTA per (item,
+// 64-row slice of its q block).
 template <typename T, typename TK, int D, class Tiles>
 __global__ void sparse_prefill_kernel(
     const T* __restrict__ q,   // [H, Sq, D]
@@ -270,21 +313,24 @@ __global__ void sparse_prefill_kernel(
     int L, int Sq, int bq, int bkv, Tiles tiles, int q_offset, int klim,
     float scale, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales) {
-  const int i = blockIdx.x;
+  constexpr bool kSlice = kSliced<D>;
+  const int nslices = kSlice ? (bq + kSliceRows - 1) / kSliceRows : 1;
+  const int i = kSlice ? blockIdx.x / nslices : blockIdx.x;
+  const int slice = kSlice ? blockIdx.x % nslices : 0;
   const int* it = items + (size_t)i * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
   // runs are homogeneous in (head, q_blk): build_worklist emits them so
   const int head = it[F_HEAD], qblk = it[F_QBLK];
   constexpr int kSplit = kRowSplit<D>, DT = D / kSplit;
-  const int r = threadIdx.x / kSplit;
+  const int r = slice * kSliceRows + threadIdx.x / kSplit;  // in the block
   const int d0 = (threadIdx.x % kSplit) * DT;  // this thread's dims
   const int qpos = qblk * bq + r;         // chunk-local row
-  const bool row_ok = qpos < Sq;
+  const bool row_ok = (!kSlice || r < bq) && qpos < Sq;
   const int qg = qpos + q_offset;          // global query position
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TK* k_s = reinterpret_cast<TK*>(smem_raw);  // [bkv][D]
-  TK* v_s = k_s + (size_t)bkv * D;            // [bkv][D]
+  TK* k_s = reinterpret_cast<TK*>(smem_raw);  // [bkv or kSliceKeys][D]
+  TK* v_s = k_s + (size_t)(kSlice ? kSliceKeys : bkv) * D;
 
   float qr[DT], acc[DT];
   const T* qrow = q + ((size_t)head * Sq + (row_ok ? qpos : 0)) * D + d0;
@@ -305,7 +351,23 @@ __global__ void sparse_prefill_kernel(
     const int kvblk = jt[F_KVBLK];
     int rows = 0;
     const long long row0 = valid ? tiles.row0(jt[F_KVHEAD], kvblk, rows) : -1;
-    if (row0 >= 0) {
+    if constexpr (kSlice) {
+      if (row0 >= 0) {
+        float ksc = 1.f, vsc = 1.f;
+        if constexpr (kIsCode<TK>) {
+          const size_t si = tiles.scale_index(row0);
+          ksc = k_scales[si];
+          vsc = v_scales[si];
+        }
+        // no row of the slice keeps a key at or past kend
+        const int kend = min(klim, q_offset + qblk * bq +
+                                       min(bq, (slice + 1) * kSliceRows));
+        sliced_tile_update<TK, D, kSplit>(qr, acc, m, l, k_s, v_s,
+                                          k + row0 * D, v + row0 * D, rows,
+                                          bkv, kvblk * bkv, kend, scale,
+                                          keep, ksc, vsc, d0);
+      }
+    } else if (row0 >= 0) {
       stage_tile<TK, D>(k_s, v_s, k + row0 * D, v + row0 * D, rows, bkv);
       if constexpr (kIsCode<TK>) {
         const size_t si = tiles.scale_index(row0);
@@ -437,12 +499,34 @@ __device__ __forceinline__ void wgmma(float (&d)[4][4], const unsigned (&a)[4],
         "n"(TransB));
 }
 
-// The n64 product into half P (0 or 1) of a [16][4] accumulator: dims
-// 64P..64P+63 of a head_dim-128 O, whose V tile is two 64-column panels.
-template <int TransB, int P>
-__device__ __forceinline__ void wgmma_half(float (&d)[16][4],
-                                           const unsigned (&a)[4],
-                                           uint64_t desc) {
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A and B both from shared memory
+// through descriptors (both K-major), f32 accumulate; one warpgroup.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t adesc,
+                                         uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(adesc), "l"(bdesc), "r"(1));
+}
+
+// The n64 product into panel P of an [N][4] accumulator: dims 64P..64P+63
+// of a head_dim-128 (N = 16) or -256 (N = 32) O, whose V tile is 64-column
+// panels.
+template <int TransB, int P, int N>
+__device__ __forceinline__ void wgmma_panel(float (&d)[N][4],
+                                            const unsigned (&a)[4],
+                                            uint64_t desc) {
   constexpr int o = 8 * P;
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -478,11 +562,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // panel 0's rows 8g..8g+7, 1024 bytes, then panel 1's), each panel's rows
 // 128-byte-swizzled.  A 64-key step's K rows are then 8-row groups 2048
 // bytes apart, and panel 1 sits 1024 bytes after panel 0 in every group.
+// A head_dim-256 row (512 bytes) is four panels the same way: 8-row groups
+// 4096 bytes apart, panel p 1024 * p bytes into its group.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
-  if constexpr (D == 128) {
-    return (r >> 3) * 1024 + (c >> 3) * 512 + (r & 7) * 64 +
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "head_dim 32, 64, 128 or 256");
+  if constexpr (D >= 128) {
+    return (r >> 3) * (8 * D) + (c >> 3) * 512 + (r & 7) * 64 +
            (((c & 7) ^ (r & 7)) << 3);
   } else {
     const int x = D == 64 ? (r & 7) : ((r >> 1) & 3);
@@ -491,11 +578,12 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // Element offset, from a 64-key step's first K row, of the 16 dims of k
-// step kq (the start of wgmma's B operand in S = Q.K^T): 32 bytes into the
-// swizzled rows, in panel kq / 4 at head_dim 128.
+// step kq (the start of wgmma's B operand in S = Q.K^T, and of A where q
+// is in shared memory): 32 bytes into the swizzled rows, in panel kq / 4 at
+// head_dim 128 and 256.
 template <int D>
 __device__ __forceinline__ constexpr int k_step_offset(int kq) {
-  return D == 128 ? (kq >> 2) * 512 + (kq & 3) * 16 : kq * 16;
+  return D >= 128 ? (kq >> 2) * 512 + (kq & 3) * 16 : kq * 16;
 }
 
 // One staged K/V tile: its first row (units of D elements), how many of
@@ -529,17 +617,25 @@ __device__ __forceinline__ void stage_async(bf16* ks, bf16* vs, const bf16* k,
 // fragments do.
 template <int D>
 struct GroupRows {
-  unsigned qf[D / 16][4];  // q as A fragments, one per 16-dim k step
+  // at head_dim 256 q lives in shared memory (q_s, the K tile's panel
+  // layout) and S reads it through descriptors: its A fragments (64
+  // registers) beside O (128) and S (32) would not fit in 255
+  static constexpr bool kQShared = D > 128;
+  unsigned qf[kQShared ? 1 : D / 16][4];  // q as A fragments, one per
+                                          // 16-dim k step
   float acc[D / 8][4];     // O accumulator, one block per 8 dims (at D =
                            // 128: 64 registers, q's fragments 32)
   float m[2], l[2];        // running max (log2 units), this lane's partial sum
   int qlim[2];             // row h sees keys kpos <= qlim[h]; -1: no row
   int gmax;                // the largest qlim of the CTA
+  const bf16* q_s;         // kQShared: q [kRows][D], 1024-byte aligned
 
   // q rows start at `qbase` (CTA row 0); CTA rows >= nrows are not
-  // computed.  CTA row i sees keys up to qlim0 + i (causal) or all.
+  // computed.  CTA row i sees keys up to qlim0 + i (causal) or all.  With
+  // kQShared, q is copied to `q_smem` (zeros past nrows).
   __device__ __forceinline__ void init(const bf16* qbase, int nrows,
-                                       int qlim0, bool causal) {
+                                       int qlim0, bool causal,
+                                       bf16* q_smem = nullptr) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int g = lane >> 2, t = lane & 3;
     const unsigned* rowp[2];
@@ -553,13 +649,26 @@ struct GroupRows {
       m[h] = -CUDART_INF_F;
       l[h] = 0.f;
     }
+    if constexpr (kQShared) {
+      constexpr int CPR = D / 8;  // 16-byte chunks per row
+      q_s = q_smem;
+      for (int e = threadIdx.x; e < kRows * CPR; e += blockDim.x) {
+        const int r = e / CPR, c = e % CPR;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nrows)
+          x = *reinterpret_cast<const uint4*>(qbase + (size_t)r * D + c * 8);
+        *reinterpret_cast<uint4*>(q_smem + swz<D>(r, c)) = x;
+      }
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      // a0: (g, 2t) a1: (g+8, 2t) a2: (g, 2t+8) a3: (g+8, 2t+8), 2 bf16 each
-      qf[ks][0] = rowp[0] ? rowp[0][ks * 8 + t] : 0u;
-      qf[ks][1] = rowp[1] ? rowp[1][ks * 8 + t] : 0u;
-      qf[ks][2] = rowp[0] ? rowp[0][ks * 8 + 4 + t] : 0u;
-      qf[ks][3] = rowp[1] ? rowp[1][ks * 8 + 4 + t] : 0u;
+      for (int ks = 0; ks < D / 16; ++ks) {
+        // a0: (g, 2t) a1: (g+8, 2t) a2: (g, 2t+8) a3: (g+8, 2t+8), 2 bf16
+        // each
+        qf[ks][0] = rowp[0] ? rowp[0][ks * 8 + t] : 0u;
+        qf[ks][1] = rowp[1] ? rowp[1][ks * 8 + t] : 0u;
+        qf[ks][2] = rowp[0] ? rowp[0][ks * 8 + 4 + t] : 0u;
+        qf[ks][3] = rowp[1] ? rowp[1][ks * 8 + 4 + t] : 0u;
+      }
     }
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
@@ -588,10 +697,17 @@ struct GroupRows {
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
     reg_fence(s);
     wgmma_fence();
+    if constexpr (kQShared) {
 #pragma unroll
-    for (int kq = 0; kq < D / 16; ++kq)
-      wgmma<0>(s, qf[kq],
-               gmma_desc(ks + c0 * D + k_step_offset<D>(kq), SBO, SW));
+      for (int kq = 0; kq < D / 16; ++kq)
+        wgmma_ss(s, gmma_desc(q_s + k_step_offset<D>(kq), SBO, SW),
+                 gmma_desc(ks + c0 * D + k_step_offset<D>(kq), SBO, SW));
+    } else {
+#pragma unroll
+      for (int kq = 0; kq < D / 16; ++kq)
+        wgmma<0>(s, qf[kq],
+                 gmma_desc(ks + c0 * D + k_step_offset<D>(kq), SBO, SW));
+    }
     wgmma_commit();
     wgmma_wait0();
     reg_fence(s);
@@ -643,10 +759,10 @@ struct GroupRows {
       acc[dn][2] *= alpha[1];
       acc[dn][3] *= alpha[1];
     }
-    // O += P.V: 4 k steps of 16 keys, m64nDk16 (at D = 128 two m64n64k16,
-    // one per V panel); P's A fragment of step j is S's accumulator blocks
-    // 2j and 2j+1, and B = 16 V rows, stored N-contiguous (the transpose
-    // bit)
+    // O += P.V: 4 k steps of 16 keys, m64nDk16 (at D = 128 and 256 one
+    // m64n64k16 per V panel); P's A fragment of step j is S's accumulator
+    // blocks 2j and 2j+1, and B = 16 V rows, stored N-contiguous (the
+    // transpose bit)
     unsigned pf[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -660,10 +776,14 @@ struct GroupRows {
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if constexpr (D == 128) {
+      if constexpr (D >= 128) {
         const bf16* vj = vs + (c0 + 16 * j) * D;
-        wgmma_half<1, 0>(acc, pf[j], gmma_desc(vj, SBO, SW));
-        wgmma_half<1, 1>(acc, pf[j], gmma_desc(vj + 512, SBO, SW));
+        wgmma_panel<1, 0>(acc, pf[j], gmma_desc(vj, SBO, SW));
+        wgmma_panel<1, 1>(acc, pf[j], gmma_desc(vj + 512, SBO, SW));
+        if constexpr (D == 256) {
+          wgmma_panel<1, 2>(acc, pf[j], gmma_desc(vj + 1024, SBO, SW));
+          wgmma_panel<1, 3>(acc, pf[j], gmma_desc(vj + 1536, SBO, SW));
+        }
       } else {
         wgmma<1>(acc, pf[j], gmma_desc(vs + (c0 + 16 * j) * D, SBO, SW));
       }
@@ -733,45 +853,6 @@ __device__ __forceinline__ void zero_tail(bf16* smem, int bkv, int bkv_pad) {
   }
 }
 
-// Run the CTA's rows over the tiles `src` yields through the 2-stage
-// cp.async ring: tile j+1 loads while tile j multiplies.
-template <int D, class Source>
-__device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
-                                          bf16* smem, const bf16* k,
-                                          const bf16* v, int bkv, int bkv_pad,
-                                          int klim, float scale_log2) {
-  const size_t tile = (size_t)bkv_pad * D;
-  zero_tail<D>(smem, bkv, bkv_pad);
-  TileRef cur, nxt;
-  bool have = src.next(cur);
-  if (have) stage_async<D>(smem, smem + tile, k, v, cur, bkv);
-  int s = 0;
-  while (have) {
-    const bool more = src.next(nxt);
-    if (more) {
-      bf16* ks = smem + (size_t)(2 * (s ^ 1)) * tile;
-      stage_async<D>(ks, ks + tile, k, v, nxt, bkv);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // cp.async and the zero tail wrote through the generic proxy; wgmma
-    // reads through the async one
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // tile `cur` has landed for every thread
-    const bf16* ks = smem + (size_t)(2 * s) * tile;
-    for (int c0 = 0; c0 < bkv; c0 += kStep) {
-      const int kb = cur.kbase + c0;
-      if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
-        w.step(ks, ks + tile, c0, cur.kbase, bkv, klim, scale_log2);
-    }
-    __syncthreads();  // stage s is read out before it is refilled
-    cur = nxt;
-    have = more;
-    s ^= 1;
-  }
-}
-
 // Issue the cp.async copies of a code tile's K and V rows into the code
 // ring's buffers [bkv_pad][D] (unswizzled; rows past `rows` zero-filled)
 // and commit them as one group.
@@ -818,50 +899,218 @@ struct ScaledTile {
   float ks, vs;
 };
 
+// The 64-key steps of the tiles `src` yields (TileRef or ScaledTile), for
+// the head_dim-256 ring, which stages a step and not a tile: a step is its
+// tile with row0, rows and kbase moved to the step's first key, and `keys`
+// of its 64 keys lie inside the tile.  Steps no row of the CTA keeps a key
+// of (wholly above its causal diagonal `gmax`, or at or past klim) are
+// skipped, never loaded.
+__device__ __forceinline__ TileRef& ref_of(TileRef& t) { return t; }
+__device__ __forceinline__ TileRef& ref_of(ScaledTile& t) { return t.ref; }
+
+template <class Source, class Tile>
+struct StepSource {
+  Source& src;
+  int bkv, klim, gmax;
+  Tile tile;
+  int c0;  // the next step's first key in `tile`; bkv: take a new tile
+
+  __device__ __forceinline__ bool next(Tile& t, int& keys) {
+    for (;;) {
+      if (c0 >= bkv) {
+        if (!src.next(tile)) return false;
+        c0 = 0;
+      }
+      const TileRef& r = ref_of(tile);
+      const int c = c0, kb = r.kbase + c;
+      c0 += kStep;
+      if (kb > gmax || kb >= klim) continue;
+      t = tile;
+      ref_of(t) = TileRef{r.row0 + c, max(0, min(r.rows - c, kStep)), kb};
+      keys = min(kStep, bkv - c);
+      return true;
+    }
+  }
+};
+
+// run_tiles at head_dim 256: a 2-stage cp.async ring of 64-key K/V steps at
+// `ring` ([kStep][D] K0, V0, K1, V1; 128 KB), step j+1 loading while step j
+// multiplies.
+template <int D, class Source>
+__device__ __forceinline__ void run_steps(GroupRows<D>& w, Source& src,
+                                          bf16* ring, const bf16* k,
+                                          const bf16* v, int bkv, int klim,
+                                          float scale_log2) {
+  constexpr size_t kBuf = (size_t)kStep * D;  // one K or V step
+  StepSource<Source, TileRef> steps{src, bkv, klim, w.gmax, {}, bkv};
+  TileRef cur, nxt;
+  int ncur = 0, nnxt = 0;
+  bool have = steps.next(cur, ncur);
+  if (have) stage_async<D>(ring, ring + kBuf, k, v, cur, kStep);
+  int s = 0;
+  while (have) {
+    const bool more = steps.next(nxt, nnxt);
+    if (more) {
+      bf16* ks = ring + 2 * (s ^ 1) * kBuf;
+      stage_async<D>(ks, ks + kBuf, k, v, nxt, kStep);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // cp.async and q's copy wrote through the generic proxy; wgmma reads
+    // through the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // step `cur` has landed for every thread
+    const bf16* ks = ring + 2 * s * kBuf;
+    w.step(ks, ks + kBuf, 0, cur.kbase, ncur, klim, scale_log2);
+    __syncthreads();  // stage s is read out before it is refilled
+    cur = nxt;
+    ncur = nnxt;
+    have = more;
+    s ^= 1;
+  }
+}
+
+// run_code_tiles at head_dim 256: a 2-stage cp.async ring of 64-key code
+// steps, each landed step converted into the one bf16 K/V step pair the
+// products read.  At `bufs`: bf16 K, V [kStep][D] (64 KB), then code K0,
+// V0, K1, V1 [kStep][D] (64 KB).
+template <int D, typename TK, class Source>
+__device__ __forceinline__ void run_code_steps(GroupRows<D>& w, Source& src,
+                                               bf16* bufs, const TK* k,
+                                               const TK* v, int bkv,
+                                               int klim, float scale_log2) {
+  constexpr size_t kBuf = (size_t)kStep * D;  // one K or V step
+  TK* ring = reinterpret_cast<TK*>(bufs + 2 * kBuf);
+  StepSource<Source, ScaledTile> steps{src, bkv, klim, w.gmax, {}, bkv};
+  ScaledTile cur, nxt;
+  int ncur = 0, nnxt = 0;
+  bool have = steps.next(cur, ncur);
+  if (have) stage_codes_async<D>(ring, ring + kBuf, k, v, cur.ref, kStep);
+  int s = 0;
+  while (have) {
+    const bool more = steps.next(nxt, nnxt);
+    if (more) {
+      TK* kc = ring + 2 * (s ^ 1) * kBuf;
+      stage_codes_async<D>(kc, kc + kBuf, k, v, nxt.ref, kStep);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // code step `cur` has landed for every thread
+    const TK* kc = ring + 2 * s * kBuf;
+    codes_to_bf16<D>(bufs, kc, kStep);
+    codes_to_bf16<D>(bufs + kBuf, kc + kBuf, kStep);
+    // the conversion and q's copy wrote through the generic proxy; wgmma
+    // reads through the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the bf16 step is complete
+    w.template step<true>(bufs, bufs + kBuf, 0, cur.ref.kbase, ncur, klim,
+                          scale_log2 * cur.ks, cur.vs);
+    __syncthreads();  // the bf16 step and code stage s are read out
+    cur = nxt;
+    ncur = nnxt;
+    have = more;
+    s ^= 1;
+  }
+}
+
+// Run the CTA's rows over the tiles `src` yields through the 2-stage
+// cp.async ring: tile j+1 loads while tile j multiplies.  At head_dim 256
+// (q in shared memory at `smem`) the ring after q stages 64-key steps
+// instead (run_steps).
+template <int D, class Source>
+__device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
+                                          bf16* smem, const bf16* k,
+                                          const bf16* v, int bkv, int bkv_pad,
+                                          int klim, float scale_log2) {
+  if constexpr (GroupRows<D>::kQShared) {
+    run_steps<D>(w, src, smem + kRows * D, k, v, bkv, klim, scale_log2);
+  } else {
+    const size_t tile = (size_t)bkv_pad * D;
+    zero_tail<D>(smem, bkv, bkv_pad);
+    TileRef cur, nxt;
+    bool have = src.next(cur);
+    if (have) stage_async<D>(smem, smem + tile, k, v, cur, bkv);
+    int s = 0;
+    while (have) {
+      const bool more = src.next(nxt);
+      if (more) {
+        bf16* ks = smem + (size_t)(2 * (s ^ 1)) * tile;
+        stage_async<D>(ks, ks + tile, k, v, nxt, bkv);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      // cp.async and the zero tail wrote through the generic proxy; wgmma
+      // reads through the async one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // tile `cur` has landed for every thread
+      const bf16* ks = smem + (size_t)(2 * s) * tile;
+      for (int c0 = 0; c0 < bkv; c0 += kStep) {
+        const int kb = cur.kbase + c0;
+        if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+          w.step(ks, ks + tile, c0, cur.kbase, bkv, klim, scale_log2);
+      }
+      __syncthreads();  // stage s is read out before it is refilled
+      cur = nxt;
+      have = more;
+      s ^= 1;
+    }
+  }
+}
+
 // Run the CTA's rows over the code tiles `src` yields: a 2-stage cp.async
 // ring of raw codes (tile j+1 loads while tile j multiplies), each landed
 // tile converted into the one bf16 K/V pair the products read.  Shared
 // memory: bf16 K, V [bkv_pad][D], then code K0, V0, K1, V1 [bkv_pad][D].
+// At head_dim 256 (q in shared memory at `smem`) the buffers after q hold
+// 64-key steps instead (run_code_steps).
 template <int D, typename TK, class Source>
 __device__ __forceinline__ void run_code_tiles(GroupRows<D>& w, Source& src,
                                                bf16* smem, const TK* k,
                                                const TK* v, int bkv,
                                                int bkv_pad, int klim,
                                                float scale_log2) {
-  const size_t tile = (size_t)bkv_pad * D;
-  TK* ring = reinterpret_cast<TK*>(smem + 2 * tile);
-  zero_tail<D, 2>(smem, bkv, bkv_pad);
-  ScaledTile cur, nxt;
-  bool have = src.next(cur);
-  if (have) stage_codes_async<D>(ring, ring + tile, k, v, cur.ref, bkv);
-  int s = 0;
-  while (have) {
-    const bool more = src.next(nxt);
-    if (more) {
-      TK* kc = ring + (size_t)(2 * (s ^ 1)) * tile;
-      stage_codes_async<D>(kc, kc + tile, k, v, nxt.ref, bkv);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if constexpr (GroupRows<D>::kQShared) {
+    run_code_steps<D>(w, src, smem + kRows * D, k, v, bkv, klim,
+                      scale_log2);
+  } else {
+    const size_t tile = (size_t)bkv_pad * D;
+    TK* ring = reinterpret_cast<TK*>(smem + 2 * tile);
+    zero_tail<D, 2>(smem, bkv, bkv_pad);
+    ScaledTile cur, nxt;
+    bool have = src.next(cur);
+    if (have) stage_codes_async<D>(ring, ring + tile, k, v, cur.ref, bkv);
+    int s = 0;
+    while (have) {
+      const bool more = src.next(nxt);
+      if (more) {
+        TK* kc = ring + (size_t)(2 * (s ^ 1)) * tile;
+        stage_codes_async<D>(kc, kc + tile, k, v, nxt.ref, bkv);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // code tile `cur` has landed for every thread
+      const TK* kc = ring + (size_t)(2 * s) * tile;
+      codes_to_bf16<D>(smem, kc, bkv);
+      codes_to_bf16<D>(smem + tile, kc + tile, bkv);
+      // the conversion and the zero tail wrote through the generic proxy;
+      // wgmma reads through the async one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // the bf16 tile is complete
+      for (int c0 = 0; c0 < bkv; c0 += kStep) {
+        const int kb = cur.ref.kbase + c0;
+        if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+          w.template step<true>(smem, smem + tile, c0, cur.ref.kbase, bkv,
+                                klim, scale_log2 * cur.ks, cur.vs);
+      }
+      __syncthreads();  // the bf16 tile and code stage s are read out
+      cur = nxt;
+      have = more;
+      s ^= 1;
     }
-    __syncthreads();  // code tile `cur` has landed for every thread
-    const TK* kc = ring + (size_t)(2 * s) * tile;
-    codes_to_bf16<D>(smem, kc, bkv);
-    codes_to_bf16<D>(smem + tile, kc + tile, bkv);
-    // the conversion and the zero tail wrote through the generic proxy;
-    // wgmma reads through the async one
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // the bf16 tile is complete
-    for (int c0 = 0; c0 < bkv; c0 += kStep) {
-      const int kb = cur.ref.kbase + c0;
-      if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
-        w.template step<true>(smem, smem + tile, c0, cur.ref.kbase, bkv,
-                              klim, scale_log2 * cur.ks, cur.vs);
-    }
-    __syncthreads();  // the bf16 tile and code stage s are read out
-    cur = nxt;
-    have = more;
-    s ^= 1;
   }
 }
 
@@ -939,7 +1188,7 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
   bf16* smem = align_smem(smem_raw);
   const size_t qoff = ((size_t)head * Sq + qrow0) * D;
   GroupRows<D> w;
-  w.init(q + qoff, nrows, qrow0 + q_offset, true);
+  w.init(q + qoff, nrows, qrow0 + q_offset, true, smem);
   ItemSource<Tiles> src{items, L, start, start, bkv, tiles, false, false};
   if constexpr (kIsCode<TK>) {
     ScaledItemSource<Tiles> scaled{src, k_scales, v_scales};
@@ -954,10 +1203,14 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
 
 // Dynamic shared memory of the bf16 body: two stages of K and V tiles, and
 // room to start them on a 1024-byte boundary.  The code form's one bf16
-// K/V pair and its 2-stage ring of 1-byte codes take the same bytes.
+// K/V pair and its 2-stage ring of 1-byte codes take the same bytes.  At
+// head_dim 256: q and two stages of K and V 64-key steps (160 KB).
 template <int D>
 inline size_t smem_bytes(int bkv_pad) {
-  return 4 * (size_t)bkv_pad * D * sizeof(bf16) + 1024;
+  if constexpr (GroupRows<D>::kQShared)
+    return (size_t)(kRows + 4 * kStep) * D * sizeof(bf16) + 1024;
+  else
+    return 4 * (size_t)bkv_pad * D * sizeof(bf16) + 1024;
 }
 
 inline int pad_keys(int bkv) { return (bkv + kStep - 1) / kStep * kStep; }
@@ -995,27 +1248,31 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* items, void* out, int L, int Sq, int bq,
                        int bkv, Tiles tiles, int q_offset, int klim,
                        float scale, cudaStream_t stream) {
-  const int threads = bq * kRowSplit<D>;  // kRowSplit<D> threads per row
+  constexpr bool kSlice = kSliced<D>;
+  const int rows = kSlice ? kSliceRows : bq;  // query rows a CTA
+  const int threads = rows * kRowSplit<D>;    // kRowSplit<D> threads a row
   if (threads > 1024) return cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)bkv * D * sizeof(TK);
+  const size_t smem = 2 * (size_t)(kSlice ? kSliceKeys : bkv) * D * sizeof(TK);
   auto kern = sparse_prefill_kernel<float, TK, D, Tiles>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<L, threads, smem, stream>>>(
+  const long long grid = (long long)L * ((bq + rows - 1) / rows);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)grid, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const TK*>(k),
-      static_cast<const TK*>(v), items, static_cast<float*>(out), L, Sq,
-      bq, bkv, tiles, q_offset, klim, scale, k_scales, v_scales);
+      static_cast<const TK*>(v), items, static_cast<float*>(out), L, Sq, bq,
+      bkv, tiles, q_offset, klim, scale, k_scales, v_scales);
   return cudaGetLastError();
 }
 
 // dtype: q's (and out's) element type, 0 = bfloat16 (tensor-core body),
-// 1 = float32 (scalar body, block_q * kRowSplit<D> <= 1024).  kv_dtype:
-// the K/V tiles', equal to dtype, or 2 = int8 / 3 = fp8 e4m3 codes with
-// k_scales / v_scales (tiles with scales only: the pool).  head_dim 32, 64
-// or 128.  Returns the launch's cudaError_t.
+// 1 = float32 (scalar body, block_q * kRowSplit<D> <= 1024 up to head_dim
+// 128).  kv_dtype: the K/V tiles', equal to dtype, or 2 = int8 / 3 = fp8
+// e4m3 codes with k_scales / v_scales (tiles with scales only: the pool).
+// head_dim 32, 64, 128 or 256.  Returns the launch's cudaError_t.
 template <class Tiles>
 cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
                      const void* k, const void* v, const float* k_scales,
@@ -1031,6 +1288,7 @@ cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
   if (D == 32) PREFILL_LAUNCH(FN, 32, TK);                                  \
   if (D == 64) PREFILL_LAUNCH(FN, 64, TK);                                  \
   if (D == 128) PREFILL_LAUNCH(FN, 128, TK);                                \
+  if (D == 256) PREFILL_LAUNCH(FN, 256, TK);                                \
   return cudaErrorInvalidValue
   if (kv_dtype == dtype) {
     if (dtype == 0) { PREFILL_DIMS(launch_tc, tc::bf16); }

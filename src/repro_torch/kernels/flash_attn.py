@@ -72,16 +72,16 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
 
 def check_flash_kernel_args(q, k, v, block_q: int) -> None:
     """Raise unless the flash-attention kernel is built for q, k, v of
-    one dtype (bf16 / f32), q's head_dim (32, 64 or 128) and this
-    block_q."""
+    one dtype (bf16 / f32), q's head_dim (32, 64, 128 or 256) and
+    this block_q."""
     dh = q.shape[-1]
     if (q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES
             or dh not in HEAD_DIMS or block_q < 1
             or (q.dtype == torch.float32 and block_q > f32_max_block_q(dh))):
         raise ValueError(
             f"flash_attention kernel takes q, k, v of one dtype (bf16/f32), "
-            f"head_dim 32/64/128 and block_q >= 1 (<= 1024 in f32, 512 at "
-            f"head_dim 128); got {q.dtype}/{k.dtype}/{v.dtype}, {dh}, "
+            f"head_dim 32/64/128/256 and block_q >= 1 (<= 1024 in f32, 512 "
+            f"at head_dim 128); got {q.dtype}/{k.dtype}/{v.dtype}, {dh}, "
             f"{block_q}")
 
 
@@ -92,7 +92,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors launch
     the CUDA kernel (q, k, v of one dtype: bf16 runs its tensor-core body,
     f32 its scalar body with block_q <= 1024, or 512 at head_dim 128;
-    head_dim 32/64/128) or raise; there is no fallback.  ``launches`` counts kernel launches.
+    head_dim 32/64/128/256) or raise; there is no fallback.  ``launches`` counts kernel launches.
     """
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be [H, Sq, D] and k/v [Hkv, Skv, D] of one "

@@ -252,7 +252,8 @@ def flash_decode_paged_kernel(q, k_pool, v_pool, items, table, pos, *,
 
     CPU tensors run :func:`packed_decode_attention_paged`.  CUDA tensors
     launch the CUDA kernel (bf16 or f32 pools, or int8 / fp8 code pools
-    with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64/128, G <= 8)
+    with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim 32/64/128/256,
+    G <= 8)
     or raise; there is no fallback.  ``launches`` counts kernel launches,
     ``launches_by_dtype`` per pool dtype.
     """
@@ -298,7 +299,7 @@ def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
     CPU tensors run :func:`packed_decode_attention`.  CUDA tensors launch
     the CUDA kernel (bf16 or f32 caches, or int8 / fp8 code caches with
     ``k_scales`` / ``v_scales [B, Hkv, Smax / block_kv]``; head_dim
-    32/64/128, G <= 8) or raise; there is no fallback.  ``launches`` counts kernel
+    32/64/128/256, G <= 8) or raise; there is no fallback.  ``launches`` counts kernel
     launches, ``launches_by_dtype`` per cache dtype.
     """
     B, hkv, G, dh = q.shape
@@ -357,12 +358,12 @@ def check_cuda_decode(name: str, q, k, k_scales=None):
 def check_decode_kernel_args(name: str, q, k, k_scales=None):
     """Raise unless the decode kernel ``name`` is built for the cache's
     dtype (bf16 / f32, or int8 / fp8 codes where ``k_scales`` is given),
-    q's head_dim (32, 64 or 128) and its GQA group (G <= 8)."""
+    q's head_dim (32, 64, 128 or 256) and its GQA group (G <= 8)."""
     dh, G = q.shape[-1], q.shape[-2]
     kinds = CODE_DTYPES if k_scales is not None else DTYPES
     if k.dtype not in kinds or dh not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"{name} kernel takes bf16/f32 caches (int8/fp8 "
-                         f"codes with scales), head_dim 32/64/128 and G <= "
+                         f"codes with scales), head_dim 32/64/128/256 and G <= "
                          f"{MAX_GROUP}; got {k.dtype}, {dh}, {G}")
 
 

@@ -115,7 +115,7 @@ def sparse_decode_attention(q, k_cache, v_cache, items, *, cache_len: int,
 
     CPU tensors run :func:`sparse_decode_reference`.  CUDA tensors launch
     the CUDA kernel (q and caches of one dtype, bf16 or f32; head_dim
-    32/64/128; G <= 8) or raise; there is no fallback.  ``launches`` counts
+    32/64/128/256; G <= 8) or raise; there is no fallback.  ``launches`` counts
     kernel launches.
     """
     B, hkv, G, dh = q.shape

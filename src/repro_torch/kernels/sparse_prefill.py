@@ -165,7 +165,7 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
     CPU tensors run :func:`worklist_attention_paged`.  CUDA tensors launch
     the CUDA kernel (q bf16 or f32 with pools of its dtype, or int8 / fp8
     code pools with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim
-    32/64/128; f32 block_q <= 1024, or 512 at head_dim 128) or raise; there
+    32/64/128/256; f32 block_q <= 1024, or 512 at head_dim 128) or raise; there
     is no fallback.  ``launches``
     counts kernel launches, ``launches_by_dtype`` per pool dtype.
     """
@@ -219,8 +219,8 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
 
     CPU tensors run :func:`worklist_attention`.  CUDA tensors launch
     ``csrc/sparse_prefill_contig.cu`` (q and K/V of one dtype, bf16 or f32;
-    head_dim 32/64/128; f32 block_q <= 1024, or 512 at head_dim 128) or
-    raise; there is no fallback.
+    head_dim 32/64/128/256; f32 block_q <= 1024, or 512 at head_dim 128)
+    or raise; there is no fallback.
     ``launches`` counts kernel launches.
     """
     hq, sq, dh = q.shape
@@ -266,8 +266,8 @@ def check_prefill_kernel_args(name: str, q, k, block_q: int,
                               k_scales=None):
     """Raise unless the prefill kernel ``name`` is built for q's dtype
     (bf16 / f32) with K/V of the same dtype, or with int8 / fp8 codes where
-    ``k_scales`` is given, at q's head_dim (32, 64 or 128) and this
-    block_q."""
+    ``k_scales`` is given, at q's head_dim (32, 64, 128 or 256) and
+    this block_q."""
     dh = q.shape[-1]
     kv_ok = (k.dtype in CODE_DTYPES if k_scales is not None
              else k.dtype == q.dtype)
@@ -276,8 +276,8 @@ def check_prefill_kernel_args(name: str, q, k, block_q: int,
                                and block_q > f32_max_block_q(dh))):
         raise ValueError(
             f"{name} kernel takes bf16/f32 q with K/V of its dtype (or "
-            f"int8/fp8 codes with scales), head_dim 32/64/128 and block_q "
-            f">= 1 (<= 1024 in f32, 512 at head_dim 128); got "
+            f"int8/fp8 codes with scales), head_dim 32/64/128/256 and "
+            f"block_q >= 1 (<= 1024 in f32, 512 at head_dim 128); got "
             f"{q.dtype}/{k.dtype}, {dh}, {block_q}")
 
 

@@ -7,7 +7,10 @@ pytree (:mod:`repro_torch.weights`) drop in unchanged.  The paged KV pool
 is ``[L, 2, N+1, Hkv, block, Dh]``; its last block is the trash block that
 absorbs writes of padding rows.  The contiguous slot cache is ``[L, 2, B,
 Hkv, Smax, Dh]``, one row per batch slot (the reference's parity baseline).
-The layer loop is a Python loop; cache writes are in place.
+The layer loop is a Python loop; cache writes are in place.  An 'L'
+layer of ``cfg.attn_pattern`` decodes within its last ``cfg.local_window``
+positions; the chunked prefill attends unwindowed on every layer, as the
+reference's does.
 
 A quantized cache (``kv_dtype`` int8 or fp8) holds codes in the pool or
 slot cache and one float32 scale per (block, kv head) tile beside it:
@@ -144,6 +147,12 @@ def _logits(x, params, cfg: TransformerConfig):
     return logits.to(torch.float32)
 
 
+def _window_of(cfg: TransformerConfig, layer: int) -> int | None:
+    """The decode kernels' sliding window of ``layer``: the config's
+    ``local_window`` on an 'L' layer, none on a 'G' one."""
+    return cfg.local_window if cfg.layer_kind(layer) == "L" else None
+
+
 def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
                   cfg: TransformerConfig, *, kv_len: int | None = None,
                   sparse_items, last_index: int | None = None):
@@ -173,6 +182,9 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
         kc, vc = cache[l, 0, slot], cache[l, 1, slot]      # [Hkv, Smax, Dh]
         kc[:, rows] = k[0].to(kc.dtype)
         vc[:, rows] = v[0].to(vc.dtype)
+        # no window here: the reference's chunked prefill attends its work
+        # list unwindowed on every layer (only its decode applies
+        # local_window), and the port keeps its tokens
         o = kernel_ops.sparse_prefill_contiguous(
             q[0], kc, vc, sparse_items[l], block_q=cfg.block_q,
             block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len)[None]
@@ -238,6 +250,8 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
         else:
             kc[gids] = k_blocks.to(kc.dtype)
             vc[gids] = v_blocks.to(vc.dtype)
+        # unwindowed on every layer, as the reference's paged chunked
+        # prefill (see prefill_chunk)
         o = kernel_ops.sparse_prefill(
             q[0], kc, vc, sparse_items[l], table, block_q=cfg.block_q,
             block_kv=block, q_offset=q_offset, kv_len=kv_len, k_scales=ks,
@@ -312,12 +326,12 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
                     act, new[:, :, 0, :].to(c.dtype), c[rows, heads, at])
         if packed_items is not None:
             o = kernel_ops.flash_decode_packed(
-                q, kc, vc, packed_items[l], pos, block_kv=blk, k_scales=ks,
-                v_scales=vs)
+                q, kc, vc, packed_items[l], pos, block_kv=blk,
+                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
         else:
             o = kernel_ops.flash_decode(
-                q, kc, vc, block_ids[l], pos, block_kv=blk, k_scales=ks,
-                v_scales=vs)
+                q, kc, vc, block_ids[l], pos, block_kv=blk,
+                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
         x = _block_out(x, o, lp)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, cache, scales) if qz else logits
@@ -382,11 +396,11 @@ def decode_step_paged(params, pool, token, pos, table,
         if packed_items is not None:
             o = kernel_ops.flash_decode_packed_paged(
                 q, kc, vc, packed_items[l], table, pos, block_kv=block,
-                k_scales=ks, v_scales=vs)
+                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
         else:
             o = kernel_ops.flash_decode_paged(
                 q, kc, vc, block_ids[l], table, pos, block_kv=block,
-                k_scales=ks, v_scales=vs)
+                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
         x = _block_out(x, o, lp)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, pool, scales) if qz else logits

@@ -146,12 +146,12 @@ def prefill_case(seed, H=4, Hkv=2, D=32, prompt=640, q_offset=256,
     return q, kp, vp, items, table
 
 
-# head_dim 64 is SmolLM-135M's, 32 its SMOKE size's, 128 Yi-6B's: the three
-# the kernels dispatch.  The decode's GQA group G runs under a bound of 4
-# (SmolLM-135M's 3) or of 8 (Yi-6B's 8); the prefill's takes any group
-# (2 is the cases' own, 8 Yi-6B's)
+# head_dim 64 is SmolLM-135M's, 32 its SMOKE size's, 128 Yi-6B's, 256
+# Gemma3-1B's: the four the kernels dispatch.  The decode's GQA group G runs
+# under a bound of 4 (SmolLM-135M's 3, Gemma3-1B's 4) or of 8 (Yi-6B's 8);
+# the prefill's takes any group (2 is the cases' own, 8 Yi-6B's)
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("holes,window,layout", [
     (False, None, "packed"), (True, 200, "packed"), (True, None, "padded")])
@@ -172,7 +172,7 @@ def test_cuda_decode_kernel_matches_plain(cuda, dtype, holes, window,
 
 
 @pytest.mark.parametrize("G", [2, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 def test_cuda_prefill_kernel_matches_plain(cuda, dtype, atol, D, G):
@@ -209,7 +209,7 @@ def test_cuda_identity_table_prefill_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window,layout", [
     (None, "packed"), (200, "packed"), (None, "padded")])
@@ -261,7 +261,7 @@ def test_cuda_decode_layouts_give_the_same_bits(cuda, form):
 
 
 @pytest.mark.parametrize("G", [2, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 def test_cuda_contiguous_prefill_kernel_matches_plain(cuda, dtype, atol, D,
@@ -285,7 +285,7 @@ def test_cuda_contiguous_prefill_kernel_matches_plain(cuda, dtype, atol, D,
 
 
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 @pytest.mark.parametrize("causal,sq,skv", [
@@ -305,7 +305,7 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, atol, causal, sq,
 
 
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
 def test_cuda_sparse_decode_matches_plain(cuda, dtype, atol, D, G):
@@ -326,6 +326,58 @@ def test_cuda_sparse_decode_matches_plain(cuda, dtype, atol, D, G):
     want = sparse_decode_reference(q, kc, vc, items, cache_len=cache_len)
     assert got.dtype == dtype and not got[1, 0].any()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_window_decode_outside_tiles(cuda, dtype, layout, D):
+    """A sliding window (Gemma3's local layers) at a position past it: a
+    run that starts on tiles wholly outside the window (the strided
+    policy's sink block 0, then block 1) and a run with no kept key at all.
+    No NaN; the empty run keeps m = -1e30, l = 0, out 0; both layouts give
+    the plain version's values and each other's bits."""
+    rng = np.random.default_rng(22)
+    B, Hkv, G, T, window = 2, 1, 4, 8, 200
+    N = B * T + 1
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(N - 1)[:B * T].reshape(B, T).astype(np.int32)
+    pos = np.array([7 * BLK + 50, 6 * BLK + 3], np.int32)
+    # (row, kv head, logical block, first, last, valid)
+    items = np.array([
+        [0, 0, 0, 1, 0, 1],     # the sink: wholly outside the window
+        [0, 0, 1, 0, 0, 1],     # outside
+        [0, 0, 5, 0, 0, 1],     # straddles pos - window
+        [0, 0, 7, 0, 1, 1],     # the newest block
+        [1, 0, 0, 1, 0, 1],     # outside only: nothing kept
+        [1, 0, 2, 0, 1, 1],
+    ], np.int32)
+    kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
+    q, kp, vp, kc, vc, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table, pos))
+    q, kp, vp, kc, vc = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+    kw = dict(block_kv=BLK, window=window)
+    if layout == "paged":
+        got = flash_decode_paged_kernel(q, kp, vp, items, table, pos, **kw)
+        want = packed_decode_attention_paged(q, kp, vp, items, table, pos,
+                                             **kw)
+    else:
+        got = flash_decode_kernel(q, kc, vc, items, pos, **kw)
+        want = packed_decode_attention(q, kc, vc, items, pos, **kw)
+    out, m, l = got
+    assert all(bool(t.isfinite().all()) for t in got)
+    assert bool((m[1] == -1e30).all()) and not l[1].any() and not out[1].any()
+    assert bool((l[0] > 0).all())
+    for g, w in zip(got, want):     # f32 sums in another order
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    other = (flash_decode_kernel(q, kc, vc, items, pos, **kw)
+             if layout == "paged"
+             else flash_decode_paged_kernel(q, kp, vp, items, table, pos,
+                                            **kw))
+    for a, b in zip(got, other):
+        assert torch.equal(a, b), "one body: both layouts, the same bits"
 
 
 # -- the bf16 tensor-core prefill / flash body --------------------------------
@@ -357,7 +409,7 @@ def _tc_prefill(cuda, q, kp, vp, items, table, *, q_offset, kv_len, blk=BLK,
 
 
 @pytest.mark.parametrize("G", [2, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("q_offset", [0, 2048])
 @pytest.mark.parametrize("hole", [False, True])
 def test_cuda_tc_prefill_matches_plain(cuda, D, q_offset, hole, G):
@@ -373,7 +425,7 @@ def test_cuda_tc_prefill_matches_plain(cuda, D, q_offset, hole, G):
     assert not got[1, :BLK].any(), "an uncovered run's rows stay zero"
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_cuda_tc_prefill_fully_masked_tiles(cuda, D):
     """A run whose first tile lies wholly above the causal diagonal, and a
     run with no kept key at all (its rows are written as zeros)."""
@@ -399,7 +451,7 @@ def test_cuda_tc_prefill_fully_masked_tiles(cuda, D):
     assert got[0].abs().sum() > 0
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_cuda_tc_prefill_odd_blocks(cuda, D):
     """block_q = block_kv = 80: q blocks that are not whole 64-row CTA
     slices and tiles that end inside a 64-key step."""
@@ -417,7 +469,7 @@ def test_cuda_tc_prefill_odd_blocks(cuda, D):
                 blk=blk)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,skv,bq,bkv", [
     (1000, 3001, 128, 128), (333, 517, 96, 80)])
@@ -450,7 +502,7 @@ def _quant_decode(cuda, seed, kind, D, G=3, **kw):
 
 
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("holes,window,layout", [
     (False, None, "packed"), (True, 200, "packed"), (True, None, "padded")])
@@ -471,7 +523,7 @@ def test_cuda_quant_decode_kernel_matches_plain(cuda, kind, holes, window,
 
 
 @pytest.mark.parametrize("G", [3, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("window,layout", [(None, "packed"),
                                            (200, "padded")])
@@ -503,7 +555,7 @@ def test_cuda_quant_contiguous_decode_matches_plain(cuda, kind, window,
 
 
 @pytest.mark.parametrize("G", [2, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2.0 ** -6)])
@@ -606,21 +658,22 @@ def test_cuda_quant_smoke_serve_matches_cpu(cuda, layout):
     assert decode.launches_by_dtype.get("int8", 0) > before
 
 
-# -- shapes no kernel is built for, and a serve at Yi-6B's widths ---------
+# -- shapes no kernel is built for, and serves at Yi-6B's and Gemma3-1B's
+# widths ---------------------------------------------------------------------
 
 
 def test_cuda_wrappers_refuse_unbuilt_shapes(cuda):
-    """head_dim 16 and 256 and G > 8 raise on the card: no kernel is
+    """head_dim 16, 96 and 512 and G > 8 raise on the card: no kernel is
     built for them and nothing else runs in their place."""
-    for dh, g in ((16, 8), (256, 8), (128, 9)):
+    for dh, g in ((16, 8), (96, 4), (512, 4), (128, 9)):
         q = torch.zeros((1, 1, g, dh), device=cuda, dtype=torch.bfloat16)
         kc = torch.zeros((1, 1, BLK, dh), device=cuda, dtype=torch.bfloat16)
         items = torch.zeros((1, 6), device=cuda, dtype=torch.int32)
         pos = torch.zeros((1,), device=cuda, dtype=torch.int32)
-        with pytest.raises(ValueError, match="head_dim 32/64/128"):
+        with pytest.raises(ValueError, match="head_dim 32/64/128/256"):
             flash_decode_kernel(q, kc, kc, items, pos, block_kv=BLK)
-    q = torch.zeros((2, 8, 256), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32/64/128"):
+    q = torch.zeros((2, 8, 512), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32/64/128/256"):
         flash_attention(q, q, q)
 
 
@@ -650,3 +703,35 @@ def test_cuda_yi_two_layer_f32_serve_matches_cpu(cuda, kind):
             prompts, SamplingParams(max_tokens=6))])
     assert outs[0] == outs[1]
     assert flash_decode_paged_kernel.launches > before
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_gemma3_six_layer_f32_serve_matches_cpu(cuda, layout):
+    """Gemma3-1B's widths (head_dim 256, G = 4, one kv head) at 6 layers,
+    one LLLLLG period, float32, a small vocabulary, a prompt longer than the
+    512-token window: the card's greedy tokens (the head_dim-256 f32
+    kernels, windowed decode on the five local layers) equal the plain
+    versions' on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=6,
+                              vocab_size=512, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (600, 40)]
+    decode = flash_decode_paged_kernel if layout == "paged" \
+        else flash_decode_kernel
+    before = decode.launches
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, init_params(cfg, seed=4, device=dev),
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, cache_layout=layout),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        outs.append([r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=6))])
+    assert outs[0] == outs[1]
+    assert decode.launches > before

@@ -13,7 +13,8 @@ slice at the reference's Yi-6B SMOKE size in float32.
   at ``kv_dtype`` int8; inside the port, paged == contiguous and packed ==
   padded;
 - the CUDA wrappers' argument checks, run on CPU tensors: head_dim 128 and
-  G = 8 pass, head_dim 16 / 256 and G > 8 are refused.
+  G = 8 pass (and head_dim 256, Gemma3-1B's), head_dim 16 / 96 / 512 and
+  G > 8 are refused.
 """
 import dataclasses
 
@@ -242,7 +243,8 @@ def _decode_q(dh, g, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dh,g,ok", [
     (128, 8, True), (128, 5, True), (64, 3, True), (32, 8, True),
-    (16, 8, False), (256, 8, False), (128, 9, False), (64, 16, False)])
+    (16, 8, False), (256, 8, True), (96, 8, False), (128, 9, False),
+    (64, 16, False)])
 def test_decode_kernels_take_head_dim_128_and_g_8(dh, g, ok):
     """#1, #3 and #5 share one check: bf16 / f32 caches and int8 codes
     with scales alike."""
@@ -253,15 +255,16 @@ def test_decode_kernels_take_head_dim_128_and_g_8(dh, g, ok):
         if ok:
             check_decode_kernel_args("flash_decode_paged", q, k, codes)
         else:
-            with pytest.raises(ValueError, match="head_dim 32/64/128"):
+            with pytest.raises(ValueError, match="head_dim 32/64/128/256"):
                 check_decode_kernel_args("flash_decode_paged", q, k, codes)
 
 
 @pytest.mark.parametrize("dh,ok", [(32, True), (64, True), (128, True),
-                                   (16, False), (256, False)])
+                                   (256, True), (16, False), (512, False)])
 def test_prefill_and_flash_kernels_take_head_dim_128(dh, ok):
     """#2 (both layouts, codes too) and #4; at head_dim 128 a float32
-    block holds at most 512 query rows (two threads per row)."""
+    block holds at most 512 query rows (two threads per row), at 256 1024
+    (a CTA takes a 64-row slice of the block)."""
     q, k = (torch.empty((2, 4, dh), dtype=torch.bfloat16) for _ in range(2))
     i8 = torch.empty((2, 4, dh), dtype=torch.int8)
     calls = [lambda: check_prefill_kernel_args("sparse_prefill_paged", q, k,
@@ -273,7 +276,7 @@ def test_prefill_and_flash_kernels_take_head_dim_128(dh, ok):
         if ok:
             call()
         else:
-            with pytest.raises(ValueError, match="head_dim 32/64/128"):
+            with pytest.raises(ValueError, match="head_dim 32/64/128/256"):
                 call()
     qf, kf = q.float(), k.float()
     limit = 512 if dh == 128 else 1024
