@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA, print the card's ``name, power.limit``;
 2. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), print ``ptxas``'s register
-   and spill lines, and count the tensor-core instructions (HMMA/HGMMA in
+   and spill lines under each kernel function's name, and count the tensor-core instructions (HMMA/HGMMA in
    ``cuobjdump -sass``) of the bf16 prefill and flash-attention kernels:
    none fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
    head_dim 64, ``max_seq_len`` 4096, 8 rows, budget 512), with the stated
    tolerances; kernel, plain-version and library (SDPA) times, and each
    kernel's bound.  The paged and contiguous decode and prefill kernels
-   must also agree bit for bit on equal cache contents.  Then the
+   must also agree bit for bit on equal cache contents; each decode form
+   prints its CTAs a launch (one per item; those that walk a split of the
+   run) and its longest run in tiles, and two launches of the same inputs
+   must give the same bits.  Then the
    codes-and-scales forms at int8 and fp8 (quantized KV pool): #1 and #3
    against their plain versions (tolerance 1e-4) and each other, #2 paged
    (bf16 q, tolerance 2^-6), each timed beside its bound (codes at one
@@ -35,7 +38,10 @@ Phases, in order; any failure exits non-zero:
    quantized kernels, with the cache's resident bytes beside the bf16
    engine's; then SMOKE-size float32 serves on the card, paged and
    contiguous, in bf16 and int8, must give the same greedy tokens as the
-   same serves on the CPU (plain versions);
+   same serves on the CPU (plain versions); int8 / fp8 ones replay the
+   CPU's tokens and hold the logit differences' median and max, which two
+   planted controls must fail (q rounded to bf16: the median; one decode
+   call's output shifted by 1.0: the max);
 6. Yi-6B (32 heads over 4 KV heads: G = 8, head_dim 128) with random
    weights from a seeded torch generator on the card: phases 3 and 4 at
    its shapes,
@@ -363,6 +369,25 @@ def decode_bound(items, table, mask, ntiles, with_table: bool, sh: Shapes,
     return (nbytes, flops, flops) if elem == 2 else (nbytes, 0, 2 * flops)
 
 
+def split_report(name: str, launch, items) -> None:
+    """A decode form's grid (one CTA per item), the CTAs that walk a split
+    of at most ``SPLIT_TILES`` tiles, its longest run in tiles, and whether
+    two launches of the same inputs give the same bits; fails if not."""
+    import torch
+    from repro_torch.kernels.flash_decode import SPLIT_TILES, decode_runs
+    lens = [last - first + 1 for first, last in decode_runs(
+        items.cpu().tolist())]
+    splits = sum(-(-n // SPLIT_TILES) for n in lens)
+    first, again = launch(), launch()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"{name}: {items.shape[0]} CTAs a launch, {splits} walking a "
+          f"split of <= {SPLIT_TILES} tiles, {len(lens)} runs, longest "
+          f"{max(lens)} tiles; two launches {'==' if same else '!='} bit "
+          f"for bit")
+    if not same:
+        fail(f"{name}: two launches of the same inputs differ")
+
+
 def decode_case(eng, gen, dev, sh: Shapes, mag=None):
     """Layer 0's decode work of the engine at 8 rows of 3000-4096 tokens:
     positions, the block table, packed items, the padded table from
@@ -449,6 +474,10 @@ def check_decode(eng, gen, dev, results, sh: Shapes, dtypes):
             if not same:
                 fail(f"the contiguous and paged decode kernels differ "
                      f"({sh.arch}, {tag}{sfx})")
+        split_report(pname, lambda: paged(flash_decode_paged_kernel, items),
+                     items)
+        split_report(cname, lambda: contig(flash_decode_kernel, items),
+                     items)
         qs = q.reshape(B, sh.H, 1, sh.D)
         elem = q.element_size()
         # library yardstick: SDPA over the same selected keys as a mask on
@@ -671,6 +700,10 @@ def check_quant_decode(eng, gen, dev, results, sh: Shapes):
             if not same:
                 fail(f"the {kind} contiguous and paged decode kernels "
                      f"differ ({sh.arch}, {tag})")
+        split_report(pname, lambda: paged(flash_decode_paged_kernel, items),
+                     items)
+        split_report(cname, lambda: contig(flash_decode_kernel, items),
+                     items)
         kdc, vdc = slot_rows(kdq, table), slot_rows(vdq, table)
         for name, layout in ((pname, paged), (cname, contig)):
             kern = flash_decode_paged_kernel if layout is paged \
@@ -1070,6 +1103,34 @@ def bf16_q_code_decodes():
             setattr(ops, n, fn)
 
 
+@contextlib.contextmanager
+def faulted_decode_call():
+    """The max check's planted control: while the block runs, the first
+    decode call (layer 0 of the first decode tick) returns its output with
+    1.0 added to every row, a large fault confined to the few rows of one
+    model call."""
+    from repro_torch.kernels import ops
+    names = ("flash_decode", "flash_decode_packed", "flash_decode_paged",
+             "flash_decode_packed_paged")
+    orig = {n: getattr(ops, n) for n in names}
+    calls = []
+
+    def faulted(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append(None)
+            return out + 1.0 if len(calls) == 1 else out
+        return call
+
+    for n in names:
+        setattr(ops, n, faulted(orig[n]))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
 def forced_logit_diff(card, cpu) -> tuple[float, float, int]:
     """A teacher-forced serve's card-vs-CPU logit differences, each model
     call and row's largest: their median and maximum (NaN if any is NaN),
@@ -1091,8 +1152,12 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
     the card replays the CPU's tokens (greedy tokens could part at a
     near-tie, as codes one step apart move the logits a little) and the
     logit differences of every model call must hold ``QUANT_MEDIAN_ATOL``
-    and ``QUANT_LOGIT_ATOL``; then the planted control
-    (:func:`bf16_q_code_decodes`, paged int8) must fail that check."""
+    and ``QUANT_LOGIT_ATOL``; then two planted controls, each a paged int8
+    serve, must fail that check: q rounded to bf16 in the code decodes
+    (:func:`bf16_q_code_decodes`, a fault on every call, for the median)
+    and one decode call's output shifted by 1.0
+    (:func:`faulted_decode_call`, a fault on a few rows, which the max
+    must refuse)."""
     import torch
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
@@ -1112,14 +1177,16 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
                 prompts, SamplingParams(max_tokens=max_tokens))]
         return out, rec
 
-    def held(sub, card, rec) -> bool:
+    def held(sub, card, rec) -> tuple[bool, bool]:
+        """Whether the median and the max of the logit differences hold
+        their limits."""
         med, worst, flips = forced_logit_diff(card, rec)
-        ok = med <= med_atol and worst <= QUANT_LOGIT_ATOL
+        ok = (med <= med_atol, worst <= QUANT_LOGIT_ATOL)
         print(f"{sub}: card replaying the CPU's tokens over {len(rec)} model "
               f"calls, logit difference median {med:.3e} (tolerance "
               f"{med_atol:g}), max {worst:.3e} (tolerance "
               f"{QUANT_LOGIT_ATOL:g}); greedy argmax differs in {flips} "
-              f"rows: {'held' if ok else 'NOT held'}")
+              f"rows: {'held' if all(ok) else 'NOT held'}")
         return ok
 
     records = {}
@@ -1138,16 +1205,27 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
             got, card = serve(dev, layout, kind, forced=rec)
             if got != want:
                 fail(f"{sub}: the card did not replay the CPU's tokens")
-            if not held(sub, card, rec):
+            if not all(held(sub, card, rec)):
                 fail(f"{sub}: card and CPU logits differ beyond tolerance")
     if "int8" in kinds:
         rec = records["paged", "int8"][1]
+        sub = f"{tag} f32 serve[paged,int8] control"
         with bf16_q_code_decodes():
             _, card = serve(dev, "paged", "int8", forced=rec)
-        if held(f"{tag} f32 serve[paged,int8] control (q rounded to bf16 "
-                f"in the code decodes)", card, rec):
+        if all(held(f"{sub} (q rounded to bf16 in the code decodes)", card,
+                    rec)):
             fail(f"{tag}: the quantized parity check passes its planted "
                  f"control")
+        with faulted_decode_call():
+            _, card = serve(dev, "paged", "int8", forced=rec)
+        med_ok, max_ok = held(f"{sub} (one decode call's output + 1.0)",
+                              card, rec)
+        print(f"{sub}: the max {'holds' if max_ok else 'refuses'} the "
+              f"one-call fault, the median alone "
+              f"{'holds' if med_ok else 'refuses'} it")
+        if max_ok:
+            fail(f"{tag}: the max check passes its planted control (a "
+                 f"fault on one decode call's rows)")
 
 
 def serve_smoke_parity(dev):
@@ -1273,7 +1351,8 @@ def main() -> int:
     print(f"build: {len(logs)} kernels compiled in {time.time() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
     tensor_core_counts(kbuild)
 

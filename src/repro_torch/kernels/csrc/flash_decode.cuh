@@ -35,17 +35,51 @@
 //
 // Design.  The TPU grid runs in order and carries (acc, m, l) in VMEM from
 // one item to the next; CUDA blocks run concurrently, so that carry is not
-// legal here.  One CTA is launched per item index: a CTA whose item does
-// not start a run exits at once, and a starting CTA walks its run in a loop,
-// keeping (acc, m, l) on chip.  q.k takes the cache's element type (q in
-// f32 for codes) and accumulates in f32; p.V stays true f32.  Both layouts run this one body,
-// so paged and contiguous caches holding the same values give the same bits.
+// legal here.  One CTA is launched per item index.  q.k takes the cache's
+// element type (q in f32 for codes) and accumulates in f32; p.V stays true
+// f32.  Both layouts run this one body, so paged and contiguous caches
+// holding the same values give the same bits.
+//   The legacy decode gives a CTA a whole run: a CTA whose item does not
+// start a run exits at once, and a starting CTA walks its run in a loop,
+// keeping (acc, m, l) on chip.
+//   The flash decode splits a run (split mode): the item at position p of
+// its run (0 at `first`) belongs to split p / kSplitTiles.  Each CTA finds
+// its item's run by two block-wide scans of the item flags (back to the
+// run's `first`, forward to its `last`); one whose item does not start a
+// split exits, a starting CTA walks its split's items from (acc 0,
+// m -1e30, l 0).  A run of one split finalizes as the walk always did.
+// Otherwise each split writes its normalized partial (out, m, l) in f32 to
+// the workspace at its first item and takes a ticket on its run's counter
+// (at the run's first item); the CTA that draws the last ticket merges the
+// run's partials in item order by the reference's merge_partials algebra
+// (flash_decode.py:699) and resets the counter.  The split is a function of a run's own items only,
+// never of an item's index in the table, the bucket length or the order in
+// which CTAs finish: the packed and padded tables hold a run's valid items
+// in the same order (the padded run's trailing invalid items give partials
+// with l = 0, which the merge skips exactly), so they give the same bits,
+// and a launch repeats its bits.
+//   Workspace: the partials [L, G, D] and [L, G] twice come from the
+// wrapper (torch.empty; each is written before it is read).  The counters
+// [L] must be zero at launch; the merging CTA leaves its counter at zero,
+// so the wrapper keeps one buffer per (device, stream) and adds no fill
+// launch (the serve is host-bound), and a CUDA graph of launches replays
+// correctly.
+// The merge runs across the CTA: the partials' (m, l) are read by all
+// threads at once and the weights land in shared memory, then each thread
+// sums its output columns over the partials in item order.  L1 is not
+// coherent across SMs: after a fence the merging CTA reads the other CTAs'
+// partials with ld.global.cg (__ldcg), from L2.
 //
 // What bounds it.  Decode attention is memory-bound: the least time is the
-// bytes of the selected K/V tiles over the card's 3.35 TB/s.  This first
-// version reads K and V straight from device memory (row-per-thread for q.k,
-// column-per-thread for p.V); cp.async / TMA staging and splitting long runs
-// across CTAs are later work.
+// bytes of the selected K/V tiles over the card's 3.35 TB/s.  This body
+// reads K and V straight from device memory (a key row per thread for
+// q.k, strided by D; p.V re-reads V once per group row), so one tile takes
+// tens of microseconds on an SM, and a launch lasts as long as its longest
+// chain of tiles.  One CTA per run made that chain a whole run (4-20 tiles
+// in the served models, on as few as 8 CTAs at Gemma3-1B's one KV head);
+// the split cuts it to kSplitTiles tiles plus the merge of at most a run's
+// length of partials, on one CTA per split.  Staging K/V (cp.async / TMA),
+// coalesced q.k and one V pass per tile are the next step.
 //
 // Instantiations: head_dim 32, 64, 128 and 256, each at two GQA group
 // bounds (G <= 4 and G <= 8) that size the per-group register arrays.  At
@@ -76,6 +110,11 @@ constexpr int kWarps = kThreads / 32;
 // takes the wider ones.
 constexpr int kSmallG = 4, kMaxG = 8;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+// Tiles per split of the flash decode's runs (split mode): 1, so a
+// launch's chain is one tile plus the merge; 2 was slower at each served
+// model's decode shapes (PERF.md §6).  The plain versions use the same
+// value (kernels/flash_decode.py SPLIT_TILES).
+constexpr int kSplitTiles = 1;
 
 constexpr int D_BATCH = 0, D_KVHEAD = 1, D_KVBLK = 2, D_FIRST = 3,
               D_LAST = 4, D_VALID = 5, DEC_FIELDS = 6;
@@ -169,8 +208,86 @@ __device__ __forceinline__ void block_reduce(float (&v)[N], float (*red)[N]) {
   __syncthreads();
 }
 
-// kLegacy selects the legacy decode's run rules (see the file comment);
-// the legacy decode gets every row's last position cache_len - 1 in pos.
+// The smallest t in [0, n) with hit(t), or n; every thread of the block
+// gets it.  Must be reached by all threads of the block; hit(t) is only
+// asked for t < n.
+template <class Hit>
+__device__ __forceinline__ int first_hit(int n, Hit hit) {
+  __shared__ int warp_first[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = 0; base < n; base += kThreads) {
+    const int t = base + threadIdx.x;
+    const unsigned found = __ballot_sync(0xffffffffu, t < n && hit(t));
+    if (lane == 0) warp_first[warp] = found ? t + __ffs(found) - 1 : n;
+    __syncthreads();
+    int best = n;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) best = min(best, warp_first[w]);
+    __syncthreads();
+    if (best < n) return best;
+  }
+  return n;
+}
+
+// Split mode: whether item i starts a split of a run that finalizes, and
+// that run's first and last items.  A run is the items from a `first` to
+// the next `last`; one whose `last` comes after another `first`, or never,
+// does not finalize (the reference scan resets and never writes it), and
+// items after a `last` and before the next `first` (bucket pads) belong to
+// no run.
+__device__ __forceinline__ bool split_of(const int* items, int i, int L,
+                                         int& first, int& last) {
+  auto at = [items](int j) { return items + (size_t)j * DEC_FIELDS; };
+  const int back = first_hit(i + 1, [&](int t) {
+    return at(i - t)[D_FIRST] == 1 || (t > 0 && at(i - t)[D_LAST] == 1);
+  });
+  if (back > i || (back > 0 && at(i - back)[D_LAST] == 1)) return false;
+  if (back % kSplitTiles != 0) return false;
+  const int fwd = first_hit(L - i, [&](int t) {
+    return at(i + t)[D_LAST] == 1 || (t > 0 && at(i + t)[D_FIRST] == 1);
+  });
+  if (fwd == L - i || (fwd > 0 && at(i + fwd)[D_FIRST] == 1)) return false;
+  first = i - back;
+  last = i + fwd;
+  return true;
+}
+
+// v[g] for a g known only at run time, without indexing the array (which
+// would put it in local memory).
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int g) {
+  float x = v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j)
+    if (j == g) x = v[j];
+  return x;
+}
+
+// A run's (or a split's) output column: acc / l, 0 where l = 0.
+__device__ __forceinline__ float normalized(float acc, float l) {
+  return l > 0.f ? acc / fmaxf(l, 1e-30f) : 0.f;
+}
+
+// Split mode's workspace: each split's normalized partial at its first
+// item index (out [L, G, D], m and l [L, G], f32) and each run's ticket
+// counter at its first item (int32 [L], zero at launch and left so).
+struct SplitWork {
+  float* out;
+  float* m;
+  float* l;
+  int* tickets;
+};
+
+// Splits of at most this many partials are merged from shared memory at a
+// time (their weights, [kMergeChunk][MaxG] floats).
+constexpr int kMergeChunk = 32;
+
+// kLegacy selects the legacy decode's run rules and its one-CTA walk; the
+// flash decode runs in split mode (see the file comment).  The legacy
+// decode gets every row's last position cache_len - 1 in pos.  Split mode
+// lives in `if constexpr` branches that the legacy instantiation discards,
+// so the legacy kernel keeps the instructions of the one-CTA walk it had
+// before the split (scripts/sass_diff.py).
 // TQ is q's element type, TK the cache's; with codes (kIsCode<TK>) the
 // tile scales come in k_scales / v_scales, otherwise those are unused.
 // MaxG (kSmallG or kMaxG) sizes the per-group arrays; G <= MaxG.
@@ -187,7 +304,8 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ l_out, int L, int Hkv, int G,
                        int blk, Tiles tiles, float scale, int window,
                        const float* __restrict__ k_scales,
-                       const float* __restrict__ v_scales) {
+                       const float* __restrict__ v_scales,
+                       SplitWork split) {
   constexpr int kAcc = (MaxG * D + kThreads - 1) / kThreads;
   constexpr bool kQuant = kIsCode<TK>;
   auto starts = [](const int* t) {
@@ -198,7 +316,12 @@ __global__ void __launch_bounds__(kThreads)
   };
   const int i = blockIdx.x;
   const int* it = items + (size_t)i * DEC_FIELDS;
-  if (!starts(it)) return;
+  [[maybe_unused]] int first, last;  // split mode: the run of item i
+  if constexpr (kLegacy) {
+    if (!starts(it)) return;
+  } else {
+    if (!split_of(items, i, L, first, last)) return;
+  }
   // runs are homogeneous in (row, kv head): the packers emit them so
   const int b = it[D_BATCH], h = it[D_KVHEAD];
   const int tid = threadIdx.x;
@@ -223,9 +346,13 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = i; j < L; ++j) {
     const int* jt = items + (size_t)j * DEC_FIELDS;
-    // a new run before this one finalized: the reference scan would reset
-    // and never write this run, so stop here without writing
-    if (j > i && starts(jt)) return;
+    if constexpr (kLegacy) {
+      // a new run before this one finalized: the reference scan would
+      // reset and never write this run, so stop here without writing
+      if (j > i && starts(jt)) return;
+    } else {
+      if (j == i + kSplitTiles || j > last) break;  // the split's items end
+    }
     const int kvblk = jt[D_KVBLK];
     size_t row0;
     bool mapped;
@@ -321,22 +448,137 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    if (ends(jt)) {
-      OutT* ob = out + ((size_t)b * Hkv + h) * G * D;
+    if constexpr (kLegacy) {
+      if (ends(jt)) {
+        OutT* ob = out + ((size_t)b * Hkv + h) * G * D;
+#pragma unroll
+        for (int r = 0; r < kAcc; ++r) {
+          const int o = tid + r * kThreads;
+          if (o < G * D) {
+            const float l = l_s[o / D];
+            store(l > 0.f ? acc[r] / fmaxf(l, 1e-30f) : 0.f, ob + o);
+          }
+        }
+        return;
+      }
+    }
+  }
+  if constexpr (!kLegacy) {
+    float* ob = out + ((size_t)b * Hkv + h) * G * D;
+    const size_t mo = ((size_t)b * Hkv + h) * G;
+    const int nsplit = (last - first) / kSplitTiles + 1;
+    if (nsplit == 1) {  // the run's one split: finalize as a whole run
+#pragma unroll
+      for (int r = 0; r < kAcc; ++r) {
+        const int o = tid + r * kThreads;
+        if (o < G * D) ob[o] = normalized(acc[r], l_s[o / D]);
+      }
+      if (tid < G) {
+        m_out[mo + tid] = m_s[tid];
+        l_out[mo + tid] = l_s[tid];
+      }
+      return;
+    }
+    // this split's partial, then a ticket; the last ticket merges
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) {
+      const int o = tid + r * kThreads;
+      if (o < G * D)
+        split.out[(size_t)i * G * D + o] = normalized(acc[r], l_s[o / D]);
+    }
+    if (tid < G) {
+      split.m[(size_t)i * G + tid] = m_s[tid];
+      split.l[(size_t)i * G + tid] = l_s[tid];
+    }
+    __threadfence();
+    __syncthreads();
+    __shared__ bool merges;
+    if (tid == 0) merges = atomicAdd(split.tickets + first, 1) == nsplit - 1;
+    __syncthreads();
+    if (!merges) return;
+    __threadfence();
+
+    // merge_partials over the run's splits s (at item first + s *
+    // kSplitTiles), in item order.  A partial is real where l > 0; gm is the
+    // max of the real partials' m; each weighs w = exp(m - gm) * l (0 if not
+    // real) and out = sum(out * w) / max(sum(w), 1e-30); where at most one
+    // is real, out is that partial's out (or 0: a non-real partial's out is
+    // 0).  Products and sums rounded one by one, in split order, as the
+    // plain version's.  Other CTAs' partials are read from L2 (__ldcg).
+    // Inline: out of line (__noinline__) it took the tile walk's registers
+    // and spills down but made the launches slower (PERF.md §6).
+    auto at = [&](int s) { return (size_t)(first + s * kSplitTiles); };
+    float gm[MaxG], nreal[MaxG], only[MaxG];
+#pragma unroll
+    for (int g = 0; g < MaxG; ++g) {
+      gm[g] = kNegInf;
+      nreal[g] = 0.f;
+      only[g] = -1.f;
+    }
+    for (int s = tid; s < nsplit; s += kThreads) {
+#pragma unroll
+      for (int g = 0; g < MaxG; ++g) {
+        if (g < G && __ldcg(split.l + at(s) * G + g) > 0.f) {
+          gm[g] = fmaxf(gm[g], __ldcg(split.m + at(s) * G + g));
+          nreal[g] += 1.f;
+          only[g] = (float)s;
+        }
+      }
+    }
+    block_reduce<true>(gm, red);
+    block_reduce<false>(nreal, red);  // real partials per row (exact)
+    block_reduce<true>(only, red);    // with one real partial, its index
+    __shared__ float w_s[kMergeChunk][MaxG], den_s[MaxG];
+    float num[kAcc];
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
+    float den = 0.f;  // thread g < G: the sum of row g's weights
+    for (int c0 = 0; c0 < nsplit; c0 += kMergeChunk) {
+      const int nc = min(kMergeChunk, nsplit - c0);
+      for (int idx = tid; idx < nc * G; idx += kThreads) {
+        const int s = idx / G, g = idx - s * G;
+        const float l = __ldcg(split.l + at(c0 + s) * G + g);
+        const float m = __ldcg(split.m + at(c0 + s) * G + g);
+        w_s[s][g] = l > 0.f ? __fmul_rn(expf(m - pick(gm, g)), l) : 0.f;
+      }
+      __syncthreads();
+      if (tid < G)
+        for (int s = 0; s < nc; ++s) den = __fadd_rn(den, w_s[s][tid]);
 #pragma unroll
       for (int r = 0; r < kAcc; ++r) {
         const int o = tid + r * kThreads;
         if (o < G * D) {
-          const float l = l_s[o / D];
-          store(l > 0.f ? acc[r] / fmaxf(l, 1e-30f) : 0.f, ob + o);
+          const int g = o / D;
+#pragma unroll 4
+          for (int s = 0; s < nc; ++s)
+            num[r] = __fadd_rn(
+                num[r], __fmul_rn(__ldcg(split.out + at(c0 + s) * G * D + o),
+                                  w_s[s][g]));
         }
       }
-      if (!kLegacy && tid < G) {
-        m_out[((size_t)b * Hkv + h) * G + tid] = m_s[tid];
-        l_out[((size_t)b * Hkv + h) * G + tid] = l_s[tid];
-      }
-      return;
+      __syncthreads();
     }
+    if (tid < G) den_s[tid] = den;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) {
+      const int o = tid + r * kThreads;
+      if (o < G * D) {
+        const int g = o / D;
+        const float one = pick(only, g);
+        ob[o] = pick(nreal, g) > 1.f ? num[r] / fmaxf(den_s[g], 1e-30f)
+                : one < 0.f          ? 0.f
+                            : __ldcg(split.out + at((int)one) * G * D + o);
+      }
+    }
+    if (tid < G) {
+      const float one = pick(only, tid);
+      m_out[mo + tid] = pick(gm, tid);
+      l_out[mo + tid] = pick(nreal, tid) > 1.f ? den
+                        : one < 0.f            ? 0.f
+                                    : __ldcg(split.l + at((int)one) * G + tid);
+    }
+    if (tid == 0) split.tickets[first] = 0;
   }
 }
 
@@ -345,11 +587,12 @@ template <typename TQ, typename TK, int D, class Tiles, bool kLegacy,
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scales, const float* v_scales,
                    const int* items, const int* pos, void* out,
-                   float* m_out, float* l_out, int L, int Hkv, int G, int blk,
-                   Tiles tiles, float scale, int window, cudaStream_t stream) {
-  using OutT = std::conditional_t<kLegacy, TQ, float>;
+                   float* m_out, float* l_out, SplitWork split, int L,
+                   int Hkv, int G, int blk, Tiles tiles, float scale,
+                   int window, cudaStream_t stream) {
   if (kIsCode<TK> && (k_scales == nullptr || v_scales == nullptr))
     return cudaErrorInvalidValue;
+  using OutT = std::conditional_t<kLegacy, TQ, float>;
   const size_t smem = (size_t)(G * D + G * blk) * sizeof(float);
   auto kern = decode_runs_kernel<TQ, TK, OutT, D, Tiles, kLegacy, MaxG>;
   if (smem > 48 * 1024) {
@@ -360,31 +603,45 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<L, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), items, pos, static_cast<OutT*>(out), m_out,
-      l_out, L, Hkv, G, blk, tiles, scale, window, k_scales, v_scales);
+      l_out, L, Hkv, G, blk, tiles, scale, window, k_scales, v_scales, split);
   return cudaGetLastError();
 }
 
 // dtype: the cache's element type: 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32, with k_scales /
 // v_scales; flash decode only); head_dim 32, 64, 128 or 256; G <= kMaxG, taken
-// by the kSmallG instantiation up to kSmallG.  Returns the launch's
-// cudaError_t.
+// by the kSmallG instantiation up to kSmallG.  The flash decode (split
+// mode) takes `partials`, f32 [L * G * (D + 2)] (out [L, G, D], then m and
+// l [L, G]) and the zeroed counters `tickets` [L]; the legacy decode takes
+// neither.
+// Returns the launch's cudaError_t.
 template <class Tiles, bool kLegacy>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
                      const void* v, const float* k_scales,
                      const float* v_scales, const int* items, const int* pos,
-                     void* out, float* m_out, float* l_out,
-                     int L, int Hkv, int G, int blk, Tiles tiles, float scale,
-                     int window, cudaStream_t stream) {
+                     void* out, float* m_out, float* l_out, float* partials,
+                     int* tickets, int L, int Hkv, int G,
+                     int blk, Tiles tiles, float scale, int window,
+                     cudaStream_t stream) {
   if (L <= 0 || G < 1 || G > kMaxG || blk < 1) return cudaErrorInvalidValue;
+  SplitWork split{};
+  if constexpr (!kLegacy) {
+    if (partials == nullptr || tickets == nullptr)
+      return cudaErrorInvalidValue;
+    const size_t n = (size_t)L * G;
+    split = SplitWork{partials, partials + n * D, partials + n * (D + 1),
+                      tickets};
+  }
 #define DECODE_LAUNCH(TQ, TK, DD)                                            \
   return G <= kSmallG                                                       \
              ? launch<TQ, TK, DD, Tiles, kLegacy, kSmallG>(                 \
                    q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
-                   l_out, L, Hkv, G, blk, tiles, scale, window, stream)     \
+                   l_out, split, L, Hkv, G, blk, tiles, scale, window,      \
+                   stream)                                                  \
              : launch<TQ, TK, DD, Tiles, kLegacy, kMaxG>(                   \
                    q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
-                   l_out, L, Hkv, G, blk, tiles, scale, window, stream)
+                   l_out, split, L, Hkv, G, blk, tiles, scale, window,      \
+                   stream)
 #define DECODE_DIMS(DT, TQ, TK)                                              \
   if (dtype == DT && D == 32) DECODE_LAUNCH(TQ, TK, 32);                     \
   if (dtype == DT && D == 64) DECODE_LAUNCH(TQ, TK, 64);                     \

@@ -15,18 +15,22 @@
 // dtype: the caches' element type, 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32; k_scales /
 // v_scales [B, Hkv, max_len / block_kv] f32, null otherwise).
-// window <= 0 means no sliding window.  Returns the launch's cudaError_t.
+// window <= 0 means no sliding window.  partials: f32 [L * G * (D + 2)]
+// workspace; tickets: int32 [L], zero at the call and left zero.
+// Returns the launch's cudaError_t.
 extern "C" int flash_decode_contig(const void* q, const void* k_cache,
                                    const void* v_cache, const float* k_scales,
                                    const float* v_scales, const int* items,
                                    const int* pos, float* out, float* m_out,
-                                   float* l_out, int L, int Hkv, int G, int D,
-                                   int block_kv, int max_len, float scale,
-                                   int window, int dtype, void* stream) {
+                                   float* l_out, float* partials,
+                                   int* tickets, int L, int Hkv, int G,
+                                   int D, int block_kv, int max_len,
+                                   float scale, int window, int dtype,
+                                   void* stream) {
   if (block_kv < 1 || max_len % block_kv) return cudaErrorInvalidValue;
   const decode::SlotTiles tiles{Hkv, max_len / block_kv, block_kv};
   return decode::dispatch<decode::SlotTiles, false>(
       dtype, D, q, k_cache, v_cache, k_scales, v_scales, items, pos, out,
-      m_out, l_out, L, Hkv, G, block_kv, tiles, scale, window,
-      static_cast<cudaStream_t>(stream));
+      m_out, l_out, partials, tickets, L, Hkv, G, block_kv,
+      tiles, scale, window, static_cast<cudaStream_t>(stream));
 }

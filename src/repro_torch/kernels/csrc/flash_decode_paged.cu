@@ -15,18 +15,21 @@
 // dtype: the pools' element type, 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32; k_scales /
 // v_scales [N, Hkv] f32 at the physical block, null otherwise).
-// window <= 0 means no sliding window.  Returns the launch's cudaError_t.
+// window <= 0 means no sliding window.  partials: f32 [L * G * (D + 2)]
+// workspace; tickets: int32 [L], zero at the call and left zero.
+// Returns the launch's cudaError_t.
 extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   const void* v_pool, const float* k_scales,
                                   const float* v_scales, const int* items,
                                   const int* table, const int* pos,
                                   float* out, float* m_out, float* l_out,
-                                  int L, int Hkv, int G, int D, int block_kv,
+                                  float* partials, int* tickets, int L,
+                                  int Hkv, int G, int D, int block_kv,
                                   int table_width, float scale, int window,
                                   int dtype, void* stream) {
   const decode::PoolTiles tiles{table, table_width, Hkv, block_kv};
   return decode::dispatch<decode::PoolTiles, false>(
       dtype, D, q, k_pool, v_pool, k_scales, v_scales, items, pos, out,
-      m_out, l_out, L, Hkv, G, block_kv, tiles, scale, window,
-      static_cast<cudaStream_t>(stream));
+      m_out, l_out, partials, tickets, L, Hkv, G, block_kv,
+      tiles, scale, window, static_cast<cudaStream_t>(stream));
 }

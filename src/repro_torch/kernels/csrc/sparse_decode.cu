@@ -22,7 +22,6 @@ extern "C" int sparse_decode(const void* q, const void* k_cache,
   const decode::SlotTiles tiles{Hkv, max_len / block_kv, block_kv};
   return decode::dispatch<decode::SlotTiles, true>(
       dtype, D, q, k_cache, v_cache, nullptr, nullptr, items, last_pos, out,
-      nullptr, nullptr,
-      L, Hkv, G, block_kv, tiles, scale, 0,
-      static_cast<cudaStream_t>(stream));
+      nullptr, nullptr, nullptr, nullptr, L, Hkv, G, block_kv, tiles,
+      scale, 0, static_cast<cudaStream_t>(stream));
 }

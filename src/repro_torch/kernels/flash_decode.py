@@ -16,6 +16,12 @@ slot cache.
 
 Both CUDA kernels are one body (``csrc/flash_decode.cuh``) over two tile
 addressings, so the two layouts give the same bits on equal cache contents.
+The body splits each run (a ``first`` item to its ``last``) across CTAs:
+the item at position p of its run belongs to split ``p // SPLIT_TILES``,
+each split's partial ``(out, m, l)`` starts from the initial state, and a
+run of several splits is merged in item order by :func:`merge_partials`.
+The plain versions run the same split algebra (:func:`split_decode_scan`),
+so the card and the CPU compute one arithmetic.
 Both take q ``[B, Hkv, G, D]``, items ``[L, DEC_FIELDS]`` with LOGICAL kv
 blocks (cost-packed, or the padded table of :func:`decode_items_from_ids`)
 and pos ``[B]`` (last position, inclusive), and return ``(out f32 [B, Hkv,
@@ -44,14 +50,17 @@ from repro_torch.kernels.build import (
     reset_launches)
 
 NEG_INF = -1e30
+# tiles per split of a flash-decode run, as csrc/flash_decode.cuh's
+# kSplitTiles
+SPLIT_TILES = 1
 # the kernels' element-type codes: caches that q shares, and code caches
 # (q float32, with scales)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
-_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_CONTIG_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
 
@@ -73,10 +82,51 @@ def decode_items_from_ids(block_ids: torch.Tensor) -> torch.Tensor:
                         (flat >= 0).int()], dim=1).contiguous()
 
 
+def _add_tile(state, qf_bh, kv, kpos, last_pos, scale: float,
+              window: int | None):
+    """One tile into the running state ``(acc [..., G, D], m [..., G, 1],
+    l [..., G, 1])`` of the online softmax: ``kv = (k, v, k_scale,
+    v_scale)`` float32 tiles ``[..., blk, D]`` of key positions ``kpos``
+    (scales None for a full-precision cache).  Leading dimensions, if any,
+    hold a stack of independent states (the splits of
+    :func:`split_decode_scan`), each with its own q rows, tile, scales and
+    ``last_pos``, shaped to broadcast."""
+    acc, m, l = state
+    kt, vt, ks, vs = kv
+    s = (qf_bh @ kt.transpose(-1, -2)) * scale            # [..., G, blk]
+    if ks is not None:
+        s = s * ks
+    mask = kpos <= last_pos
+    if window is not None:
+        mask &= kpos > last_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    pr = torch.where(mask, torch.exp(s - m_new), 0.0)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + pr.sum(dim=-1, keepdim=True)
+    pv = pr @ vt
+    if vs is not None:
+        pv = pv * vs
+    return acc * alpha + pv, m_new, l
+
+
+def _initial_state(G: int, dh: int, dev):
+    return (torch.zeros((G, dh), dtype=torch.float32, device=dev),
+            torch.full((G, 1), NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((G, 1), dtype=torch.float32, device=dev))
+
+
+def _normalized(acc, l):
+    """A run's or a split's output: ``acc / l``, 0 where ``l == 0``."""
+    return torch.where(l > 0.0, acc / l.clamp_min(1e-30), 0.0)
+
+
 def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
                 window: int | None = None, legacy: bool = False):
     """The reference's decode item scan in float32, one item at a time —
-    the plain version every decode kernel of the port is held against.
+    the plain version of the legacy decode kernel, and the reference
+    order the split plain version (:func:`split_decode_scan`) is tested
+    against.
 
     ``qf [B, Hkv, G, D]`` float32 query rows; ``tile(b, h, blk)`` returns
     ``(k, v, k_scale, v_scale)`` of a logical block, float32 ``[block_kv,
@@ -91,45 +141,158 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
     """
     B, hkv, G, dh = qf.shape
     dev = qf.device
-    out = torch.zeros((B, hkv, G, dh), dtype=torch.float32, device=dev)
-    m_out = torch.full((B, hkv, G), NEG_INF, dtype=torch.float32, device=dev)
-    l_out = torch.zeros((B, hkv, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((G, dh), dtype=torch.float32, device=dev)
-    m = torch.full((G, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((G, 1), dtype=torch.float32, device=dev)
+    out, m_out, l_out = _partials(qf)
+    state = _initial_state(G, dh, dev)
     offs = torch.arange(block_kv, device=dev)
     for it in items.tolist():
         b, h, blk = it[D_BATCH], it[D_KVHEAD], it[D_KVBLK]
         valid = it[D_VALID] == 1
         counts = valid or not legacy
         if it[D_FIRST] == 1 and counts:
-            acc = torch.zeros_like(acc)
-            m = torch.full_like(m, NEG_INF)
-            l = torch.zeros_like(l)
+            state = _initial_state(G, dh, dev)
         kv = tile(b, h, blk) if valid else None
         if kv is not None:
-            kt, vt, ks, vs = kv
-            s = (qf[b, h] @ kt.T) * scale                     # [G, blk]
-            if ks is not None:
-                s = s * ks
-            kpos = blk * block_kv + offs
-            mask = kpos <= last_pos[b]
-            if window is not None:
-                mask &= kpos > last_pos[b] - window
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            pr = torch.where(mask, torch.exp(s - m_new), 0.0)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + pr.sum(dim=-1, keepdim=True)
-            pv = pr @ vt
-            if vs is not None:
-                pv = pv * vs
-            acc = acc * alpha + pv
-            m = m_new
+            state = _add_tile(state, qf[b, h], kv, blk * block_kv + offs,
+                              last_pos[b], scale, window)
         if it[D_LAST] == 1 and counts:
-            out[b, h] = torch.where(l > 0.0, acc / l.clamp_min(1e-30), 0.0)
+            acc, m, l = state
+            out[b, h] = _normalized(acc, l)
             m_out[b, h] = m[:, 0]
             l_out[b, h] = l[:, 0]
+    return out, m_out, l_out
+
+
+def decode_runs(rows) -> list[tuple[int, int]]:
+    """``(first, last)`` item indices of the flash decode's runs that
+    finalize, from the item rows ``[L, DEC_FIELDS]`` (a list of lists): a
+    run goes from a ``first`` item to the next ``last`` one; a run that
+    meets another ``first`` before its ``last``, or none, never finalizes;
+    items between a ``last`` and the next ``first`` (bucket pads) belong to
+    no run."""
+    runs, start = [], None
+    for j, it in enumerate(rows):
+        if it[D_FIRST] == 1:
+            start = j
+        if start is not None and it[D_LAST] == 1:
+            runs.append((start, j))
+            start = None
+    return runs
+
+
+def merge_partials(outs, ms, ls):
+    """The flash-decoding merge of per-shard partials along a leading axis:
+    the reference's ``repro/kernels/flash_decode.py::merge_partials``.
+
+    ``outs [S, ..., D]`` shard-normalized outputs, ``ms`` / ``ls [S,
+    ...]``.  A shard is real where ``l > 0``; the max ``gm`` is taken over
+    the real shards, each weighs ``exp(m - gm) * l`` (0 if not real, so a
+    fully masked shard, ``m`` -1e30 or -inf and ``l`` 0, is the exact
+    identity) and ``out = sum(out * w) / max(sum(w), 1e-30)``.  Where at
+    most one shard is real, ``out`` is the sum of the real shards' outs:
+    that shard's out bitwise, or zeros (never NaN).  The sums run in shard
+    order, one rounding per term as the CUDA kernels' merge, so trailing
+    non-real shards add exact zeros.  Returns ``(out, m, l)``: ``m`` is
+    ``gm`` (-1e30 where nothing is real), ``l`` is ``sum(w)``, or the
+    single real shard's ``l``.
+    """
+    outs32 = outs.to(torch.float32)
+    real = ls > 0.0                                        # [S, ...]
+    nreal = real.sum(dim=0)
+    gm = torch.where(real, ms, NEG_INF).amax(dim=0)
+    w = torch.where(real, torch.exp(ms - gm) * ls, 0.0)
+    terms = outs32 * w[..., None]
+    reals = torch.where(real[..., None], outs32, 0.0)
+    real_ls = torch.where(real, ls, 0.0)
+    num = torch.zeros_like(outs32[0])
+    single = torch.zeros_like(outs32[0])
+    den = torch.zeros_like(gm)
+    one_l = torch.zeros_like(gm)
+    for s in range(outs.shape[0]):          # in shard order, as the kernels
+        num += terms[s]
+        single += reals[s]
+        den += w[s]
+        one_l += real_ls[s]
+    merged = num / den.clamp_min(1e-30)[..., None]
+    alone = nreal <= 1
+    out = torch.where(alone[..., None], single, merged)
+    return out.to(outs.dtype), gm, torch.where(alone, one_l, den)
+
+
+def split_decode_scan(qf, tile, items, last_pos, *, block_kv: int,
+                      scale: float, window: int | None = None):
+    """The flash-decode kernels' split algebra in float32: the plain
+    version of :func:`flash_decode_paged_kernel` and
+    :func:`flash_decode_kernel`.  Arguments as :func:`decode_scan`.
+
+    Each run of :func:`decode_runs` is cut into splits of ``SPLIT_TILES``
+    items by position in the run; each split scans its items from the
+    initial state (invalid or unmapped items leave it untouched) and is
+    normalized as a run's output; each run's ``(out, m, l)`` is the
+    :func:`merge_partials` of its splits in item order (a run of one split
+    gets that split's own).  (row, head) pairs no run finalizes keep (0,
+    -1e30, 0).  The splits are independent, so every split's step ``t``
+    runs as one stacked tile step, and every run is merged at once, its
+    splits padded to the longest run's count with masked partials (which
+    add exact zeros).
+    """
+    B, hkv, G, dh = qf.shape
+    dev = qf.device
+    out, m_out, l_out = _partials(qf)
+    rows = items.tolist()
+    runs = decode_runs(rows)
+    if not runs:
+        return out, m_out, l_out
+    # the splits as (run, position in the run, first item)
+    splits = [(r, p, s0) for r, (first, last) in enumerate(runs)
+              for p, s0 in enumerate(range(first, last + 1, SPLIT_TILES))]
+    heads = [(rows[first][D_BATCH], rows[first][D_KVHEAD])
+             for first, _ in runs]
+    n = len(splits)
+    acc = torch.zeros((n, G, dh), dtype=torch.float32, device=dev)
+    m = torch.full((n, G, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((n, G, 1), dtype=torch.float32, device=dev)
+    offs = torch.arange(block_kv, device=dev)
+    lp = torch.tensor(last_pos, device=dev)
+    for t in range(SPLIT_TILES):
+        idx, kvs, where = [], [], []
+        for j, (r, _, s0) in enumerate(splits):
+            if s0 + t > runs[r][1] or rows[s0 + t][D_VALID] != 1:
+                continue
+            (b, h), blk = heads[r], rows[s0 + t][D_KVBLK]
+            kv = tile(b, h, blk)
+            if kv is not None:
+                idx.append(j)
+                kvs.append(kv)
+                where.append((b, h, blk))
+        if not idx:
+            continue
+        sel = torch.tensor(idx, device=dev)
+        b, h, blk = torch.tensor(where, device=dev).unbind(1)
+        kt, vt, ks, vs = (None if c[0] is None else torch.stack(c)
+                          for c in zip(*kvs))
+        if ks is not None:       # one scale per tile
+            ks, vs = ks[:, None, None], vs[:, None, None]
+        acc[sel], m[sel], l[sel] = _add_tile(
+            (acc[sel], m[sel], l[sel]), qf[b, h], (kt, vt, ks, vs),
+            (blk[:, None] * block_kv + offs)[:, None], lp[b][:, None, None],
+            scale, window)
+    # [max splits, runs, ...] partials, padded with masked ones
+    R, S = len(runs), max(p for _, p, _ in splits) + 1
+    pos_in_run, run_of = (torch.tensor(c, device=dev) for c in zip(
+        *((p, r) for r, p, _ in splits)))
+    outs = torch.zeros((S, R, G, dh), dtype=torch.float32, device=dev)
+    ms = torch.full((S, R, G), NEG_INF, dtype=torch.float32, device=dev)
+    ls = torch.zeros((S, R, G), dtype=torch.float32, device=dev)
+    outs[pos_in_run, run_of] = _normalized(acc, l)
+    ms[pos_in_run, run_of] = m[..., 0]
+    ls[pos_in_run, run_of] = l[..., 0]
+    merged = merge_partials(outs, ms, ls)
+    # a (row, head) that several runs finalize keeps the last one's
+    last_run = {bh: r for r, bh in enumerate(heads)}
+    b, h = torch.tensor(list(last_run), device=dev).reshape(-1, 2).unbind(1)
+    rs = torch.tensor(list(last_run.values()), device=dev)
+    for dst, src in zip((out, m_out, l_out), merged):
+        dst[b, h] = src[rs]
     return out, m_out, l_out
 
 
@@ -178,16 +341,17 @@ def packed_decode_attention(q, k_cache, v_cache, items, pos, *,
                             block_kv: int = 128, scale: float | None = None,
                             window: int | None = None, k_scales=None,
                             v_scales=None):
-    """Plain PyTorch version of :func:`flash_decode_kernel`: the reference's
-    item scan over the slot cache ``[B, Hkv, Smax, D]``.  q.k multiplies q
-    cast to the cache dtype (float32 over codes) with the cache tile and
-    sums in float32; p.V is float32; the scales ``[B, Hkv, Smax /
-    block_kv]`` of a code cache multiply after the dots."""
-    return decode_scan(query_as_read(q, k_cache, k_scales).float(),
-                       slot_tiles(k_cache, v_cache, block_kv, k_scales,
-                                  v_scales),
-                       items, pos.tolist(), block_kv=block_kv,
-                       scale=_scale(q.shape[-1], scale), window=window)
+    """Plain PyTorch version of :func:`flash_decode_kernel`: the split item
+    scan (:func:`split_decode_scan`) over the slot cache ``[B, Hkv, Smax,
+    D]``.  q.k multiplies q cast to the cache dtype (float32 over codes)
+    with the cache tile and sums in float32; p.V is float32; the scales
+    ``[B, Hkv, Smax / block_kv]`` of a code cache multiply after the
+    dots."""
+    return split_decode_scan(query_as_read(q, k_cache, k_scales).float(),
+                             slot_tiles(k_cache, v_cache, block_kv,
+                                        k_scales, v_scales),
+                             items, pos.tolist(), block_kv=block_kv,
+                             scale=_scale(q.shape[-1], scale), window=window)
 
 
 def packed_decode_attention_paged(q, k_pool, v_pool, items, table, pos, *,
@@ -196,7 +360,7 @@ def packed_decode_attention_paged(q, k_pool, v_pool, items, table, pos, *,
                                   window: int | None = None, k_scales=None,
                                   v_scales=None):
     """Plain PyTorch version of :func:`flash_decode_paged_kernel`: the
-    reference's item scan over the block pool through ``table [B, T]``
+    split item scan over the block pool through ``table [B, T]``
     (logical index clamped into the table, -1 entries unmapped), with a
     code pool's scales ``[N, Hkv]`` read at the physical block.  Same
     arithmetic as :func:`packed_decode_attention`."""
@@ -211,10 +375,9 @@ def packed_decode_attention_paged(q, k_pool, v_pool, items, table, pos, *,
                 v_pool[phys, h].to(torch.float32),
                 None if k_scales is None else k_scales[phys, h],
                 None if v_scales is None else v_scales[phys, h])
-    return decode_scan(query_as_read(q, k_pool, k_scales).float(), tile,
-                       items,
-                       pos.tolist(), block_kv=block_kv,
-                       scale=_scale(q.shape[-1], scale), window=window)
+    return split_decode_scan(query_as_read(q, k_pool, k_scales).float(),
+                             tile, items, pos.tolist(), block_kv=block_kv,
+                             scale=_scale(q.shape[-1], scale), window=window)
 
 
 def flash_decode_reference(q, k_cache, v_cache, block_ids, pos, *,
@@ -274,13 +437,14 @@ def flash_decode_paged_kernel(q, k_pool, v_pool, items, table, pos, *,
         return out, m, l
     fn = kernel_function("flash_decode_paged", _PAGED_ARGTYPES)
     qk = query_as_read(q, k_pool, k_scales)   # held through the launch
+    work, tickets = _split_work(q, items.shape[0])
     with torch.cuda.device(q.device):
         err = fn(qk.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(),
                  *scale_ptrs(k_scales, v_scales), items.data_ptr(),
                  table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 m.data_ptr(), l.data_ptr(),
-                 items.shape[0], hkv, G, dh, block_kv, table.shape[1],
+                 m.data_ptr(), l.data_ptr(), work.data_ptr(),
+                 tickets.data_ptr(), items.shape[0], hkv, G, dh, block_kv, table.shape[1],
                  _scale(dh, scale), 0 if window is None else int(window),
                  kernel_dtype(k_pool, k_scales),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -320,12 +484,13 @@ def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
         return out, m, l
     fn = kernel_function("flash_decode_contig", _CONTIG_ARGTYPES)
     qk = query_as_read(q, k_cache, k_scales)   # held through the launch
+    work, tickets = _split_work(q, items.shape[0])
     with torch.cuda.device(q.device):
         err = fn(qk.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(),
                  *scale_ptrs(k_scales, v_scales), items.data_ptr(),
                  pos.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 items.shape[0], hkv, G, dh, block_kv, k_cache.shape[2],
+                 work.data_ptr(), tickets.data_ptr(), items.shape[0], hkv, G, dh, block_kv, k_cache.shape[2],
                  _scale(dh, scale), 0 if window is None else int(window),
                  kernel_dtype(k_cache, k_scales),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -336,6 +501,39 @@ def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
 
 reset_launches(flash_decode_paged_kernel, flash_decode_kernel)
 
+# the split decode's run counters, int32, all zero between launches: one
+# buffer per (device, stream), since launches on one stream run in order
+# and launches on two streams may overlap
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
+# every buffer a CUDA graph captured, kept for its replays after the
+# buffer is replaced
+_CAPTURED: list[torch.Tensor] = []
+
+
+def _split_work(q, L: int):
+    """The split decode's workspace for ``L`` items: the partials, f32
+    ``[L * G * (D + 2)]`` (out ``[L, G, D]``, then m and l ``[L, G]``),
+    and the current stream's run counters, int32, at least ``L``.  The
+    kernel leaves every counter at zero (the CTA that merges a run resets
+    it), so the counters are filled once when their buffer is made or
+    grows, not per call: a fill per call would add a launch to a
+    host-bound serve.  A buffer made during CUDA graph capture is filled
+    inside the graph, and one a graph used is kept when it is replaced.
+    A graph's replays must not overlap launches on its capture stream,
+    nor replays of another graph captured on that stream."""
+    G, dh = q.shape[-2:]
+    work = torch.empty(L * G * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    capturing = torch.cuda.is_current_stream_capturing()
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < L:
+        grown = max(L, 2 * (0 if tickets is None else tickets.numel()), 4096)
+        tickets = torch.zeros(grown, dtype=torch.int32, device=q.device)
+        _TICKETS[key] = tickets
+    if capturing and not any(t is tickets for t in _CAPTURED):
+        _CAPTURED.append(tickets)
+    return work, tickets
 
 
 def _partials(q):

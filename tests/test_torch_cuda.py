@@ -380,6 +380,118 @@ def test_cuda_window_decode_outside_tiles(cuda, dtype, layout, D):
         assert torch.equal(a, b), "one body: both layouts, the same bits"
 
 
+# -- the split decode: runs cut across CTAs, partials merged in item order ----
+
+def long_run_case(seed, G, D, layout):
+    """Two rows of 24 logical blocks, 2 kv heads, selections of 1, 24, 13
+    and 7 blocks (runs of up to 24 tiles, so the kernels split and merge),
+    a window-free pool, and the item table: cost-packed on two shards with
+    bucket pads (first = last = valid = 0), or the padded table from
+    ids."""
+    rng = np.random.default_rng(seed)
+    B, Hkv, T = 2, 2, 24
+    N = B * T + 1
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+              for _ in range(2))
+    pos = np.array([T * BLK - 1, 20 * BLK + 5], np.int32)
+    table = rng.permutation(N - 1)[:B * T].reshape(B, T).astype(np.int32)
+    ids = np.full((B, Hkv, T), -1, np.int32)
+    for (b, h), n in zip(((0, 0), (0, 1), (1, 0), (1, 1)), (1, 24, 13, 7)):
+        nb = int(pos[b]) // BLK + 1
+        ids[b, h, :n] = np.sort(rng.choice(nb, size=n, replace=False))
+    if layout == "padded":
+        items = wl.padded_decode_items(ids)
+    else:
+        packed = wl.pack_decode_items(ids, num_shards=2, block=BLK)
+        items = wl.extend_packed_items(
+            packed.items, packed.padded_length + 9).reshape(-1, wl.DEC_FIELDS)
+    return q, kp, vp, items, table, pos
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout,window", [("packed", None),
+                                           ("packed", 600), ("padded", None)])
+def test_cuda_split_decode_long_runs(cuda, dtype, layout, window, G, D):
+    """Runs of up to 24 tiles, a packed bucket with pad rows or the padded
+    table: both kernels against the split plain version, and each other's
+    bits."""
+    q, kp, vp, items, table, pos = long_run_case(23, G, D, layout)
+    kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
+    q, kp, vp, kc, vc, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table, pos))
+    q, kp, vp, kc, vc = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+    kw = dict(block_kv=BLK, window=window)
+    got = flash_decode_paged_kernel(q, kp, vp, items, table, pos, **kw)
+    want = packed_decode_attention_paged(q, kp, vp, items, table, pos, **kw)
+    for g, w in zip(got, want):     # f32 sums in another order
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    contig = flash_decode_kernel(q, kc, vc, items, pos, **kw)
+    for a, b in zip(got, contig):
+        assert torch.equal(a, b), "one body: both layouts, the same bits"
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_cuda_split_decode_repeats_and_replays(cuda, layout, D):
+    """The same launch twice, and a CUDA graph of two launches replayed
+    twice, give the same bits: the merge order does not depend on which
+    CTA finishes last, and every run's counter is back at zero after each
+    launch."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kp, vp, items, table, pos = long_run_case(24, 4, D, "packed")
+    kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
+    q, kp, vp, kc, vc, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table, pos))
+    q, kp, vp, kc, vc = (t.to(torch.bfloat16) for t in (q, kp, vp, kc, vc))
+    if layout == "paged":
+        run = lambda: flash_decode_paged_kernel(  # noqa: E731
+            q, kp, vp, items, table, pos, block_kv=BLK)
+    else:
+        run = lambda: flash_decode_kernel(  # noqa: E731
+            q, kc, vc, items, pos, block_kv=BLK)
+    first, second = run(), run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run(), run()]
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays += [tuple(t.clone() for t in r) for r in captured]
+    torch.cuda.synchronize()
+    for other in (second, *replays):
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+    for tickets in fd._TICKETS.values():   # eager and capture streams
+        assert not tickets.any(), "counters left at zero"
+
+
+def test_cuda_split_decode_two_streams(cuda):
+    """Launches on two streams at once take separate run counters: each
+    stream's results equal a launch alone, bit for bit."""
+    q, kp, vp, items, table, pos = long_run_case(25, 4, 128, "packed")
+    q, kp, vp, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, items, table, pos))
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    run = lambda: flash_decode_paged_kernel(  # noqa: E731
+        q, kp, vp, items, table, pos, block_kv=BLK)
+    alone = run()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+    for _ in range(4):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                got.append(run())
+    torch.cuda.synchronize()
+    for other in got:
+        for a, b in zip(alone, other):
+            assert torch.equal(a, b)
+
+
 # -- the bf16 tensor-core prefill / flash body --------------------------------
 
 BF16_ATOL = 2.0 ** -6   # bf16 output: one bf16 ulp at |x| < 4
