@@ -18,9 +18,9 @@ Phases, in order; any failure exits non-zero:
    tolerances; kernel, plain-version and library (SDPA) times, and each
    kernel's bound.  The paged and contiguous decode and prefill kernels
    must also agree bit for bit on equal cache contents; each decode form
-   prints its CTAs a launch (one per item; those that walk a split of the
-   run) and its longest run in tiles, and two launches of the same inputs
-   must give the same bits.  Then the
+   (#1, #3 and the legacy #5) prints its CTAs a launch (one per item;
+   those that walk a split of the run) and its longest run in tiles, and
+   two launches of the same inputs must give the same bits.  Then the
    codes-and-scales forms at int8 and fp8 (quantized KV pool): #1 and #3
    against their plain versions (tolerance 1e-4) and each other, #2 paged
    (bf16 q, tolerance 2^-6), each timed beside its bound (codes at one
@@ -369,16 +369,19 @@ def decode_bound(items, table, mask, ntiles, with_table: bool, sh: Shapes,
     return (nbytes, flops, flops) if elem == 2 else (nbytes, 0, 2 * flops)
 
 
-def split_report(name: str, launch, items) -> None:
+def split_report(name: str, launch, items, legacy: bool = False) -> None:
     """A decode form's grid (one CTA per item), the CTAs that walk a split
-    of at most ``SPLIT_TILES`` tiles, its longest run in tiles, and whether
-    two launches of the same inputs give the same bits; fails if not."""
+    of at most ``SPLIT_TILES`` tiles, its longest run in tiles (under the
+    legacy decode's run rule with ``legacy``), and whether two launches of
+    the same inputs give the same bits; fails if not."""
     import torch
     from repro_torch.kernels.flash_decode import SPLIT_TILES, decode_runs
     lens = [last - first + 1 for first, last in decode_runs(
-        items.cpu().tolist())]
+        items.cpu().tolist(), legacy)]
     splits = sum(-(-n // SPLIT_TILES) for n in lens)
     first, again = launch(), launch()
+    if not isinstance(first, tuple):
+        first, again = (first,), (again,)
     same = all(torch.equal(a, b) for a, b in zip(first, again))
     print(f"{name}: {items.shape[0]} CTAs a launch, {splits} walking a "
           f"split of <= {SPLIT_TILES} tiles, {len(lens)} runs, longest "
@@ -836,7 +839,9 @@ def legacy_case(eng, gen, dev, sh: Shapes, cache_len=4000):
 
 
 def check_sparse_decode(eng, gen, dev, results, sh: Shapes):
-    """The legacy budgeted decode (#5) at full width, bf16 and f32."""
+    """The legacy budgeted decode (#5) at full width, bf16 and f32, each
+    against its plain version, repeated bit for bit and timed (the f32
+    form printed only)."""
     import torch
     from repro_torch.kernels.sparse_decode import (
         sparse_decode_attention, sparse_decode_reference)
@@ -850,16 +855,23 @@ def check_sparse_decode(eng, gen, dev, results, sh: Shapes):
             name, str(dtype)[6:],
             sparse_decode_attention(*args, items, cache_len=cache_len),
             sparse_decode_reference(*args, items, cache_len=cache_len), atol)
+        split_report(f"{name}[{str(dtype)[6:]}]",
+                     lambda: sparse_decode_attention(*args, items,
+                                                     cache_len=cache_len),
+                     items, legacy=True)
     pos = torch.full((B,), cache_len - 1, dtype=torch.int32)
     ident = torch.arange(SMAX // BLK, dtype=torch.int32).expand(B, -1)
-    mask, tiles = decode_mask(items, ident, pos, sh)
+    mask, _ = decode_mask(items, ident, pos, sh)
     mask_t = torch.from_numpy(mask).to(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs = q.reshape(B, sh.H, 1, sh.D)
     flops = 2 * sh.D * int(mask.sum())
-    # bytes: q, the selected tiles, the items, out in q's dtype
-    nbytes = (2 * q.numel() * 2 + len(tiles) * B * 2 * BLK * sh.D * 2
-              + items.numel() * 4)
+    # bytes: q, the K/V rows of the selected keys below cache_len (the
+    # kernel neither copies nor reads the rest of a tile; the mask repeats
+    # each (row, kv head)'s keys for its G query rows), the items, out in
+    # q's dtype
+    keys = int(mask.sum()) // sh.G
+    nbytes = (2 * q.numel() * 2 + keys * 2 * sh.D * 2 + items.numel() * 4)
     measure(results, name,
             lambda: sparse_decode_attention(q, kc, vc, items,
                                             cache_len=cache_len),
@@ -867,6 +879,16 @@ def check_sparse_decode(eng, gen, dev, results, sh: Shapes):
                                             cache_len=cache_len),
             lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
             nbytes, flops, flops, errs[torch.bfloat16])
+    # the f32 form, timed and printed only (the library path runs bf16):
+    # twice the bytes, both products at the f32 rate
+    f32 = [t.float() for t in (q, kc, vc)]
+    measure({}, f"{name}[f32]",
+            lambda: sparse_decode_attention(*f32, items, cache_len=cache_len),
+            lambda: sparse_decode_reference(*f32, items, cache_len=cache_len),
+            lambda: sdpa(f32[0].reshape(qs.shape), f32[1], f32[2],
+                         attn_mask=mask_t, enable_gqa=True),
+            2 * nbytes - items.numel() * 4, 0, 2 * flops,
+            errs[torch.float32])
 
 
 def run_library_path(eng, gen, dev, sh: Shapes):

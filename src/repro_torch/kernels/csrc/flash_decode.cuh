@@ -1,6 +1,6 @@
 // Budgeted flash-decode over a work-item table, for Hopper (sm_90a): the one
-// kernel body behind three entry points, which differ only in where a
-// (row, kv head, logical block) K/V tile lives and in the run rules.
+// kernel body behind two entry points, which differ only in where a (row,
+// kv head, logical block) K/V tile lives.
 //
 //   flash_decode_paged.cu   TPU kernel flash_decode.py::flash_decode_paged_kernel
 //                           (pallas_call :587): tiles from the block pool
@@ -8,24 +8,21 @@
 //   flash_decode_contig.cu  TPU kernel flash_decode.py::flash_decode_kernel
 //                           (pallas_call :294): tiles of the slot cache
 //                           [B, Hkv, Smax, D], read in place.
-//   sparse_decode.cu        TPU kernel sparse_decode.py::sparse_decode_attention
-//                           (pallas_call :241): the legacy budgeted decode
-//                           over the slot cache.
+//
+// The legacy budgeted decode (sparse_decode.cu) has its own body and
+// shares this file's run scans (split_of), reductions and helpers.
 //
 // What it computes.  For each run of items [L, 6] (batch row, kv head,
 // LOGICAL kv block, first, last, valid), the online-softmax attention of the
 // run's G query rows (the GQA group of one kv head) over the run's selected
 // tiles.  Key positions come from the logical block id; the mask is
-// kpos <= last_pos (and kpos > last_pos - window with a window), where
-// last_pos is pos[row] (flash decode) or cache_len - 1 (legacy decode).
-// Flash decode starts a run on `first` and finalizes on `last`, valid or not
-// (the padded table from per-slot block ids ends short runs on an invalid
-// row), and returns f32 out plus the m / l partials; the legacy decode
-// starts on `valid & first`, finalizes on `valid & last` and returns out
-// only, in q's dtype.  Runs that never finalize leave the caller's initial
-// values (out 0, m -1e30, l 0).
+// kpos <= pos[row] (and kpos > pos[row] - window with a window).  A run
+// starts on `first` and finalizes on `last`, valid or not (the padded table
+// from per-slot block ids ends short runs on an invalid row), and returns
+// f32 out plus the m / l partials.  Runs that never finalize leave the
+// caller's initial values (out 0, m -1e30, l 0).
 //
-// Quantized caches (flash decode only, as in the reference).  The K/V
+// Quantized caches (as in the reference).  The K/V
 // tiles hold int8 or fp8 (e4m3) codes with one f32 scale per (block, kv
 // head) tile, read at the same block as the tile (the physical block of the
 // pool, or (row, kv head, logical block) of the slot cache).  q is f32, the
@@ -39,10 +36,7 @@
 // element type (q in f32 for codes) and accumulates in f32; p.V stays true
 // f32.  Both layouts run this one body, so paged and contiguous caches
 // holding the same values give the same bits.
-//   The legacy decode gives a CTA a whole run: a CTA whose item does not
-// start a run exits at once, and a starting CTA walks its run in a loop,
-// keeping (acc, m, l) on chip.
-//   The flash decode splits a run (split mode): the item at position p of
+//   The body splits a run (split mode): the item at position p of
 // its run (0 at `first`) belongs to split p / kSplitTiles.  Each CTA finds
 // its item's run by two block-wide scans of the item flags (back to the
 // run's `first`, forward to its `last`); one whose item does not start a
@@ -78,8 +72,9 @@
 // chain of tiles.  One CTA per run made that chain a whole run (4-20 tiles
 // in the served models, on as few as 8 CTAs at Gemma3-1B's one KV head);
 // the split cuts it to kSplitTiles tiles plus the merge of at most a run's
-// length of partials, on one CTA per split.  Staging K/V (cp.async / TMA),
-// coalesced q.k and one V pass per tile are the next step.
+// length of partials, on one CTA per split.  Staged K/V, coalesced q.k
+// and one V pass per tile, as the legacy decode's body has them, are the
+// next step here.
 //
 // Instantiations: head_dim 32, 64, 128 and 256, each at two GQA group
 // bounds (G <= 4 and G <= 8) that size the per-group register arrays.  At
@@ -229,24 +224,32 @@ __device__ __forceinline__ int first_hit(int n, Hit hit) {
   return n;
 }
 
+// The flash decode's run rule: an item starts a run on `first` and ends it
+// on `last`, valid or not.
+struct FlashRuns {
+  __device__ static bool starts(const int* t) { return t[D_FIRST] == 1; }
+  __device__ static bool ends(const int* t) { return t[D_LAST] == 1; }
+};
+
 // Split mode: whether item i starts a split of a run that finalizes, and
-// that run's first and last items.  A run is the items from a `first` to
-// the next `last`; one whose `last` comes after another `first`, or never,
-// does not finalize (the reference scan resets and never writes it), and
-// items after a `last` and before the next `first` (bucket pads) belong to
-// no run.
+// that run's first and last items, under the run rule `Rule` (starts /
+// ends of an item row).  A run is the items from a start to the next end;
+// one whose end comes after another start, or never, does not finalize
+// (the reference scan resets and never writes it), and items after an end
+// and before the next start (bucket pads) belong to no run.
+template <class Rule = FlashRuns>
 __device__ __forceinline__ bool split_of(const int* items, int i, int L,
                                          int& first, int& last) {
   auto at = [items](int j) { return items + (size_t)j * DEC_FIELDS; };
   const int back = first_hit(i + 1, [&](int t) {
-    return at(i - t)[D_FIRST] == 1 || (t > 0 && at(i - t)[D_LAST] == 1);
+    return Rule::starts(at(i - t)) || (t > 0 && Rule::ends(at(i - t)));
   });
-  if (back > i || (back > 0 && at(i - back)[D_LAST] == 1)) return false;
+  if (back > i || (back > 0 && Rule::ends(at(i - back)))) return false;
   if (back % kSplitTiles != 0) return false;
   const int fwd = first_hit(L - i, [&](int t) {
-    return at(i + t)[D_LAST] == 1 || (t > 0 && at(i + t)[D_FIRST] == 1);
+    return Rule::ends(at(i + t)) || (t > 0 && Rule::starts(at(i + t)));
   });
-  if (fwd == L - i || (fwd > 0 && at(i + fwd)[D_FIRST] == 1)) return false;
+  if (fwd == L - i || (fwd > 0 && Rule::starts(at(i + fwd)))) return false;
   first = i - back;
   last = i + fwd;
   return true;
@@ -282,24 +285,18 @@ struct SplitWork {
 // time (their weights, [kMergeChunk][MaxG] floats).
 constexpr int kMergeChunk = 32;
 
-// kLegacy selects the legacy decode's run rules and its one-CTA walk; the
-// flash decode runs in split mode (see the file comment).  The legacy
-// decode gets every row's last position cache_len - 1 in pos.  Split mode
-// lives in `if constexpr` branches that the legacy instantiation discards,
-// so the legacy kernel keeps the instructions of the one-CTA walk it had
-// before the split (scripts/sass_diff.py).
+// Split mode (see the file comment).
 // TQ is q's element type, TK the cache's; with codes (kIsCode<TK>) the
 // tile scales come in k_scales / v_scales, otherwise those are unused.
 // MaxG (kSmallG or kMaxG) sizes the per-group arrays; G <= MaxG.
-template <typename TQ, typename TK, typename OutT, int D, class Tiles,
-          bool kLegacy, int MaxG>
+template <typename TQ, typename TK, int D, class Tiles, int MaxG>
 __global__ void __launch_bounds__(kThreads)
     decode_runs_kernel(const TQ* __restrict__ q,  // [B, Hkv, G, D]
                        const TK* __restrict__ k,  // pool or slot cache
                        const TK* __restrict__ v,
                        const int* __restrict__ items,  // [L, 6]
                        const int* __restrict__ pos,    // [B]
-                       OutT* __restrict__ out,     // [B, Hkv, G, D]
+                       float* __restrict__ out,    // [B, Hkv, G, D]
                        float* __restrict__ m_out,  // [B, Hkv, G]
                        float* __restrict__ l_out, int L, int Hkv, int G,
                        int blk, Tiles tiles, float scale, int window,
@@ -308,20 +305,10 @@ __global__ void __launch_bounds__(kThreads)
                        SplitWork split) {
   constexpr int kAcc = (MaxG * D + kThreads - 1) / kThreads;
   constexpr bool kQuant = kIsCode<TK>;
-  auto starts = [](const int* t) {
-    return t[D_FIRST] == 1 && (!kLegacy || t[D_VALID] == 1);
-  };
-  auto ends = [](const int* t) {
-    return t[D_LAST] == 1 && (!kLegacy || t[D_VALID] == 1);
-  };
   const int i = blockIdx.x;
   const int* it = items + (size_t)i * DEC_FIELDS;
-  [[maybe_unused]] int first, last;  // split mode: the run of item i
-  if constexpr (kLegacy) {
-    if (!starts(it)) return;
-  } else {
-    if (!split_of(items, i, L, first, last)) return;
-  }
+  int first, last;  // the run of item i
+  if (!split_of(items, i, L, first, last)) return;
   // runs are homogeneous in (row, kv head): the packers emit them so
   const int b = it[D_BATCH], h = it[D_KVHEAD];
   const int tid = threadIdx.x;
@@ -346,13 +333,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = i; j < L; ++j) {
     const int* jt = items + (size_t)j * DEC_FIELDS;
-    if constexpr (kLegacy) {
-      // a new run before this one finalized: the reference scan would
-      // reset and never write this run, so stop here without writing
-      if (j > i && starts(jt)) return;
-    } else {
-      if (j == i + kSplitTiles || j > last) break;  // the split's items end
-    }
+    if (j == i + kSplitTiles || j > last) break;  // the split's items end
     const int kvblk = jt[D_KVBLK];
     size_t row0;
     bool mapped;
@@ -448,142 +429,125 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    if constexpr (kLegacy) {
-      if (ends(jt)) {
-        OutT* ob = out + ((size_t)b * Hkv + h) * G * D;
-#pragma unroll
-        for (int r = 0; r < kAcc; ++r) {
-          const int o = tid + r * kThreads;
-          if (o < G * D) {
-            const float l = l_s[o / D];
-            store(l > 0.f ? acc[r] / fmaxf(l, 1e-30f) : 0.f, ob + o);
-          }
-        }
-        return;
-      }
-    }
   }
-  if constexpr (!kLegacy) {
-    float* ob = out + ((size_t)b * Hkv + h) * G * D;
-    const size_t mo = ((size_t)b * Hkv + h) * G;
-    const int nsplit = (last - first) / kSplitTiles + 1;
-    if (nsplit == 1) {  // the run's one split: finalize as a whole run
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int o = tid + r * kThreads;
-        if (o < G * D) ob[o] = normalized(acc[r], l_s[o / D]);
-      }
-      if (tid < G) {
-        m_out[mo + tid] = m_s[tid];
-        l_out[mo + tid] = l_s[tid];
-      }
-      return;
-    }
-    // this split's partial, then a ticket; the last ticket merges
+  float* ob = out + ((size_t)b * Hkv + h) * G * D;
+  const size_t mo = ((size_t)b * Hkv + h) * G;
+  const int nsplit = (last - first) / kSplitTiles + 1;
+  if (nsplit == 1) {  // the run's one split: finalize as a whole run
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) {
       const int o = tid + r * kThreads;
-      if (o < G * D)
-        split.out[(size_t)i * G * D + o] = normalized(acc[r], l_s[o / D]);
+      if (o < G * D) ob[o] = normalized(acc[r], l_s[o / D]);
     }
     if (tid < G) {
-      split.m[(size_t)i * G + tid] = m_s[tid];
-      split.l[(size_t)i * G + tid] = l_s[tid];
+      m_out[mo + tid] = m_s[tid];
+      l_out[mo + tid] = l_s[tid];
     }
-    __threadfence();
-    __syncthreads();
-    __shared__ bool merges;
-    if (tid == 0) merges = atomicAdd(split.tickets + first, 1) == nsplit - 1;
-    __syncthreads();
-    if (!merges) return;
-    __threadfence();
+    return;
+  }
+  // this split's partial, then a ticket; the last ticket merges
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) {
+    const int o = tid + r * kThreads;
+    if (o < G * D)
+      split.out[(size_t)i * G * D + o] = normalized(acc[r], l_s[o / D]);
+  }
+  if (tid < G) {
+    split.m[(size_t)i * G + tid] = m_s[tid];
+    split.l[(size_t)i * G + tid] = l_s[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ bool merges;
+  if (tid == 0) merges = atomicAdd(split.tickets + first, 1) == nsplit - 1;
+  __syncthreads();
+  if (!merges) return;
+  __threadfence();
 
-    // merge_partials over the run's splits s (at item first + s *
-    // kSplitTiles), in item order.  A partial is real where l > 0; gm is the
-    // max of the real partials' m; each weighs w = exp(m - gm) * l (0 if not
-    // real) and out = sum(out * w) / max(sum(w), 1e-30); where at most one
-    // is real, out is that partial's out (or 0: a non-real partial's out is
-    // 0).  Products and sums rounded one by one, in split order, as the
-    // plain version's.  Other CTAs' partials are read from L2 (__ldcg).
-    // Inline: out of line (__noinline__) it took the tile walk's registers
-    // and spills down but made the launches slower (PERF.md §6).
-    auto at = [&](int s) { return (size_t)(first + s * kSplitTiles); };
-    float gm[MaxG], nreal[MaxG], only[MaxG];
+  // merge_partials over the run's splits s (at item first + s *
+  // kSplitTiles), in item order.  A partial is real where l > 0; gm is the
+  // max of the real partials' m; each weighs w = exp(m - gm) * l (0 if not
+  // real) and out = sum(out * w) / max(sum(w), 1e-30); where at most one
+  // is real, out is that partial's out (or 0: a non-real partial's out is
+  // 0).  Products and sums rounded one by one, in split order, as the
+  // plain version's.  Other CTAs' partials are read from L2 (__ldcg).
+  // Inline: out of line (__noinline__) it took the tile walk's registers
+  // and spills down but made the launches slower (PERF.md §6).
+  auto at = [&](int s) { return (size_t)(first + s * kSplitTiles); };
+  float gm[MaxG], nreal[MaxG], only[MaxG];
+#pragma unroll
+  for (int g = 0; g < MaxG; ++g) {
+    gm[g] = kNegInf;
+    nreal[g] = 0.f;
+    only[g] = -1.f;
+  }
+  for (int s = tid; s < nsplit; s += kThreads) {
 #pragma unroll
     for (int g = 0; g < MaxG; ++g) {
-      gm[g] = kNegInf;
-      nreal[g] = 0.f;
-      only[g] = -1.f;
-    }
-    for (int s = tid; s < nsplit; s += kThreads) {
-#pragma unroll
-      for (int g = 0; g < MaxG; ++g) {
-        if (g < G && __ldcg(split.l + at(s) * G + g) > 0.f) {
-          gm[g] = fmaxf(gm[g], __ldcg(split.m + at(s) * G + g));
-          nreal[g] += 1.f;
-          only[g] = (float)s;
-        }
+      if (g < G && __ldcg(split.l + at(s) * G + g) > 0.f) {
+        gm[g] = fmaxf(gm[g], __ldcg(split.m + at(s) * G + g));
+        nreal[g] += 1.f;
+        only[g] = (float)s;
       }
     }
-    block_reduce<true>(gm, red);
-    block_reduce<false>(nreal, red);  // real partials per row (exact)
-    block_reduce<true>(only, red);    // with one real partial, its index
-    __shared__ float w_s[kMergeChunk][MaxG], den_s[MaxG];
-    float num[kAcc];
+  }
+  block_reduce<true>(gm, red);
+  block_reduce<false>(nreal, red);  // real partials per row (exact)
+  block_reduce<true>(only, red);    // with one real partial, its index
+  __shared__ float w_s[kMergeChunk][MaxG], den_s[MaxG];
+  float num[kAcc];
 #pragma unroll
-    for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
-    float den = 0.f;  // thread g < G: the sum of row g's weights
-    for (int c0 = 0; c0 < nsplit; c0 += kMergeChunk) {
-      const int nc = min(kMergeChunk, nsplit - c0);
-      for (int idx = tid; idx < nc * G; idx += kThreads) {
-        const int s = idx / G, g = idx - s * G;
-        const float l = __ldcg(split.l + at(c0 + s) * G + g);
-        const float m = __ldcg(split.m + at(c0 + s) * G + g);
-        w_s[s][g] = l > 0.f ? __fmul_rn(expf(m - pick(gm, g)), l) : 0.f;
-      }
-      __syncthreads();
-      if (tid < G)
-        for (int s = 0; s < nc; ++s) den = __fadd_rn(den, w_s[s][tid]);
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int o = tid + r * kThreads;
-        if (o < G * D) {
-          const int g = o / D;
-#pragma unroll 4
-          for (int s = 0; s < nc; ++s)
-            num[r] = __fadd_rn(
-                num[r], __fmul_rn(__ldcg(split.out + at(c0 + s) * G * D + o),
-                                  w_s[s][g]));
-        }
-      }
-      __syncthreads();
+  for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
+  float den = 0.f;  // thread g < G: the sum of row g's weights
+  for (int c0 = 0; c0 < nsplit; c0 += kMergeChunk) {
+    const int nc = min(kMergeChunk, nsplit - c0);
+    for (int idx = tid; idx < nc * G; idx += kThreads) {
+      const int s = idx / G, g = idx - s * G;
+      const float l = __ldcg(split.l + at(c0 + s) * G + g);
+      const float m = __ldcg(split.m + at(c0 + s) * G + g);
+      w_s[s][g] = l > 0.f ? __fmul_rn(expf(m - pick(gm, g)), l) : 0.f;
     }
-    if (tid < G) den_s[tid] = den;
     __syncthreads();
+    if (tid < G)
+      for (int s = 0; s < nc; ++s) den = __fadd_rn(den, w_s[s][tid]);
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) {
       const int o = tid + r * kThreads;
       if (o < G * D) {
         const int g = o / D;
-        const float one = pick(only, g);
-        ob[o] = pick(nreal, g) > 1.f ? num[r] / fmaxf(den_s[g], 1e-30f)
-                : one < 0.f          ? 0.f
-                            : __ldcg(split.out + at((int)one) * G * D + o);
+#pragma unroll 4
+        for (int s = 0; s < nc; ++s)
+          num[r] = __fadd_rn(
+              num[r], __fmul_rn(__ldcg(split.out + at(c0 + s) * G * D + o),
+                                w_s[s][g]));
       }
     }
-    if (tid < G) {
-      const float one = pick(only, tid);
-      m_out[mo + tid] = pick(gm, tid);
-      l_out[mo + tid] = pick(nreal, tid) > 1.f ? den
-                        : one < 0.f            ? 0.f
-                                    : __ldcg(split.l + at((int)one) * G + tid);
-    }
-    if (tid == 0) split.tickets[first] = 0;
+    __syncthreads();
   }
+  if (tid < G) den_s[tid] = den;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) {
+    const int o = tid + r * kThreads;
+    if (o < G * D) {
+      const int g = o / D;
+      const float one = pick(only, g);
+      ob[o] = pick(nreal, g) > 1.f ? num[r] / fmaxf(den_s[g], 1e-30f)
+              : one < 0.f          ? 0.f
+                          : __ldcg(split.out + at((int)one) * G * D + o);
+    }
+  }
+  if (tid < G) {
+    const float one = pick(only, tid);
+    m_out[mo + tid] = pick(gm, tid);
+    l_out[mo + tid] = pick(nreal, tid) > 1.f ? den
+                      : one < 0.f            ? 0.f
+                                  : __ldcg(split.l + at((int)one) * G + tid);
+  }
+  if (tid == 0) split.tickets[first] = 0;
 }
 
-template <typename TQ, typename TK, int D, class Tiles, bool kLegacy,
-          int MaxG>
+template <typename TQ, typename TK, int D, class Tiles, int MaxG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scales, const float* v_scales,
                    const int* items, const int* pos, void* out,
@@ -592,9 +556,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int window, cudaStream_t stream) {
   if (kIsCode<TK> && (k_scales == nullptr || v_scales == nullptr))
     return cudaErrorInvalidValue;
-  using OutT = std::conditional_t<kLegacy, TQ, float>;
   const size_t smem = (size_t)(G * D + G * blk) * sizeof(float);
-  auto kern = decode_runs_kernel<TQ, TK, OutT, D, Tiles, kLegacy, MaxG>;
+  auto kern = decode_runs_kernel<TQ, TK, D, Tiles, MaxG>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -602,20 +565,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   kern<<<L, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k),
-      static_cast<const TK*>(v), items, pos, static_cast<OutT*>(out), m_out,
+      static_cast<const TK*>(v), items, pos, static_cast<float*>(out), m_out,
       l_out, L, Hkv, G, blk, tiles, scale, window, k_scales, v_scales, split);
   return cudaGetLastError();
 }
 
 // dtype: the cache's element type: 0 = bfloat16, 1 = float32 (q shares
 // either), 2 = int8 codes, 3 = fp8 e4m3 codes (q float32, with k_scales /
-// v_scales; flash decode only); head_dim 32, 64, 128 or 256; G <= kMaxG, taken
-// by the kSmallG instantiation up to kSmallG.  The flash decode (split
-// mode) takes `partials`, f32 [L * G * (D + 2)] (out [L, G, D], then m and
-// l [L, G]) and the zeroed counters `tickets` [L]; the legacy decode takes
-// neither.
+// v_scales); head_dim 32, 64, 128 or 256; G <= kMaxG, taken
+// by the kSmallG instantiation up to kSmallG.  `partials` is f32 [L * G *
+// (D + 2)] (out [L, G, D], then m and l [L, G]), `tickets` the zeroed
+// counters [L].
 // Returns the launch's cudaError_t.
-template <class Tiles, bool kLegacy>
+template <class Tiles>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
                      const void* v, const float* k_scales,
                      const float* v_scales, const int* items, const int* pos,
@@ -624,21 +586,17 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
                      int blk, Tiles tiles, float scale, int window,
                      cudaStream_t stream) {
   if (L <= 0 || G < 1 || G > kMaxG || blk < 1) return cudaErrorInvalidValue;
-  SplitWork split{};
-  if constexpr (!kLegacy) {
-    if (partials == nullptr || tickets == nullptr)
-      return cudaErrorInvalidValue;
-    const size_t n = (size_t)L * G;
-    split = SplitWork{partials, partials + n * D, partials + n * (D + 1),
-                      tickets};
-  }
+  if (partials == nullptr || tickets == nullptr) return cudaErrorInvalidValue;
+  const size_t n = (size_t)L * G;
+  const SplitWork split{partials, partials + n * D, partials + n * (D + 1),
+                        tickets};
 #define DECODE_LAUNCH(TQ, TK, DD)                                            \
   return G <= kSmallG                                                       \
-             ? launch<TQ, TK, DD, Tiles, kLegacy, kSmallG>(                 \
+             ? launch<TQ, TK, DD, Tiles, kSmallG>(                 \
                    q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
                    l_out, split, L, Hkv, G, blk, tiles, scale, window,      \
                    stream)                                                  \
-             : launch<TQ, TK, DD, Tiles, kLegacy, kMaxG>(                   \
+             : launch<TQ, TK, DD, Tiles, kMaxG>(                   \
                    q, k, v, k_scales, v_scales, items, pos, out, m_out,     \
                    l_out, split, L, Hkv, G, blk, tiles, scale, window,      \
                    stream)
@@ -649,10 +607,8 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
   if (dtype == DT && D == 256) DECODE_LAUNCH(TQ, TK, 256)
   DECODE_DIMS(0, __nv_bfloat16, __nv_bfloat16);
   DECODE_DIMS(1, float, float);
-  if constexpr (!kLegacy) {
-    DECODE_DIMS(2, float, int8_t);
-    DECODE_DIMS(3, float, __nv_fp8_e4m3);
-  }
+  DECODE_DIMS(2, float, int8_t);
+  DECODE_DIMS(3, float, __nv_fp8_e4m3);
 #undef DECODE_DIMS
 #undef DECODE_LAUNCH
   return cudaErrorInvalidValue;

@@ -29,7 +29,7 @@ extern "C" int flash_decode_contig(const void* q, const void* k_cache,
                                    void* stream) {
   if (block_kv < 1 || max_len % block_kv) return cudaErrorInvalidValue;
   const decode::SlotTiles tiles{Hkv, max_len / block_kv, block_kv};
-  return decode::dispatch<decode::SlotTiles, false>(
+  return decode::dispatch<decode::SlotTiles>(
       dtype, D, q, k_cache, v_cache, k_scales, v_scales, items, pos, out,
       m_out, l_out, partials, tickets, L, Hkv, G, block_kv,
       tiles, scale, window, static_cast<cudaStream_t>(stream));

@@ -122,11 +122,10 @@ def _normalized(acc, l):
 
 
 def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
-                window: int | None = None, legacy: bool = False):
-    """The reference's decode item scan in float32, one item at a time —
-    the plain version of the legacy decode kernel, and the reference
-    order the split plain version (:func:`split_decode_scan`) is tested
-    against.
+                window: int | None = None):
+    """The reference's decode item scan in float32, one item at a time:
+    the reference order the split plain version (:func:`split_decode_scan`)
+    is tested against.
 
     ``qf [B, Hkv, G, D]`` float32 query rows; ``tile(b, h, blk)`` returns
     ``(k, v, k_scale, v_scale)`` of a logical block, float32 ``[block_kv,
@@ -134,10 +133,9 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
     when unmapped;
     ``last_pos[b]`` is row b's last position (keys at ``kpos <= last_pos``
     count).  Flash-decode rules: a run starts on ``first`` and finalizes on
-    ``last`` whether or not that item is valid; with ``legacy`` (the legacy
-    budgeted decode) only valid items start or finalize a run.  Invalid or
-    unmapped items leave the running state untouched.  Returns ``(out, m,
-    l)``; (row, head) pairs no run finalizes keep (0, -1e30, 0).
+    ``last`` whether or not that item is valid.  Invalid or unmapped items
+    leave the running state untouched.  Returns ``(out, m, l)``; (row,
+    head) pairs no run finalizes keep (0, -1e30, 0).
     """
     B, hkv, G, dh = qf.shape
     dev = qf.device
@@ -146,15 +144,13 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
     offs = torch.arange(block_kv, device=dev)
     for it in items.tolist():
         b, h, blk = it[D_BATCH], it[D_KVHEAD], it[D_KVBLK]
-        valid = it[D_VALID] == 1
-        counts = valid or not legacy
-        if it[D_FIRST] == 1 and counts:
+        if it[D_FIRST] == 1:
             state = _initial_state(G, dh, dev)
-        kv = tile(b, h, blk) if valid else None
+        kv = tile(b, h, blk) if it[D_VALID] == 1 else None
         if kv is not None:
             state = _add_tile(state, qf[b, h], kv, blk * block_kv + offs,
                               last_pos[b], scale, window)
-        if it[D_LAST] == 1 and counts:
+        if it[D_LAST] == 1:
             acc, m, l = state
             out[b, h] = _normalized(acc, l)
             m_out[b, h] = m[:, 0]
@@ -162,18 +158,20 @@ def decode_scan(qf, tile, items, last_pos, *, block_kv: int, scale: float,
     return out, m_out, l_out
 
 
-def decode_runs(rows) -> list[tuple[int, int]]:
-    """``(first, last)`` item indices of the flash decode's runs that
-    finalize, from the item rows ``[L, DEC_FIELDS]`` (a list of lists): a
-    run goes from a ``first`` item to the next ``last`` one; a run that
-    meets another ``first`` before its ``last``, or none, never finalizes;
-    items between a ``last`` and the next ``first`` (bucket pads) belong to
-    no run."""
+def decode_runs(rows, legacy: bool = False) -> list[tuple[int, int]]:
+    """``(first, last)`` item indices of the decode's runs that finalize,
+    from the item rows ``[L, DEC_FIELDS]`` (a list of lists): a run goes
+    from a start to the next end; a run that meets another start before
+    its end, or none, never finalizes; items between an end and the next
+    start (bucket pads) belong to no run.  The flash decode's items start
+    on ``first`` and end on ``last``, valid or not; with ``legacy`` (the
+    legacy budgeted decode) only valid items start or end a run."""
     runs, start = [], None
     for j, it in enumerate(rows):
-        if it[D_FIRST] == 1:
+        counts = not legacy or it[D_VALID] == 1
+        if it[D_FIRST] == 1 and counts:
             start = j
-        if start is not None and it[D_LAST] == 1:
+        if start is not None and it[D_LAST] == 1 and counts:
             runs.append((start, j))
             start = None
     return runs
@@ -219,10 +217,12 @@ def merge_partials(outs, ms, ls):
 
 
 def split_decode_scan(qf, tile, items, last_pos, *, block_kv: int,
-                      scale: float, window: int | None = None):
-    """The flash-decode kernels' split algebra in float32: the plain
-    version of :func:`flash_decode_paged_kernel` and
-    :func:`flash_decode_kernel`.  Arguments as :func:`decode_scan`.
+                      scale: float, window: int | None = None,
+                      legacy: bool = False):
+    """The decode kernels' split algebra in float32: the plain version of
+    :func:`flash_decode_paged_kernel` and :func:`flash_decode_kernel`, and
+    with ``legacy`` (its run rule) of the legacy budgeted decode.
+    Arguments as :func:`decode_scan`.
 
     Each run of :func:`decode_runs` is cut into splits of ``SPLIT_TILES``
     items by position in the run; each split scans its items from the
@@ -239,7 +239,7 @@ def split_decode_scan(qf, tile, items, last_pos, *, block_kv: int,
     dev = qf.device
     out, m_out, l_out = _partials(qf)
     rows = items.tolist()
-    runs = decode_runs(rows)
+    runs = decode_runs(rows, legacy)
     if not runs:
         return out, m_out, l_out
     # the splits as (run, position in the run, first item)
@@ -437,7 +437,7 @@ def flash_decode_paged_kernel(q, k_pool, v_pool, items, table, pos, *,
         return out, m, l
     fn = kernel_function("flash_decode_paged", _PAGED_ARGTYPES)
     qk = query_as_read(q, k_pool, k_scales)   # held through the launch
-    work, tickets = _split_work(q, items.shape[0])
+    work, tickets = split_work(q, items.shape[0])
     with torch.cuda.device(q.device):
         err = fn(qk.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(),
@@ -484,7 +484,7 @@ def flash_decode_kernel(q, k_cache, v_cache, items, pos, *,
         return out, m, l
     fn = kernel_function("flash_decode_contig", _CONTIG_ARGTYPES)
     qk = query_as_read(q, k_cache, k_scales)   # held through the launch
-    work, tickets = _split_work(q, items.shape[0])
+    work, tickets = split_work(q, items.shape[0])
     with torch.cuda.device(q.device):
         err = fn(qk.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(),
@@ -510,8 +510,8 @@ _TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
 _CAPTURED: list[torch.Tensor] = []
 
 
-def _split_work(q, L: int):
-    """The split decode's workspace for ``L`` items: the partials, f32
+def split_work(q, L: int):
+    """The split decodes' workspace for ``L`` items: the partials, f32
     ``[L * G * (D + 2)]`` (out ``[L, G, D]``, then m and l ``[L, G]``),
     and the current stream's run counters, int32, at least ``L``.  The
     kernel leaves every counter at zero (the CTA that merges a run resets

@@ -4,14 +4,19 @@ CUDA kernel's wrapper and its plain PyTorch version.
 :func:`sparse_decode_attention` is the port of the TPU kernel
 ``repro/kernels/sparse_decode.py::sparse_decode_attention``, reached
 through the library entry ``ops.sparse_decode``: it launches
-``csrc/sparse_decode.cu`` (the decode body of ``csrc/flash_decode.cuh``
-with the legacy run rules) on CUDA tensors and runs
+``csrc/sparse_decode.cu`` on CUDA tensors and runs
 :func:`sparse_decode_reference` on CPU tensors.  q ``[B, Hkv, G, D]``,
 caches ``[B, Hkv, Smax, D]`` (whole ``block_kv`` blocks), items ``[L,
 DEC_FIELDS]`` from :func:`build_decode_worklist`; keys at ``kpos <
 cache_len`` count (one static length for every row, no window).  A run
 starts on ``valid & first`` and writes its tile on ``valid & last``; the
 output is in q's dtype, zero for (row, head) pairs no run covers.
+
+The kernel splits each run across CTAs, one item a CTA, and merges the
+items' partials in item order by :func:`~repro_torch.kernels.
+flash_decode.merge_partials`; the plain version runs the same split
+algebra (:func:`~repro_torch.kernels.flash_decode.split_decode_scan` under
+the legacy run rule), so the card and the CPU compute one arithmetic.
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ from repro_torch.core.worklist import (
 from repro_torch.kernels.build import (
     check_launch, count_launch, kernel_function, reset_launches)
 from repro_torch.kernels.flash_decode import (
-    DTYPES, check_cuda_decode, check_decode_args, decode_scan, slot_tiles)
+    DTYPES, check_cuda_decode, check_decode_args, slot_tiles,
+    split_decode_scan, split_work)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -98,10 +104,11 @@ def build_decode_worklist(selections, *, num_devices: int,
 
 def sparse_decode_reference(q, k_cache, v_cache, items, *, cache_len: int,
                             block_kv: int = 128, scale: float | None = None):
-    """Plain PyTorch version: the TPU kernel's item scan in float32 (q
-    taken in its own precision), with the legacy run rules."""
+    """Plain PyTorch version: the kernel's split algebra in float32 (q
+    taken in its own precision) under the legacy run rule: each item from
+    the initial state, each run's items merged in item order."""
     dh = q.shape[-1]
-    out, _, _ = decode_scan(
+    out, _, _ = split_decode_scan(
         q.to(torch.float32), slot_tiles(k_cache, v_cache, block_kv), items,
         [int(cache_len) - 1] * q.shape[0], block_kv=block_kv,
         scale=float(dh ** -0.5) if scale is None else float(scale),
@@ -137,13 +144,13 @@ def sparse_decode_attention(q, k_cache, v_cache, items, *, cache_len: int,
     out = torch.zeros_like(q)
     if items.shape[0] == 0:
         return out
-    last_pos = torch.full((B,), int(cache_len) - 1, dtype=torch.int32,
-                          device=q.device)
     fn = kernel_function("sparse_decode", _ARGTYPES)
+    work, tickets = split_work(q, items.shape[0])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 items.data_ptr(), last_pos.data_ptr(), out.data_ptr(),
-                 items.shape[0], hkv, G, dh, block_kv, k_cache.shape[2],
+                 items.data_ptr(), out.data_ptr(), work.data_ptr(),
+                 tickets.data_ptr(), items.shape[0], hkv, G, dh, block_kv,
+                 k_cache.shape[2], int(cache_len),
                  float(dh ** -0.5) if scale is None else float(scale),
                  DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)

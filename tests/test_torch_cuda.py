@@ -492,6 +492,167 @@ def test_cuda_split_decode_two_streams(cuda):
             assert torch.equal(a, b)
 
 
+# -- the legacy decode (#5): runs split across CTAs, K/V tiles staged --------
+
+def legacy_case(seed, G, D, blk=BLK, flags=False):
+    """q, slot caches of 26 blocks and the legacy item table of two rows
+    over 3 kv heads selecting 1, 24, none, 13, 7 and 5 blocks (runs of up
+    to 24 tiles, one uncovered pair), the last run ending on the partly
+    masked block 24 and the wholly masked block 25 of ``cache_len``; with
+    ``flags`` an invalid plain, ``first`` and ``last`` item inside the
+    24-tile run.  Returns numpy arrays and ``cache_len``."""
+    rng = np.random.default_rng(seed)
+    B, Hkv, nblk = 2, 3, 26
+    cache_len = 24 * blk + blk // 2 + 1
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    kc, vc = (rng.standard_normal((B, Hkv, nblk * blk, D)).astype(np.float32)
+              for _ in range(2))
+    sels = [[np.sort(rng.choice(24, size=n, replace=False)) for n in row]
+            for row in ((1, 24, 0), (13, 7, 5))]
+    sels[1][2] = np.array([0, 3, 9, 24, 25])
+    items = build_decode_worklist(sels, num_devices=1, kv_heads_per_device=Hkv,
+                                  block=blk).items[0]
+    if flags:
+        for off, field in ((3, None), (9, wl.D_FIRST), (15, wl.D_LAST)):
+            items[1 + off, wl.D_VALID] = 0
+            if field is not None:
+                items[1 + off, field] = 1
+    return q, kc, vc, items, cache_len
+
+
+def legacy_tensors(cuda, dtype, q, kc, vc, items):
+    q, kc, vc, items = (t.to(cuda) for t in as_torch(q, kc, vc, items))
+    return q.to(dtype), kc.to(dtype), vc.to(dtype), items
+
+
+@pytest.mark.parametrize("flags", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+def test_cuda_sparse_decode_long_runs(cuda, dtype, atol, G, D, flags):
+    """Runs of up to 24 tiles split across CTAs (f32 at D 256 through the
+    64-key sub-tile ring), an uncovered pair, a partly and a wholly masked
+    tile, the table's pads and invalid flags inside a run: against the
+    plain version, one launch counted."""
+    q, kc, vc, items, cache_len = legacy_case(31 + D, G, D, flags=flags)
+    q, kc, vc, items = legacy_tensors(cuda, dtype, q, kc, vc, items)
+    before = sparse_decode_attention.launches
+    got = sparse_decode_attention(q, kc, vc, items, cache_len=cache_len)
+    assert sparse_decode_attention.launches == before + 1
+    want = sparse_decode_reference(q, kc, vc, items, cache_len=cache_len)
+    assert got.dtype == dtype and not got[0, 2].any()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("blk", [16, 64, 256])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+def test_cuda_sparse_decode_block_kv(cuda, dtype, atol, D, blk):
+    """block_kv other than 128: whole tiles staged (16, 64; bf16 D 128 at
+    256), or through the sub-tile ring where K and V do not fit (256 at
+    D 256, and f32 at D 128)."""
+    q, kc, vc, items, cache_len = legacy_case(41 + blk, 8, D, blk=blk)
+    q, kc, vc, items = legacy_tensors(cuda, dtype, q, kc, vc, items)
+    got = sparse_decode_attention(q, kc, vc, items, cache_len=cache_len,
+                                  block_kv=blk)
+    want = sparse_decode_reference(q, kc, vc, items, cache_len=cache_len,
+                                   block_kv=blk)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [32, 33, 40])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+def test_cuda_sparse_decode_runs_past_a_merge_chunk(cuda, dtype, atol, n):
+    """A run of 32, 33 and 40 tiles (16-key blocks): the merge stages at
+    most 32 splits' (m, l) at a time, so the longer runs take both its
+    passes in chunks."""
+    rng = np.random.default_rng(60 + n)
+    B, Hkv, G, D, blk, nblk = 2, 1, 4, 64, 16, 48
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    kc, vc = (rng.standard_normal((B, Hkv, nblk * blk, D)).astype(np.float32)
+              for _ in range(2))
+    sels = [[np.sort(rng.choice(nblk, size=n, replace=False))],
+            [np.arange(3)]]
+    items = build_decode_worklist(sels, num_devices=1, kv_heads_per_device=1,
+                                  block=blk).items[0]
+    q, kc, vc, items = legacy_tensors(cuda, dtype, q, kc, vc, items)
+    cache_len = nblk * blk - 5
+    got = sparse_decode_attention(q, kc, vc, items, cache_len=cache_len,
+                                  block_kv=blk)
+    want = sparse_decode_reference(q, kc, vc, items, cache_len=cache_len,
+                                   block_kv=blk)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_sparse_decode_repeats_and_replays(cuda, dtype, D):
+    """The same launch twice, and a CUDA graph of two launches replayed
+    twice, give the same bits, and every run's counter is back at zero
+    after each launch."""
+    from repro_torch.kernels import flash_decode as fd
+    q, kc, vc, items, cache_len = legacy_case(51, 4, D)
+    q, kc, vc, items = legacy_tensors(cuda, dtype, q, kc, vc, items)
+    run = lambda: sparse_decode_attention(  # noqa: E731
+        q, kc, vc, items, cache_len=cache_len)
+    first, second = run(), run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run(), run()]
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays += [r.clone() for r in captured]
+    torch.cuda.synchronize()
+    for other in (second, *replays):
+        assert torch.equal(first, other)
+    for tickets in fd._TICKETS.values():   # eager and capture streams
+        assert not tickets.any(), "counters left at zero"
+
+
+def test_cuda_sparse_decode_two_streams(cuda):
+    """Launches on two streams at once take separate run counters: each
+    stream's results equal a launch alone, bit for bit."""
+    q, kc, vc, items, cache_len = legacy_case(52, 8, 128)
+    q, kc, vc, items = legacy_tensors(cuda, torch.bfloat16, q, kc, vc, items)
+    run = lambda: sparse_decode_attention(  # noqa: E731
+        q, kc, vc, items, cache_len=cache_len)
+    alone = run()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+    for _ in range(4):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                got.append(run())
+    torch.cuda.synchronize()
+    for other in got:
+        assert torch.equal(alone, other)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_sparse_decode_unaligned_caches(cuda, dtype):
+    """Caches that are contiguous but not 16-byte aligned (a view one
+    element into a buffer) cannot be bulk-copied: the kernel stages them by
+    its threads and gives the aligned launch's bits."""
+    q, kc, vc, items, cache_len = legacy_case(53, 3, 64)
+    q, kc, vc, items = legacy_tensors(cuda, dtype, q, kc, vc, items)
+    shifted = []
+    for c in (kc, vc):
+        buf = torch.empty(c.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(c.shape)
+        view.copy_(c)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    want = sparse_decode_attention(q, kc, vc, items, cache_len=cache_len)
+    got = sparse_decode_attention(q, *shifted, items, cache_len=cache_len)
+    assert torch.equal(got, want)
+
+
 # -- the bf16 tensor-core prefill / flash body --------------------------------
 
 BF16_ATOL = 2.0 ** -6   # bf16 output: one bf16 ulp at |x| < 4
