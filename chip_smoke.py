@@ -57,7 +57,21 @@ Phases, in order; any failure exits non-zero:
    phases 3 and 4 at its shapes (the decodes also with its window), its
    widths at 6 layers (one ``LLLLLG`` period) in float32 with a prompt
    longer than the window (card tokens == CPU tokens, bf16 / int8 / fp8
-   caches, both layouts), and three full-width serves (26 layers).
+   caches, both layouts), and three full-width serves (26 layers);
+8. the head-parallel degree (``num_model_shards`` = D: KV groups placed on
+   D shards, emulated on the one card; the packed decode table holds the D
+   shards' lists end to end, pads between them): #1 and #3 (bf16, f32) on
+   the layer-0 table of a Yi-6B engine at D = 4 against their plain
+   versions, paged == contiguous and launch == launch bit for bit, with
+   the table's runs, pads between shards and CTAs printed; Yi-6B's widths
+   at 2 layers in float32 at D = 4 (bf16 cache, both layouts: card tokens
+   == CPU tokens); full-width serves at D > 1 (``SHARDED_SERVES``: Yi-6B
+   at D = 4 paged packed, paged padded and contiguous packed, at D = 2
+   paged packed; SmolLM-135M at D = 3 paged and contiguous packed), the
+   serves of one D giving equal tokens.  Every serve prints its decode
+   bubble stats (``Engine.decode_bubble_stats``: padding waste, the padded
+   path's, grid vs padded, mean shard imbalance, plan hits / misses /
+   prefetches), the D = 1 serves' included.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -133,6 +147,18 @@ SERVES = (("paged", "packed"), ("contiguous", "packed"),
 # packed decode
 FULL_SERVES = (("paged", "bf16"), ("contiguous", "bf16"), ("paged", "int8"))
 QUANT_KINDS = ("int8", "fp8")
+# the head-parallel degrees served at full width (``num_model_shards`` = D,
+# KV groups placed on D shards, emulated on the one card), bf16: per model,
+# each D with its (cache layout, decode work list) serves, whose greedy
+# tokens must be equal
+SHARDED_SERVES = {
+    "smollm-135m": ((3, (("paged", "packed"), ("contiguous", "packed"))),),
+    "yi-6b": ((4, (("paged", "packed"), ("paged", "padded"),
+                   ("contiguous", "packed"))),
+              (2, (("paged", "packed"),)))}
+# Yi-6B's degree whose layer-0 packed table holds #1 / #3 to their plain
+# versions, and that of its float32 parity
+SHARDED_CHECK = 4
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
 # ("<kernel>.<kind>") but the contiguous prefill, which reads the
@@ -952,6 +978,7 @@ def run_serve(eng, prompts, tag, sh: Shapes, also=()):
     the forms ``also`` (read, not required)."""
     import numpy as np
     import torch
+    from repro_torch.launch.serve import bubble_line
     from repro_torch.serving import SamplingParams
     sp = SamplingParams(max_tokens=32)
     names = [n + sh.tag for n in SERVE_KERNELS[eng.ecfg.cache_layout,
@@ -977,6 +1004,8 @@ def run_serve(eng, prompts, tag, sh: Shapes, also=()):
           f"{sum(len(r.generated) for r in done) / wall:.1f} tokens/s over "
           f"the whole serve; decode grid {st['real_items']} real / "
           f"{st['grid_items']} items over {st['ticks']} ticks")
+    print(f"serve[{tag}]: D={eng.ecfg.num_model_shards}, "
+          f"{bubble_line(eng.decode_bubble_stats)}")
     print(f"serve[{tag}]: launches {launches}: {bs.prefill_chunks} prefill "
           f"chunks, {bs.decode_steps} decode ticks; KV cache "
           f"{eng.ecfg.kv_dtype}, {eng.kv_bytes()} bytes resident")
@@ -1064,6 +1093,83 @@ def run_full_serves(cfg, params, dev, sh: Shapes):
         fail(f"{sh.arch}: the contiguous tokens differ from the paged "
              f"serve's")
     return launches
+
+
+def check_sharded_decode(eng, gen, dev, sh: Shapes):
+    """#1 and #3 on the layer-0 packed table of an engine at D shards: the
+    shards' lists end to end, each padded to the bucket, so pad rows lie
+    between one shard's last run and the next shard's first.  In bf16 and
+    f32, each against its plain version (``F32_ATOL``), paged == contiguous
+    and launch == launch bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core.worklist import D_VALID
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_kernel, flash_decode_paged_kernel,
+        packed_decode_attention, packed_decode_attention_paged)
+    d = eng.ecfg.num_model_shards
+    pos, table, items, _, _, kf, vf, qf = decode_case(eng, gen, dev, sh)
+    valid = items[:, D_VALID].cpu().numpy()
+    per = items.shape[0] // d
+    inner = int((valid[:np.flatnonzero(valid)[-1]] == 0).sum())
+    print(f"decode{sh.tag}[D={d}]: {items.shape[0]} items = {d} shards x "
+          f"bucket {per}; real items a shard "
+          f"{[int(valid[i * per:(i + 1) * per].sum()) for i in range(d)]}; "
+          f"{inner} pad rows between shard lists")
+    if not inner:
+        fail(f"{sh.arch}: the D={d} table holds no pad between shards")
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = None if dtype == torch.bfloat16 else "f32"
+        q, kp, vp = (t.to(dtype) for t in (qf, kf, vf))
+        kc, vc = slot_rows(kp, table), slot_rows(vp, table)
+        paged = lambda: flash_decode_paged_kernel(  # noqa: E731
+            q, kp, vp, items, table, pos, block_kv=BLK)
+        contig = lambda: flash_decode_kernel(  # noqa: E731
+            q, kc, vc, items, pos, block_kv=BLK)
+        tag = f"D={d}{',' + kind if kind else ''}"
+        pname = form("flash_decode_paged", kind, sh)
+        cname = form("flash_decode_contig", kind, sh)
+        got = paged()
+        check(pname, tag, got, packed_decode_attention_paged(
+            q, kp, vp, items, table, pos, block_kv=BLK), F32_ATOL)
+        check(cname, tag, contig(), packed_decode_attention(
+            q, kc, vc, items, pos, block_kv=BLK), F32_ATOL)
+        same = all(torch.equal(a, b) for a, b in zip(got, contig()))
+        print(f"decode{sh.tag}[{tag}]: contiguous {'==' if same else '!='} "
+              f"paged, bit for bit")
+        if not same:
+            fail(f"the contiguous and paged decode kernels differ on the "
+                 f"D={d} table ({sh.arch}, {tag})")
+        split_report(f"{pname}[{tag}]", paged, items)
+        split_report(f"{cname}[{tag}]", contig, items)
+
+
+def run_sharded_serves(cfg, params, dev, sh: Shapes):
+    """The model's full-width serves at each head-parallel degree of
+    ``SHARDED_SERVES`` (bf16, 8 prompts, 32 greedy tokens): every request
+    completes through the path's kernels, and the serves of one degree
+    give equal tokens (a split is a position in its run, so the decode
+    grid and the layout change no bit).  Each prints its bubble stats,
+    beside the same model's D = 1 serve."""
+    import torch
+    prompts = serve_prompts(cfg)
+    for d, serves in SHARDED_SERVES[sh.arch]:
+        tokens = {}
+        for layout, worklist in serves:
+            eng = build_engine(cfg, params, dev, cache_layout=layout,
+                               decode_worklist=worklist, num_model_shards=d)
+            tokens[layout, worklist], _ = run_serve(
+                eng, prompts, f"{layout},{worklist},D={d}", sh)
+            del eng
+            torch.cuda.empty_cache()
+        (base, want), *rest = tokens.items()
+        for key, got in rest:
+            same = got == want
+            print(f"serve[{sh.arch}:{','.join(key)},D={d}]: greedy tokens "
+                  f"{'==' if same else '!='} {','.join(base)},D={d}")
+            if not same:
+                fail(f"{sh.arch} at D={d}: the {','.join(key)} tokens "
+                     f"differ from the {','.join(base)} serve's")
 
 
 def to_device(tree, dev):
@@ -1166,7 +1272,8 @@ def forced_logit_diff(card, cpu) -> tuple[float, float, int]:
     return rows.median().item(), rows.max().item(), flips
 
 
-def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
+def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
+                 shards=1):
     """float32 serves of ``cfg`` on the card and on the CPU (plain
     versions), paged and contiguous, at each KV dtype of ``kinds``, with
     the card's weights ``params`` (copied to the CPU).  bf16 cache: the
@@ -1179,7 +1286,7 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
     (:func:`bf16_q_code_decodes`, a fault on every call, for the median)
     and one decode call's output shifted by 1.0
     (:func:`faulted_decode_call`, a fault on a few rows, which the max
-    must refuse)."""
+    must refuse).  ``shards``: the engines' head-parallel degree."""
     import torch
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
@@ -1191,7 +1298,7 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag):
         eng = Engine(cfg, params if d == dev else cpu_params,
                      EngineConfig(max_seq_len=1024, num_slots=4,
                                   budget_per_head=256, cache_layout=layout,
-                                  kv_dtype=kind),
+                                  kv_dtype=kind, num_model_shards=shards),
                      synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                      device=d)
         with sampled_logits([], forced) as rec:
@@ -1308,12 +1415,33 @@ def f32_parity(dev, params, sh: Shapes):
     return launches
 
 
+def sharded_parity(dev, params, sh: Shapes):
+    """The model's widths at ``PARITY``'s depth in float32 at the degree
+    ``SHARDED_CHECK``, bf16 cache, both layouts: the card's tokens == the
+    plain versions' on the CPU."""
+    import numpy as np
+    cfg = parity_config(sh)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in PARITY[sh.arch][1]]
+    tag = f"{sh.arch} {cfg.num_layers}-layer D={SHARDED_CHECK}"
+    reset_counts()
+    smoke_parity(cfg, dev, prompts, ("bf16",), params, 8, tag,
+                 shards=SHARDED_CHECK)
+    launches = read_counts([form(n, "f32", sh) for n in PATH_KERNELS])
+    print(f"{tag} f32 parity: launches {launches}")
+    if not all(launches.values()):
+        fail(f"{tag}: a kernel form never launched: {launches}")
+
+
 def model_phases(dev, gen, results, sh: Shapes):
     """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
     f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
     weights from a torch generator on the card (no check compares them
     with another device's but the parity, which copies the card's to the
-    CPU); then its full-width serves.  Returns the launches."""
+    CPU); then its full-width serves.  A model of ``SHARDED_SERVES`` also
+    runs phase 8's checks at its shapes and its serves at D > 1.  Returns
+    the launches of the kernels line (none from phase 8)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -1325,8 +1453,16 @@ def model_phases(dev, gen, results, sh: Shapes):
                              (torch.bfloat16, torch.float32))
     del eng
     launches.update(f32_parity(dev, params, sh))
-    del params
     print(f"kernel and parity phases ({sh.arch}): {time.time() - t0:.1f} s")
+    sharded = sh.arch in SHARDED_SERVES
+    if sharded:
+        t0 = time.time()
+        check_sharded_decode(build_engine(cfg, params, dev,
+                                          num_model_shards=SHARDED_CHECK),
+                             gen, dev, sh)
+        sharded_parity(dev, params, sh)
+        t_sharded = time.time() - t0
+    del params
 
     t0 = time.time()
     cfg = get_config(sh.arch)
@@ -1337,9 +1473,14 @@ def model_phases(dev, gen, results, sh: Shapes):
           f"generator on the card)")
     t0 = time.time()
     launches.update(run_full_serves(cfg, params, dev, sh))
+    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    if sharded:
+        t0 = time.time()
+        run_sharded_serves(cfg, params, dev, sh)
+        t_sharded += time.time() - t0
+        print(f"head-parallel phases ({cfg.name}): {t_sharded:.1f} s")
     del params
     torch.cuda.empty_cache()
-    print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
     return launches
 
 
@@ -1394,6 +1535,9 @@ def main() -> int:
     launches.update(run_serves(cfg, params, dev))
     serve_smoke_parity(dev)
     print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    run_sharded_serves(cfg, params, dev, SMOL)
+    print(f"head-parallel phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
 
     for sh in (YI, GEMMA):

@@ -12,7 +12,9 @@ synthetic one.  Prompts have the lengths ``--prompt-lens`` gives, else
 slots, the cache layout, the decode work list and the KV storage dtype
 (``--kv-dtype``: int8 / fp8 codes with per-block scales, or bf16) default to
 ``EngineConfig()``'s.  The default device is CUDA; ``--device cpu`` runs every
-kernel's plain PyTorch version.  ``--profile`` runs the serve under
+kernel's plain PyTorch version.  After the serve it prints the plan's
+imbalance and the decode grid's bubble stats (``Engine.decode_bubble_stats``).
+``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
 """
@@ -98,9 +100,20 @@ def main(argv=None) -> list:
           f"{eng.decode_stats['real_items']}/{eng.decode_stats['grid_items']}"
           f" real/padded items; KV cache {args.kv_dtype}, "
           f"{eng.kv_bytes() / 2**20:.1f} MiB resident")
+    print(bubble_line(eng.decode_bubble_stats))
     if args.profile:
         _print_profile(prof, dt)
     return done
+
+
+def bubble_line(bs: dict) -> str:
+    """One line of ``Engine.decode_bubble_stats``."""
+    return (f"decode bubbles: padding waste {bs['padding_waste']:.4f} "
+            f"(padded path {bs['padded_path_waste']:.4f}), grid vs padded "
+            f"{bs['grid_vs_padded']:.4f}, mean shard imbalance "
+            f"{bs['mean_imbalance']:.4f} over {bs['ticks']} ticks; plan hits "
+            f"{bs['plan_hits']}, misses {bs['plan_misses']}, prefetches "
+            f"{bs['plan_prefetches']}")
 
 
 def _print_profile(prof, wall: float, top: int = 10) -> None:

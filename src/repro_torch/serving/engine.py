@@ -15,8 +15,14 @@ chunk).  The cache holds bf16 (the model dtype) or, with ``kv_dtype``
 "int8" / "fp8", quantized codes with one float32 scale per (block, kv
 head) tile, which the attention kernels apply after their dots.  Host
 planning is numpy; device state (permuted params, cache) lives on
-``device``, which defaults to CUDA.  Other ``EngineConfig`` options raise
-``NotImplementedError``.
+``device``, which defaults to CUDA.
+
+``num_model_shards`` = D is the head-parallel degree, emulated on one
+device as the reference does: the plan places KV groups on D shards, the
+packed decode table is the D shards' lists end to end (``[L, D*bucket]``,
+pads between them), and ``decode_bubble_stats`` reads the grid's padding
+and the shards' imbalance.  D must divide the KV heads (``kv_group``
+placement).  Other ``EngineConfig`` options raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -77,7 +83,7 @@ class EngineConfig:
                   "cache_layout": ("paged", "contiguous"),
                   "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
-                  "num_model_shards": (1,), "seq_shards": (1,),
+                  "seq_shards": (1,),
                   "replan_every": (None,), "drift_threshold": (None,),
                   "preemption": (False,), "prefix_cache": (False,)}
         for name, values in ported.items():
@@ -120,6 +126,14 @@ class Engine:
                                       block_kv=ecfg.block)
         self.cfg = cfg
         self.ecfg = ecfg
+        if cfg.num_kv_heads % ecfg.num_model_shards:
+            raise NotImplementedError(
+                f"EngineConfig.num_model_shards={ecfg.num_model_shards} is "
+                f"not ported for {cfg.num_kv_heads} KV heads: it needs the "
+                f"kv_replication placement, which permutes q heads freely, "
+                f"while the one-device attention pairs q slot s with kv "
+                f"head s // G (the port runs degrees that divide the KV "
+                f"heads)")
         self.plan: HPLBPlan = make_plan(
             profile, num_devices=ecfg.num_model_shards,
             num_kv_heads=cfg.num_kv_heads, seq_len=ecfg.max_seq_len,
@@ -182,8 +196,11 @@ class Engine:
         self._nb_cap: int | None = None
         self._packed_plan_cache: OrderedDict = OrderedDict()
         self._packed_plan_cap = 256
+        # per-tick decode bubble telemetry, read by decode_bubble_stats
         self.decode_stats = {"ticks": 0, "real_items": 0, "grid_items": 0,
-                             "plan_hits": 0, "plan_misses": 0}
+                             "padded_grid_items": 0, "imbalance_sum": 0.0,
+                             "plan_hits": 0, "plan_misses": 0,
+                             "plan_prefetches": 0, "last": {}}
 
     # -- offline artifacts -------------------------------------------------
     def _permute_params(self, params: dict) -> dict:
@@ -209,14 +226,22 @@ class Engine:
 
     def worklists_for(self, seq_len: int) -> list[WorkList]:
         """Per-layer work lists for a prefill of ``seq_len``, memoized by
-        the prompt's pow2 bucket."""
+        the prompt's pow2 bucket.
+
+        One list on global ids: every item names its slot head and its kv
+        head.  At D shards this is, item for item, the shards' lists in
+        shard order with shard d's head ids offset by d*H/D and its kv head
+        ids by d*Hkv/D (a ``kv_group`` shard holds slots [d*H/D,
+        (d+1)*H/D) and their KV groups, and the policy takes the global
+        slot).  The reference's single-host engine concatenates the shard
+        lists with their device-local ids instead, so at D > 1 its items
+        address only the first shard's heads (``ROADMAP.md`` §3)."""
         bucket = self._prefill_bucket(seq_len)
         got = self._worklists_cache.get(bucket)
         if got is None:
             pol = policy_by_name(self.ecfg.policy)
             got = [worklist_from_budgets(
-                self.plan.layers[l].budgets,
-                num_devices=self.ecfg.num_model_shards, seq_len=bucket,
+                self.plan.layers[l].budgets, num_devices=1, seq_len=bucket,
                 block=self.ecfg.block, policy_fn=pol,
                 group_size=self.cfg.group_size)
                 for l in range(self.cfg.num_layers)]
@@ -281,9 +306,10 @@ class Engine:
 
     def _build_packed_plan(self, nb_sig: tuple[int, ...]):
         """One tick's decode work: per layer, every slot's selection packed
-        into (row, kv_head, kv_block) runs, all layers padded onto one pow2
-        item bucket.  Returns ``(items [L, bucket, DEC_FIELDS] on device,
-        real item count)``."""
+        into (row, kv_head, kv_block) runs and best-partitioned across the
+        model shards, all layers padded onto one pow2 item bucket a shard.
+        Returns ``(items [L, D*bucket, DEC_FIELDS] on device, stats)``:
+        the tick's bubble telemetry, as the reference computes it."""
         cfg, ecfg = self.cfg, self.ecfg
         per_slot = [self._decode_ids_for_nblocks(nb) for nb in nb_sig]
         bids = np.stack(per_slot, axis=1)       # [L, B, Hkv, nb_cap]
@@ -297,20 +323,107 @@ class Engine:
             extend_packed_items(wl.items, bucket).reshape(-1, DEC_FIELDS)
             for wl in wls])
         real = sum(wl.total_real_items for wl in wls)
-        return torch.from_numpy(items).to(self.device), real
+        grid = cfg.num_layers * ecfg.num_model_shards * bucket
+        # the padded baseline's grid: every (slot, kv head) at the
+        # max-budget selection width, every layer
+        padded_grid = int(bids.size)
+        stats = {
+            "bucket": bucket,
+            "real_items": real,
+            "grid_items": grid,
+            "padded_grid_items": padded_grid,
+            "padding_waste": 1.0 - real / grid if grid else 0.0,
+            "padded_path_waste": (1.0 - real / padded_grid
+                                  if padded_grid else 0.0),
+            "imbalance": float(np.mean([wl.imbalance for wl in wls])),
+        }
+        return torch.from_numpy(items).to(self.device), stats
 
-    def _plan_for(self, nb_sig: tuple[int, ...]):
+    def _padded_tick_stats(self, bids: np.ndarray) -> dict:
+        """Bubble telemetry of a padded-path tick: real vs padded grid
+        items, and the (slot, kv head) run imbalance the packing removes."""
+        real = int((bids >= 0).sum())
+        grid = int(bids.size)
+        counts = (bids >= 0).sum(axis=-1).astype(np.float64)  # [L, B, Hkv]
+        mean = counts.mean() if counts.size else 0.0
+        return {
+            "bucket": int(bids.shape[-1]),
+            "real_items": real,
+            "grid_items": grid,
+            "padded_grid_items": grid,
+            "padding_waste": 1.0 - real / grid if grid else 0.0,
+            "padded_path_waste": 1.0 - real / grid if grid else 0.0,
+            "imbalance": float(counts.max() / mean) if mean > 0 else 1.0,
+        }
+
+    def _plan_for(self, nb_sig: tuple[int, ...], prefetch: bool = False):
+        """The LRU-memoized packed plan of a tick signature.  A prefetch
+        that builds a plan counts as a prefetch, not a miss, and one that
+        finds it counts nothing."""
         got = self._packed_plan_cache.get(nb_sig)
         if got is None:
             got = self._build_packed_plan(nb_sig)
             self._packed_plan_cache[nb_sig] = got
             if len(self._packed_plan_cache) > self._packed_plan_cap:
                 self._packed_plan_cache.popitem(last=False)
-            self.decode_stats["plan_misses"] += 1
+            self.decode_stats["plan_prefetches" if prefetch
+                              else "plan_misses"] += 1
         else:
             self._packed_plan_cache.move_to_end(nb_sig)
-            self.decode_stats["plan_hits"] += 1
+            if not prefetch:
+                self.decode_stats["plan_hits"] += 1
         return got
+
+    def _prefetch_next_plan(self) -> None:
+        """Build the next tick's packed plan while this tick's layers run
+        on the card (the kernels are queued; the host blocks later, at
+        sampling).  The scheduler's preview is best-effort: a wrong guess
+        only means the real signature is planned at the next tick."""
+        if self._batcher is None:
+            return
+        preview = self._batcher.preview_next_decode()
+        if not preview:
+            return
+        slots, positions = preview
+        pos_all = np.zeros((self.ecfg.num_slots,), np.int32)
+        pos_all[list(slots)] = positions
+        self._plan_for(self._nb_sig(pos_all), prefetch=True)
+
+    def _record_tick(self, stats: dict) -> None:
+        s = self.decode_stats
+        s["ticks"] += 1
+        s["real_items"] += stats["real_items"]
+        s["grid_items"] += stats["grid_items"]
+        s["padded_grid_items"] += stats["padded_grid_items"]
+        s["imbalance_sum"] += stats["imbalance"]
+        s["last"] = stats
+
+    @property
+    def decode_bubble_stats(self) -> dict:
+        """Decode-grid bubble telemetry over the ticks so far: the share of
+        executed grid items that were padding, the share the padded
+        baseline would have paid, their grids' ratio, and the mean
+        imbalance of the shards' item counts (the reference's keys for the
+        features the port runs; one head axis, so the head imbalance is
+        the whole imbalance and the stripe imbalance 1)."""
+        s = self.decode_stats
+        grid, real, padded = (s["grid_items"], s["real_items"],
+                              s["padded_grid_items"])
+        mean_imb = s["imbalance_sum"] / s["ticks"] if s["ticks"] else 1.0
+        return {
+            "ticks": s["ticks"],
+            "padding_waste": 1.0 - real / grid if grid else 0.0,
+            "padded_path_waste": 1.0 - real / padded if padded else 0.0,
+            "grid_vs_padded": grid / padded if padded else 1.0,
+            "mean_imbalance": mean_imb,
+            "seq_shards": self.ecfg.seq_shards,
+            "mean_head_imbalance": mean_imb,
+            "mean_stripe_imbalance": 1.0,
+            "plan_hits": s["plan_hits"],
+            "plan_misses": s["plan_misses"],
+            "plan_prefetches": s["plan_prefetches"],
+            "last_tick": s["last"],
+        }
 
     # -- chunked prefill ----------------------------------------------------
     def _prefill_bucket(self, seq_len: int) -> int:
@@ -432,16 +545,16 @@ class Engine:
         pos_all[list(slots)] = positions
         act_all[list(slots)] = True   # padding rows must not write KV
         dev = self.device
-        if ecfg.decode_worklist == "packed":
-            items, real = self._plan_for(self._nb_sig(pos_all))
-            grid = items.shape[0] * items.shape[1]
+        packed = ecfg.decode_worklist == "packed"
+        if packed:
+            items, stats = self._plan_for(self._nb_sig(pos_all))
             work = {"packed_items": items}
         else:
             # padded baseline: every slot's position-aware selection at the
             # plan's max-budget width, refreshed at block boundaries
             bids = np.stack([self._decode_ids_for_nblocks(n)
                              for n in self._nb_sig(pos_all)], axis=1)
-            real, grid = int((bids >= 0).sum()), int(bids.size)
+            stats = self._padded_tick_stats(bids)
             work = {"block_ids": torch.from_numpy(bids).to(dev)}
         args = (torch.from_numpy(tok_all).to(dev),
                 torch.from_numpy(pos_all).to(dev))
@@ -466,10 +579,11 @@ class Engine:
                                      self.cfg, active=act, **work)
         if self.quantized:
             logits = logits[0]
-        st = self.decode_stats
-        st["ticks"] += 1
-        st["real_items"] += real
-        st["grid_items"] += grid
+        self._record_tick(stats)
+        if packed:
+            # the step's kernels are queued on the stream: plan the next
+            # tick now, before sampling waits for them
+            self._prefetch_next_plan()
         return sample(logits, sampling).cpu().numpy()[list(slots)]
 
     def kv_bytes(self) -> int:

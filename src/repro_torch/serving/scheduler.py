@@ -109,6 +109,22 @@ class ContinuousBatcher:
     def busy(self) -> bool:
         return bool(self._queue or self.active or self.prefilling)
 
+    def preview_next_decode(self):
+        """Best-effort ``(slots, positions)`` of the next tick's decode
+        batch, so the engine can plan that tick while this one's step runs
+        on the card.
+
+        Called from inside this tick's ``decode_fn`` (lengths not yet
+        advanced): each active request decodes next at its current length.
+        Completions this tick and a prefill finishing into the batch are
+        ignored; a wrong guess only means the real signature is planned at
+        the next tick.  None when nothing is decoding."""
+        if not self.active:
+            return None
+        rids = sorted(self.active)
+        return [self._slot_of[r] for r in rids], [self.lengths[r]
+                                                  for r in rids]
+
     def _record_token(self, req: Request, token: int) -> bool:
         """Append a sampled token; True iff the request just completed."""
         req.generated.append(int(token))

@@ -1008,3 +1008,82 @@ def test_cuda_gemma3_six_layer_f32_serve_matches_cpu(cuda, layout):
             prompts, SamplingParams(max_tokens=6))])
     assert outs[0] == outs[1]
     assert decode.launches > before
+
+
+# -- the head-parallel degree: D shards' packed lists end to end -------------
+
+def sharded_case(seed, shards):
+    """Random per-slot selections (4 rows x 4 kv heads, G 2, head_dim 64)
+    packed on ``shards`` shards, each shard's list padded to one pow2
+    bucket, the shards end to end as the engine's decode table: pad rows
+    lie between one shard's last run and the next shard's first."""
+    q, kp, vp, ids, table, pos = decode_case(seed, B=4, Hkv=4, G=2, D=64,
+                                             T=6, layout="ids")
+    packed = wl.pack_decode_items(ids, num_shards=shards, block=BLK)
+    items = wl.extend_packed_items(
+        packed.items, wl.pow2_bucket(packed.padded_length)).reshape(
+            -1, wl.DEC_FIELDS)
+    valid = items[:, wl.D_VALID]
+    assert (valid[:np.flatnonzero(valid)[-1]] == 0).any()
+    return q.reshape(4, 4, 2, 64), kp, vp, items, table, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_decode_on_sharded_tables(cuda, shards, dtype):
+    """#1 and #3 on a D-shard table: each within 1e-4 of its plain
+    version, two launches the same bits, paged == contiguous bit for
+    bit."""
+    q, kp, vp, items, table, pos = sharded_case(30 + shards, shards)
+    kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
+    q, kp, vp, kc, vc, items, table, pos = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table, pos))
+    q, kp, vp, kc, vc = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+    paged = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
+                                      block_kv=BLK)
+    want = packed_decode_attention_paged(q, kp, vp, items, table, pos,
+                                         block_kv=BLK)
+    for g, w in zip(paged, want):     # f32 sums in another order
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    contig = flash_decode_kernel(q, kc, vc, items, pos, block_kv=BLK)
+    want = packed_decode_attention(q, kc, vc, items, pos, block_kv=BLK)
+    for g, w in zip(contig, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    again = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
+                                      block_kv=BLK)
+    for a, b, c in zip(paged, again, contig):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_sharded_f32_serve_matches_cpu(cuda, shards, layout):
+    """8 heads over 4 KV heads (head_dim 32, G 2) at D = 2 and 4, float32:
+    the card's greedy tokens equal the plain versions' on the CPU, and the
+    decode kernel ran."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              num_heads=8, num_kv_heads=4,
+                              dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 250, 120)]
+    decode = flash_decode_paged_kernel if layout == "paged" \
+        else flash_decode_kernel
+    before = decode.launches
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, init_params(cfg, seed=5, device=dev),
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, cache_layout=layout,
+                                  num_model_shards=shards),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        outs.append([r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=10))])
+    assert outs[0] == outs[1]
+    assert decode.launches > before

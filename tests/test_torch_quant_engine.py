@@ -126,9 +126,9 @@ def test_packed_items_equal_reference_engine_at_int8(setup):
     assert eng._kv_block_bytes < bf16._kv_block_bytes
     for sig in ((3, 1, 2, 1), (8, 8, 1, 5), (1, 1, 1, 1)):
         want, _ = ref._build_packed_plan(sig)
-        got, real = eng._build_packed_plan(sig)
+        got, stats = eng._build_packed_plan(sig)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-        assert real > 0
+        assert stats["real_items"] > 0
 
 
 def test_bf16_has_no_scales_and_keeps_its_tokens(setup):
