@@ -71,13 +71,31 @@ Phases, in order; any failure exits non-zero:
    serves of one D giving equal tokens.  Every serve prints its decode
    bubble stats (``Engine.decode_bubble_stats``: padding waste, the padded
    path's, grid vs padded, mean shard imbalance, plan hits / misses /
-   prefetches), the D = 1 serves' included.
+   prefetches), the D = 1 serves' included;
+9. the paper's baselines and stochastic sampling (SmolLM-135M, and Yi-6B
+   after its own serves): #4 causal at the dense monolithic prefill's
+   prompt buckets (exact 513 / 1010 / 3500, pow2 1024 / 4096), #2 paged
+   and contiguous over a dense chunk's causal list, #1 and #3 over dense
+   decode's table of every resident block (bf16 and int8 codes), each
+   against its plain version and the layouts bit for bit, #4 timed at each
+   bucket; full-width serves (``BASELINE_SERVES``): dense attention with
+   monolithic prefill (SmolLM-135M paged, contiguous, paged int8 and paged
+   with exact buckets; Yi-6B paged), whose #4 launches are counted, the
+   paged and contiguous ones giving equal tokens, and sparse monolithic
+   serves, whose tokens must equal the chunked serve's of their layout;
+   SmolLM-135M's stochastic serve (temperature 0.8, top-k 50, top-p 0.95,
+   the engine's generator seeded 0; the four prompts of at most 1010
+   tokens) twice, which must repeat itself; and
+   SMOKE float32 dense serves (monolithic and chunked, both layouts) whose
+   card tokens must equal the CPU's.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
 Gemma3-1B's shapes, ``...@yi-6b`` / ``...@gemma3-1b``; its ``launches`` are
 those of the run that launches it on a serving path (a full-width serve;
-the library-path run for #4 and #5; the float32 parity serves for the f32
+for #4 the dense monolithic paged serve, or, at Gemma3-1B's shapes, whose
+dense attention is refused, the library-path run; the library-path run for
+#5; the float32 parity serves for the f32
 forms and the code decodes no full-width serve runs; the paged int8 serve
 for the bf16-q fp8 prefill, which no serve launches, so its count is 0).
 
@@ -159,6 +177,34 @@ SHARDED_SERVES = {
 # Yi-6B's degree whose layer-0 packed table holds #1 / #3 to their plain
 # versions, and that of its float32 parity
 SHARDED_CHECK = 4
+# the paper's baselines served at full width (phase 9), per model: (tag,
+# EngineConfig options).  Dense serves prefill monolithically, so the dense
+# flash attention (#4) runs on the prompt bucket; the first is the serve
+# whose #4 launches the kernels line reads
+BASELINE_SERVES = {
+    "smollm-135m": (
+        ("dense,monolithic,paged",
+         dict(attention="dense", prefill_mode="monolithic")),
+        ("dense,monolithic,contiguous",
+         dict(attention="dense", prefill_mode="monolithic",
+              cache_layout="contiguous")),
+        ("dense,monolithic,paged,int8",
+         dict(attention="dense", prefill_mode="monolithic", kv_dtype="int8")),
+        ("dense,monolithic,exact,paged",
+         dict(attention="dense", prefill_mode="monolithic",
+              prefill_buckets="exact")),
+        ("sparse,monolithic,paged", dict(prefill_mode="monolithic")),
+        ("sparse,monolithic,contiguous",
+         dict(prefill_mode="monolithic", cache_layout="contiguous"))),
+    "yi-6b": (
+        ("dense,monolithic,paged",
+         dict(attention="dense", prefill_mode="monolithic")),
+        ("sparse,monolithic,paged", dict(prefill_mode="monolithic")))}
+# the prompt buckets #4 takes in those serves: exact (ragged) lengths of
+# SERVE_LENS and pow2 buckets
+FLASH_BUCKETS = (513, 1010, 3500, 1024, 4096)
+# the stochastic serve (phase 9): temperature, top-k, top-p
+STOCHASTIC = dict(temperature=0.8, top_k=50, top_p=0.95)
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
 # ("<kernel>.<kind>") but the contiguous prefill, which reads the
@@ -971,18 +1017,30 @@ def build_engine(cfg, params, dev, **kw):
                   device=dev)
 
 
-def run_serve(eng, prompts, tag, sh: Shapes, also=()):
-    """Serve ``prompts`` (32 greedy tokens each); check completion, the
-    launches of this layout's (and KV dtype's) kernels and the block
-    accounting.  Returns the tokens and the launch counts, with those of
-    the forms ``also`` (read, not required)."""
+def serve_kernels(ecfg) -> tuple[str, str]:
+    """The decode and prefill kernel forms a serve of ``ecfg`` runs: its
+    layout's (and KV dtype's) decode, and its chunk prefill, or in
+    monolithic mode the contiguous sparse prefill over the sequence's own
+    K/V (sparse) or the dense flash attention (dense)."""
+    decode, chunk = SERVE_KERNELS[ecfg.cache_layout, ecfg.kv_dtype]
+    if ecfg.prefill_mode == "chunked":
+        return decode, chunk
+    return decode, ("sparse_prefill_contig" if ecfg.attention == "sparse"
+                    else "flash_attention")
+
+
+def run_serve(eng, prompts, tag, sh: Shapes, also=(), sampling=None):
+    """Serve ``prompts`` (32 tokens each, greedy unless ``sampling``);
+    check completion, the launches of the serve's kernels
+    (:func:`serve_kernels`) and the block accounting.  Returns the tokens
+    and the launch counts, with those of the forms ``also`` (read, not
+    required)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import bubble_line
     from repro_torch.serving import SamplingParams
-    sp = SamplingParams(max_tokens=32)
-    names = [n + sh.tag for n in SERVE_KERNELS[eng.ecfg.cache_layout,
-                                                eng.ecfg.kv_dtype]]
+    sp = sampling or SamplingParams(max_tokens=32)
+    names = [n + sh.tag for n in serve_kernels(eng.ecfg)]
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
@@ -1007,7 +1065,8 @@ def run_serve(eng, prompts, tag, sh: Shapes, also=()):
     print(f"serve[{tag}]: D={eng.ecfg.num_model_shards}, "
           f"{bubble_line(eng.decode_bubble_stats)}")
     print(f"serve[{tag}]: launches {launches}: {bs.prefill_chunks} prefill "
-          f"chunks, {bs.decode_steps} decode ticks; KV cache "
+          f"{'chunks' if eng.ecfg.prefill_mode == 'chunked' else 'prompts'}, "
+          f"{bs.decode_steps} decode ticks; KV cache "
           f"{eng.ecfg.kv_dtype}, {eng.kv_bytes()} bytes resident")
     alloc = eng._batcher.alloc
     fails = eng.kv.audit(strict=False) if eng.paged else alloc.audit(False)
@@ -1036,7 +1095,8 @@ def serve_prompts(cfg):
 
 def run_serves(cfg, params, dev):
     """SmolLM-135M's four full-width serves (all must give the default's
-    tokens), then its quantized serves."""
+    tokens), then its quantized serves.  Returns the launches and the
+    tokens of the bf16 serves by (layout, worklist) tag."""
     prompts = serve_prompts(cfg)
     tokens, launches = {}, {}
     for layout, worklist in SERVES:
@@ -1064,7 +1124,7 @@ def run_serves(cfg, params, dev):
             _, got = run_serve(eng, prompts, f"{layout},packed,{kind}", SMOL)
             launches.update({n: c for n, c in got.items() if "." in n})
             del eng
-    return launches
+    return launches, tokens
 
 
 def run_full_serves(cfg, params, dev, sh: Shapes):
@@ -1072,7 +1132,8 @@ def run_full_serves(cfg, params, dev, sh: Shapes):
     contiguous bf16 serve must give the paged one's tokens, and the code
     serves complete every request through the code forms.  The int8
     serve also reads the bf16-q fp8 prefill's count, which no serve here
-    launches (the kernels line's launches are all from serves)."""
+    launches (the kernels line's launches are all from serves).  Returns
+    the launches and the tokens by (layout, KV dtype)."""
     import torch
     prompts = serve_prompts(cfg)
     tokens, launches = {}, {}
@@ -1092,7 +1153,7 @@ def run_full_serves(cfg, params, dev, sh: Shapes):
     if not same:
         fail(f"{sh.arch}: the contiguous tokens differ from the paged "
              f"serve's")
-    return launches
+    return launches, tokens
 
 
 def check_sharded_decode(eng, gen, dev, sh: Shapes):
@@ -1172,6 +1233,191 @@ def run_sharded_serves(cfg, params, dev, sh: Shapes):
                      f"differ from the {','.join(base)} serve's")
 
 
+def check_baselines(gen, dev, sh: Shapes):
+    """Phase 9's kernel checks at ``sh``'s shapes (printed, not in the
+    kernels line): #4 causal at the dense monolithic prefill's buckets
+    (``FLASH_BUCKETS``), bf16 and f32 against its plain version, the bf16
+    form timed beside its bound and SDPA at each; #2 paged and contiguous
+    over a dense chunk's causal list (256 rows at q_offset 2048, 200 of
+    them real), bf16 and f32, the layouts bit for bit; #1 and #3 over dense
+    decode's table (8 rows at ``SERVE_LENS`` + 16, every resident block),
+    bf16 and int8 codes, the layouts bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import (
+        flash_attention, flash_attention_reference)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_kernel, flash_decode_paged_kernel,
+        packed_decode_attention, packed_decode_attention_paged)
+    from repro_torch.kernels.sparse_prefill import (
+        sparse_prefill_attention, sparse_prefill_paged, worklist_attention,
+        worklist_attention_paged)
+    from repro_torch.models.transformer import (
+        dense_chunk_items, dense_decode_items)
+    t0 = time.time()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    name = form("flash_attention", None, sh)
+    for S in FLASH_BUCKETS:
+        q, k, v = (torch.randn(s, generator=gen).to(dev) for s in (
+            (sh.H, S, sh.D), (sh.HKV, S, sh.D), (sh.HKV, S, sh.D)))
+        errs = {}
+        for dtype, atol in ((torch.bfloat16, BF16_ATOL),
+                            (torch.float32, F32_ATOL)):
+            args = [t.to(dtype) for t in (q, k, v)]
+            errs[dtype] = check(
+                name, f"causal,{S},{str(dtype)[6:]}",
+                flash_attention(*args, causal=True),
+                flash_attention_reference(*args, causal=True), atol)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        pairs = sh.H * S * (S + 1) // 2
+        measure({}, f"{name}[causal,{S}]",
+                lambda: flash_attention(q, k, v, causal=True),
+                lambda: flash_attention_reference(q, k, v, causal=True),
+                lambda: sdpa(q[None], k[None], v[None], is_causal=True,
+                             enable_gqa=True),
+                (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * sh.D * pairs,
+                0, errs[torch.bfloat16])
+
+    C, q_off, real = 256, 2048, 200
+    T = SMAX // BLK
+    N = T + 1
+    table = random_table(gen, 1, [(q_off + C) // BLK], N - 1, T)[0].to(dev)
+    kp, vp = (torch.randn((N, sh.HKV, BLK, sh.D), generator=gen).to(dev)
+              for _ in range(2))
+    kc, vc = slot_rows(kp, table[None])[0], slot_rows(vp, table[None])[0]
+    q = torch.randn((sh.H, C, sh.D), generator=gen).to(dev)
+    items = torch.from_numpy(dense_chunk_items(
+        sh.H, sh.G, block_q=BLK, block_kv=BLK, q_offset=q_off,
+        q_blocks=-(-real // BLK))).to(dev)
+    kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_off, kv_len=q_off + real)
+    pname = form("sparse_prefill_paged", None, sh)
+    for dtype, atol in ((torch.bfloat16, BF16_ATOL),
+                        (torch.float32, F32_ATOL)):
+        tag = f"dense chunk,{str(dtype)[6:]}"
+        qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+        got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw)
+        check(pname, tag, got_p,
+              worklist_attention_paged(qd, pk, pv, items, table, **kw), atol)
+        got_c = sparse_prefill_attention(qd, ck, cv, items, **kw)
+        check(form("sparse_prefill_contig", None, sh), tag, got_c,
+              worklist_attention(qd, ck, cv, items, **kw), atol)
+        if not torch.equal(got_p, got_c):
+            fail(f"the prefill layouts differ on a dense chunk ({sh.arch}, "
+                 f"{tag})")
+    qb, pk, pv = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    ms = time_ms(lambda: sparse_prefill_paged(qb, pk, pv, items, table, **kw),
+                 graph=True)
+    print(f"{pname}[dense chunk]: {items.shape[0]} items, longest run "
+          f"{max(run_lengths(items))} tiles, contiguous == paged bit for "
+          f"bit, kernel {ms:.4f} ms")
+
+    pos_np = np.array(SERVE_LENS, np.int32) + 16
+    act = np.ones(B, bool)
+    table = random_table(gen, B, pos_np // BLK + 1, B * T, T).to(dev)
+    items = torch.from_numpy(dense_decode_items(pos_np, act, sh.HKV,
+                                                BLK)).to(dev)
+    pos = torch.from_numpy(pos_np).to(dev)
+    shape = (B * T + 1, sh.HKV, BLK, sh.D)
+    kf, vf = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((B, sh.HKV, sh.G, sh.D), generator=gen).to(
+        dev, torch.bfloat16)
+    for kind in (None, "int8"):
+        if kind is None:
+            kp, vp, sc = kf, vf, {}
+            ck, cv, csc = slot_rows(kf, table), slot_rows(vf, table), {}
+        else:
+            kp, ks, _ = quant_pool(kf, kind)
+            vp, vs, _ = quant_pool(vf, kind)
+            sc = dict(k_scales=ks, v_scales=vs)
+            ck, cv = (slot_rows(t.view(torch.int8), table).view(t.dtype)
+                      for t in (kp, vp))
+            csc = dict(k_scales=slot_scales(ks, table),
+                       v_scales=slot_scales(vs, table))
+        tag = f"dense decode{',' + kind if kind else ''}"
+        got_p = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
+                                          block_kv=BLK, **sc)
+        check(form("flash_decode_paged", kind, sh), tag, got_p,
+              packed_decode_attention_paged(q, kp, vp, items, table, pos,
+                                            block_kv=BLK, **sc), F32_ATOL)
+        got_c = flash_decode_kernel(q, ck, cv, items, pos, block_kv=BLK,
+                                    **csc)
+        check(form("flash_decode_contig", kind, sh), tag, got_c,
+              packed_decode_attention(q, ck, cv, items, pos, block_kv=BLK,
+                                      **csc), F32_ATOL)
+        if not all(torch.equal(a, b) for a, b in zip(got_p, got_c)):
+            fail(f"the decode layouts differ on dense decode's table "
+                 f"({sh.arch}, {tag})")
+        ms = time_ms(lambda: flash_decode_paged_kernel(
+            q, kp, vp, items, table, pos, block_kv=BLK, **sc), graph=True)
+        print(f"{form('flash_decode_paged', kind, sh)}[{tag}]: "
+              f"{items.shape[0]} items ({int(items[:, 5].sum())} valid), "
+              f"contiguous == paged bit for bit, kernel {ms:.4f} ms")
+    print(f"baseline kernel checks ({sh.arch}): {time.time() - t0:.1f} s")
+
+
+def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
+    """Phase 9's full-width serves of the paper's baselines
+    (``BASELINE_SERVES``, 8 prompts, 32 greedy tokens): each completes
+    every request through its path's kernels (dense monolithic: #4 on the
+    prompt bucket).  The dense paged and contiguous serves give equal
+    tokens, and each sparse monolithic serve the tokens of the chunked
+    serve of its layout (``chunked``: tokens by layout); the dense serves'
+    other pairs are reported.  Returns the #4 launches of the first."""
+    import torch
+    prompts = serve_prompts(cfg)
+    fa = form("flash_attention", None, sh)
+    tokens, launches = {}, {}
+    for tag, options in BASELINE_SERVES[sh.arch]:
+        eng = build_engine(cfg, params, dev, **options)
+        tokens[tag], got = run_serve(eng, prompts, tag, sh, also=[fa])
+        launches.setdefault(fa, got[fa])
+        del eng
+        torch.cuda.empty_cache()
+
+    def same(tag, want, other, required):
+        eq = tokens[tag] == want
+        print(f"serve[{sh.arch}:{tag}]: greedy tokens {'==' if eq else '!='} "
+              f"{other}{'' if required else ' (reported)'}")
+        if required and not eq:
+            fail(f"{sh.arch}: the {tag} tokens differ from {other}'s")
+
+    for tag, options in BASELINE_SERVES[sh.arch]:
+        layout = options.get("cache_layout", "paged")
+        if options.get("attention") != "dense":
+            same(tag, chunked[layout], f"the chunked {layout} serve", True)
+    for tag, base, required in (
+            ("dense,monolithic,contiguous", "dense,monolithic,paged", True),
+            ("dense,monolithic,exact,paged", "dense,monolithic,paged",
+             False),
+            ("dense,monolithic,paged", "sparse,monolithic,paged", False)):
+        if tag in tokens:
+            same(tag, tokens[base], base, required)
+    return launches
+
+
+def run_stochastic_serves(cfg, params, dev, sh: Shapes):
+    """Phase 9's stochastic serve (``STOCHASTIC``, the engine's generator
+    seeded 0) of the serve prompts of at most 1010 tokens, twice: it must
+    repeat itself token for token."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    prompts = [p for p in serve_prompts(cfg) if len(p) <= 1010]
+    sp = SamplingParams(max_tokens=32, **STOCHASTIC)
+    runs = []
+    for i in range(2):
+        eng = build_engine(cfg, params, dev, seed=0)
+        runs.append(run_serve(eng, prompts, f"paged,packed,sampled,run {i}",
+                              sh, sampling=sp)[0])
+        del eng
+        torch.cuda.empty_cache()
+    eq = runs[0] == runs[1]
+    print(f"serve[sampled {STOCHASTIC}]: seed 0 twice, tokens "
+          f"{'==' if eq else '!='}")
+    if not eq:
+        fail("the seeded stochastic serve did not repeat itself")
+
+
 def to_device(tree, dev):
     """A params tree (dicts, lists of tensors) with every tensor copied to
     ``dev``: the same weights on the card and on the CPU."""
@@ -1192,8 +1438,8 @@ def sampled_logits(record: list, forced: list | None = None):
     from repro_torch.serving import engine as serving
     sample = serving.sample
 
-    def recorded(logits, params):
-        tokens = sample(logits, params)
+    def recorded(logits, params, generator=None):
+        tokens = sample(logits, params, generator)
         if forced is not None:
             tokens = forced[len(record)].argmax(-1).to(tokens)
         record.append(logits.float().cpu())
@@ -1273,7 +1519,7 @@ def forced_logit_diff(card, cpu) -> tuple[float, float, int]:
 
 
 def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
-                 shards=1):
+                 shards=1, **options):
     """float32 serves of ``cfg`` on the card and on the CPU (plain
     versions), paged and contiguous, at each KV dtype of ``kinds``, with
     the card's weights ``params`` (copied to the CPU).  bf16 cache: the
@@ -1286,7 +1532,8 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
     (:func:`bf16_q_code_decodes`, a fault on every call, for the median)
     and one decode call's output shifted by 1.0
     (:func:`faulted_decode_call`, a fault on a few rows, which the max
-    must refuse).  ``shards``: the engines' head-parallel degree."""
+    must refuse).  ``shards``: the engines' head-parallel degree;
+    ``options``: further ``EngineConfig`` options of every serve."""
     import torch
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
@@ -1298,7 +1545,8 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
         eng = Engine(cfg, params if d == dev else cpu_params,
                      EngineConfig(max_seq_len=1024, num_slots=4,
                                   budget_per_head=256, cache_layout=layout,
-                                  kv_dtype=kind, num_model_shards=shards),
+                                  kv_dtype=kind, num_model_shards=shards,
+                                  **options),
                      synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                      device=d)
         with sampled_logits([], forced) as rec:
@@ -1373,6 +1621,33 @@ def serve_smoke_parity(dev):
                  init_params(cfg, seed=1, device=dev), 12, "smoke")
 
 
+def dense_smoke_parity(dev):
+    """Phase 9's float32 dense pair: SMOKE dense serves, monolithic (#4 on
+    the prompt bucket) and chunked (#2 over dense causal lists), both
+    layouts, bf16 cache: greedy tokens on the card == the plain versions'
+    on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 520, 129)]
+    params = init_params(cfg, seed=1, device=dev)
+    reset_counts()
+    for mode in ("monolithic", "chunked"):
+        smoke_parity(cfg, dev, prompts, ("bf16",), params, 12,
+                     f"smoke dense {mode}", attention="dense",
+                     prefill_mode=mode)
+    launches = read_counts([form(n, "f32", SMOL) for n in PATH_KERNELS]
+                           + ["flash_attention"])
+    print(f"smoke dense f32 parity: launches {launches}")
+    if not all(launches.values()):
+        fail(f"smoke dense f32 parity: a kernel never launched: {launches}")
+
+
 # the float32 parity models: (layers, prompt lengths); Gemma3-1B's 6
 # layers are one LLLLLG period, and its 700-token prompt reaches past the
 # 512-token window of the local layers' decode
@@ -1440,8 +1715,9 @@ def model_phases(dev, gen, results, sh: Shapes):
     weights from a torch generator on the card (no check compares them
     with another device's but the parity, which copies the card's to the
     CPU); then its full-width serves.  A model of ``SHARDED_SERVES`` also
-    runs phase 8's checks at its shapes and its serves at D > 1.  Returns
-    the launches of the kernels line (none from phase 8)."""
+    runs phase 8's checks at its shapes and its serves at D > 1, and a
+    model of ``BASELINE_SERVES`` phase 9's kernel checks and serves.
+    Returns the launches of the kernels line (none from phase 8)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -1472,8 +1748,17 @@ def model_phases(dev, gen, results, sh: Shapes):
           f"weight init {1e3 * (time.time() - t0):.1f} ms (seeded torch "
           f"generator on the card)")
     t0 = time.time()
-    launches.update(run_full_serves(cfg, params, dev, sh))
+    got, full_tokens = run_full_serves(cfg, params, dev, sh)
+    launches.update(got)
     print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
+    if sh.arch in BASELINE_SERVES:
+        t0 = time.time()
+        check_baselines(gen, dev, sh)
+        launches.update(run_baseline_serves(
+            cfg, params, dev, sh, {"paged": full_tokens["paged", "bf16"],
+                                   "contiguous": full_tokens["contiguous",
+                                                             "bf16"]}))
+        print(f"baseline phases ({cfg.name}): {time.time() - t0:.1f} s")
     if sharded:
         t0 = time.time()
         run_sharded_serves(cfg, params, dev, sh)
@@ -1532,12 +1817,21 @@ def main() -> int:
     del eng
 
     t0 = time.time()
-    launches.update(run_serves(cfg, params, dev))
+    got, tokens = run_serves(cfg, params, dev)
+    launches.update(got)
     serve_smoke_parity(dev)
     print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
     t0 = time.time()
     run_sharded_serves(cfg, params, dev, SMOL)
     print(f"head-parallel phases ({cfg.name}): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    check_baselines(gen, dev, SMOL)
+    launches.update(run_baseline_serves(
+        cfg, params, dev, SMOL, {"paged": tokens["paged,packed"],
+                                 "contiguous": tokens["contiguous,packed"]}))
+    run_stochastic_serves(cfg, params, dev, SMOL)
+    dense_smoke_parity(dev)
+    print(f"baseline phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
 
     for sh in (YI, GEMMA):

@@ -4,16 +4,22 @@
         [--smoke] [--device cuda|cpu] [--budget 512] [--requests 8] \
         [--prompt-lens 300,1010,3500] [--cache-layout paged|contiguous] \
         [--decode-worklist packed|padded] [--kv-dtype bf16|int8|fp8] \
-        [--profile]
+        [--attention sparse|dense] [--prefill-mode chunked|monolithic] \
+        [--prefill-buckets pow2|exact] [--temperature 0.8 --top-k 50 \
+        --top-p 0.95 --sample-seed 0] [--profile]
 
-Weights are random, drawn from ``--seed``; the sparsity profile is the
-synthetic one.  Prompts have the lengths ``--prompt-lens`` gives, else
-``--requests`` lengths drawn from [32, 128).  Budget, sequence length and
-slots, the cache layout, the decode work list and the KV storage dtype
-(``--kv-dtype``: int8 / fp8 codes with per-block scales, or bf16) default to
-``EngineConfig()``'s.  The default device is CUDA; ``--device cpu`` runs every
-kernel's plain PyTorch version.  After the serve it prints the plan's
-imbalance and the decode grid's bubble stats (``Engine.decode_bubble_stats``).
+Weights and prompts are random, drawn from ``--seed``; the sparsity profile
+is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
+else ``--requests`` lengths drawn from [32, 128).  Budget, sequence length
+and slots, the attention (S-HPLB sparse or the dense baseline), the
+prefill mode and buckets, the cache layout, the decode work list and the
+KV storage dtype (``--kv-dtype``: int8 / fp8 codes with per-block scales,
+or bf16) default to ``EngineConfig()``'s.  Sampling is greedy unless
+``--temperature`` > 0 (then ``--top-k`` / ``--top-p`` cut, and the draws
+come from the engine's generator, seeded by ``--sample-seed``).  The default
+device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
+After the serve it prints the plan's imbalance (sparse) and the decode
+grid's bubble stats (``Engine.decode_bubble_stats``).
 ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
@@ -50,12 +56,25 @@ def main(argv=None) -> list:
                     choices=("packed", "padded"))
     ap.add_argument("--kv-dtype", default=defaults.kv_dtype,
                     choices=("bf16", "int8", "fp8"))
+    ap.add_argument("--attention", default=defaults.attention,
+                    choices=("sparse", "dense"))
+    ap.add_argument("--prefill-mode", default=defaults.prefill_mode,
+                    choices=("chunked", "monolithic"))
+    ap.add_argument("--prefill-buckets", default=defaults.prefill_buckets,
+                    choices=("pow2", "exact"))
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 samples greedily")
+    ap.add_argument("--top-k", type=int, default=0, help="0: no cut")
+    ap.add_argument("--top-p", type=float, default=1.0, help="1: no cut")
+    ap.add_argument("--sample-seed", type=int, default=defaults.seed,
+                    help="seed of the engine's sampling generator")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
                          "--requests)")
     ap.add_argument("--max-tokens", type=int, default=16)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and the prompts")
     ap.add_argument("--profile", action="store_true",
                     help="print device busy share and time by kernel")
     args = ap.parse_args(argv)
@@ -70,7 +89,11 @@ def main(argv=None) -> list:
                               num_slots=args.slots,
                               cache_layout=args.cache_layout,
                               decode_worklist=args.decode_worklist,
-                              kv_dtype=args.kv_dtype),
+                              kv_dtype=args.kv_dtype,
+                              attention=args.attention,
+                              prefill_mode=args.prefill_mode,
+                              prefill_buckets=args.prefill_buckets,
+                              seed=args.sample_seed),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)
@@ -87,16 +110,21 @@ def main(argv=None) -> list:
             else contextlib.nullcontext())
     with prof:
         t0 = time.perf_counter()
-        done = eng.serve(prompts, SamplingParams(max_tokens=args.max_tokens))
+        done = eng.serve(prompts, SamplingParams(
+            max_tokens=args.max_tokens, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
     n_tok = sum(len(r.generated) for r in done)
-    ps = plan_summary(eng.plan)
+    if eng.plan is None:
+        plan = "dense attention, no plan"
+    else:
+        ps = plan_summary(eng.plan)
+        plan = (f"plan imbalance {ps['mean_imbalance_plan']:.3f} (naive "
+                f"{ps['mean_imbalance_naive']:.3f})")
     print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
-          f"({n_tok / dt:.1f} tok/s) on {device}; plan imbalance "
-          f"{ps['mean_imbalance_plan']:.3f} (naive "
-          f"{ps['mean_imbalance_naive']:.3f}); decode grid "
+          f"({n_tok / dt:.1f} tok/s) on {device}; {plan}; decode grid "
           f"{eng.decode_stats['real_items']}/{eng.decode_stats['grid_items']}"
           f" real/padded items; KV cache {args.kv_dtype}, "
           f"{eng.kv_bytes() / 2**20:.1f} MiB resident")

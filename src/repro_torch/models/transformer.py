@@ -9,8 +9,17 @@ absorbs writes of padding rows.  The contiguous slot cache is ``[L, 2, B,
 Hkv, Smax, Dh]``, one row per batch slot (the reference's parity baseline).
 The layer loop is a Python loop; cache writes are in place.  An 'L'
 layer of ``cfg.attn_pattern`` decodes within its last ``cfg.local_window``
-positions; the chunked prefill attends unwindowed on every layer, as the
+positions; the sparse prefill attends unwindowed on every layer, as the
 reference's does.
+
+Attention is S-HPLB sparse (work lists) or dense, the reference's baseline.
+Dense chunks run the sparse prefill kernel over a dense causal work list
+(:func:`dense_chunk_items`), the monolithic :func:`prefill` runs the dense
+flash attention kernel over the prompt, and dense decode runs the decode
+kernels over every resident block (:func:`dense_decode_items`).  The
+reference windows its dense prefill on 'L' layers; the port's prefill
+kernels have no window, so dense prefill raises ``NotImplementedError`` on
+a config with 'L' layers.
 
 A quantized cache (``kv_dtype`` int8 or fp8) holds codes in the pool or
 slot cache and one float32 scale per (block, kv head) tile beside it:
@@ -22,12 +31,17 @@ kernels take the scales beside the codes.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.attention.rope import apply_rope
 from repro_torch.configs import TransformerConfig
 from repro_torch.core import quant
+from repro_torch.core.worklist import (
+    F_FIRST, F_HEAD, F_KVBLK, F_KVHEAD, F_LAST, F_QBLK, F_VALID, ITEM_FIELDS,
+    padded_decode_items)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
 
@@ -138,6 +152,38 @@ def _block_out(x, o, lp):
                              lp["mlp"]["down"])
 
 
+def _tiles(n: int, tile: int) -> list[slice]:
+    """Row slices of ``tile`` rows covering ``n`` (the last may be
+    short)."""
+    return [slice(i, min(i + tile, n)) for i in range(0, n, tile)]
+
+
+def _prefill_qkv(x, lp, cfg: TransformerConfig, positions):
+    """A prefill layer's rows ``x [B, S, d]`` -> q, k, v (``_qkv`` after the
+    pre-norm), one q block of rows at a time.
+
+    Prefill's row-wise work (norms, projections, FFN) runs in tiles of
+    ``cfg.block_q`` rows so that a row meets the same op shapes whichever
+    prefill holds it, a chunk or the whole prompt: the matmul and
+    reduction kernels a library picks, and the order of their sums, can
+    change with the row count.  Chunks start on whole blocks, so their
+    tiles line up with the prompt's, and chunked == monolithic bit for
+    bit."""
+    parts = [_qkv(common.rmsnorm(x[:, t], lp["ln1"]), lp["attn"], cfg,
+                  positions[t]) for t in _tiles(x.shape[1], cfg.block_q)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def _prefill_out(x, o, lp, cfg: TransformerConfig):
+    """``_block_out`` of prefill rows, one q block of rows at a time (see
+    :func:`_prefill_qkv`)."""
+    parts = [_block_out(x[:, t], o[:, :, t], lp)
+             for t in _tiles(x.shape[1], cfg.block_q)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def _logits(x, params, cfg: TransformerConfig):
     x = common.rmsnorm(x, params["ln_f"])
     if cfg.tie_embeddings:
@@ -153,32 +199,189 @@ def _window_of(cfg: TransformerConfig, layer: int) -> int | None:
     return cfg.local_window if cfg.layer_kind(layer) == "L" else None
 
 
+def check_dense_prefill(cfg: TransformerConfig) -> None:
+    """Raise ``NotImplementedError`` if ``cfg`` has sliding-window ('L')
+    layers: the reference's dense prefill is windowed there, and neither
+    prefill kernel (``csrc/sparse_prefill.cuh``, ``csrc/flash_attention.cu``)
+    has a windowed form yet."""
+    if any(cfg.layer_kind(l) == "L" for l in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"dense prefill on {cfg.name}'s sliding-window layers (pattern "
+            f"{cfg.attn_pattern!r}, window {cfg.local_window}) is not ported: "
+            f"it needs the windowed forms of the sparse prefill kernel "
+            f"(dense chunks) and the flash attention kernel (monolithic "
+            f"prefill)")
+
+
+def dense_chunk_items(num_heads: int, group_size: int, *, block_q: int,
+                      block_kv: int, q_offset: int,
+                      q_blocks: int) -> np.ndarray:
+    """The dense causal work list of a prefill chunk, ``[N, ITEM_FIELDS]``
+    int32: for every head (kv head ``head // group_size``) and each of the
+    chunk's first ``q_blocks`` q blocks (chunk-local), one run over every
+    kv block up to its diagonal, ``0 .. (q_offset + (qb + 1) * block_q - 1)
+    // block_kv``, heads outer and q blocks inner as the sparse lists."""
+    runs = []
+    for qb in range(q_blocks):
+        n = (q_offset + (qb + 1) * block_q - 1) // block_kv + 1
+        it = np.zeros((n, ITEM_FIELDS), np.int32)
+        it[:, F_QBLK] = qb
+        it[:, F_KVBLK] = np.arange(n)
+        it[0, F_FIRST] = 1
+        it[-1, F_LAST] = 1
+        it[:, F_VALID] = 1
+        runs.append(it)
+    one = np.concatenate(runs)
+    items = np.tile(one, (num_heads, 1))
+    heads = np.repeat(np.arange(num_heads, dtype=np.int32), len(one))
+    items[:, F_HEAD] = heads
+    items[:, F_KVHEAD] = heads // group_size
+    return items
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_chunk_list(num_heads: int, group_size: int, block_q: int,
+                      block_kv: int, q_offset: int, q_blocks: int,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`dense_chunk_items` on ``device``, memoized."""
+    return torch.from_numpy(dense_chunk_items(
+        num_heads, group_size, block_q=block_q, block_kv=block_kv,
+        q_offset=q_offset, q_blocks=q_blocks)).to(device)
+
+
+def _chunk_lists(sparse_items, cfg: TransformerConfig, C: int, q_offset: int,
+                 kv_len: int, device):
+    """Per-layer prefill work lists of a chunk: ``sparse_items``, or the
+    dense causal list over the q blocks that hold a row below ``kv_len``
+    (the same list for every layer)."""
+    if sparse_items is not None:
+        return sparse_items
+    check_dense_prefill(cfg)
+    rows = min(max(kv_len - q_offset, 1), C)
+    dense = _dense_chunk_list(cfg.num_heads, cfg.group_size, cfg.block_q,
+                              cfg.block_kv, q_offset, -(-rows // cfg.block_q),
+                              torch.device(device))
+    return [dense] * cfg.num_layers
+
+
+def dense_decode_items(positions: np.ndarray, active: np.ndarray,
+                       num_kv_heads: int, block: int) -> np.ndarray:
+    """Dense decode's item table ``[B*Hkv*W, DEC_FIELDS]`` int32: the padded
+    table of per-slot block ids that cover every resident block, ``0 ..
+    positions[b] // block`` for each kv head of an active row (-1 pads to
+    the widest row's W; an inactive row selects nothing and its output is
+    zero) — the reference's dense decode under striping, with one stripe."""
+    nb = np.where(active, np.asarray(positions) // block + 1, 0)
+    width = max(int(nb.max()), 1)
+    j = np.arange(width)
+    ids = np.where(j[None, :] < nb[:, None], j[None, :], -1).astype(np.int32)
+    return padded_decode_items(
+        np.repeat(ids[:, None, :], num_kv_heads, axis=1))
+
+
+def scatter_seq_cache_paged(pool, seq_cache, table, *, scales=None,
+                            kv_dtype: str = "bf16"):
+    """Land a whole prefilled sequence cache in the pool, in place (the
+    monolithic prefill's paged merge).
+
+    ``seq_cache [L, 2, 1, Hkv, S, Dh]`` with ``S`` a block multiple;
+    ``table [T]`` int32 logical -> pool block (-1 pad: blocks past the
+    mapped prefix scatter into the trash block, the pool's last).  A
+    quantized pool (``scales [L, 2, N+1, Hkv]`` and the storage
+    ``kv_dtype``) takes each block's codes and its scale, quantized at the
+    scatter as the reference does.  Returns ``pool``, or ``(pool,
+    scales)``."""
+    L, _, _, hkv, S, dh = seq_cache.shape
+    block = pool.shape[4]
+    trash = pool.shape[2] - 1
+    nblk = S // block
+    blocks = seq_cache[:, :, 0].reshape(L, 2, hkv, nblk, block,
+                                        dh).transpose(2, 3)
+    tbl = table[:nblk]
+    gids = torch.where(tbl >= 0, tbl, trash).long()
+    if scales is None:
+        pool[:, :, gids] = blocks.to(pool.dtype)
+        return pool
+    codes, s = quant.quantize_pool_blocks(blocks, kv_dtype)
+    quant.code_bits(pool)[:, :, gids] = quant.code_bits(codes)
+    scales[:, :, gids] = s
+    return pool, scales
+
+
+def prefill(params, tokens, cfg: TransformerConfig, *,
+            cache_len: int | None = None, sparse_items=None,
+            last_index: int | None = None):
+    """Monolithic prefill: ``tokens [B, S]`` (the prompt bucket) -> (logits
+    ``[B, V]`` float32 at ``last_index``, default the last row; the
+    sequence cache ``[L, 2, B, Hkv, cache_len, Dh]`` in the model's dtype,
+    the K/V of every bucket row and zeros past ``S``).
+
+    ``sparse_items``: per-layer ``[P, ITEM_FIELDS]`` int32 work lists of the
+    prompt bucket (S-HPLB sparse prefill over the sequence's own K/V, the
+    contiguous sparse prefill kernel at ``q_offset`` 0), or None for dense
+    causal attention (the flash attention kernel).  The cache holds the
+    full K/V either way."""
+    B, S = tokens.shape
+    max_len = S if cache_len is None else cache_len
+    if max_len < S:
+        raise ValueError(f"cache_len {max_len} < prompt bucket {S}")
+    if sparse_items is None:
+        check_dense_prefill(cfg)
+    # the row-wise work runs on whole q blocks of rows (_prefill_qkv): a
+    # ragged bucket's last block is padded with token 0 rows, which
+    # attention never sees and the cache never holds
+    rows = -(-S // cfg.block_q) * cfg.block_q
+    positions = torch.arange(rows, device=tokens.device)
+    x = params["embed"][torch.nn.functional.pad(tokens, (0, rows - S))]
+    cache = x.new_zeros((cfg.num_layers, 2, B, cfg.num_kv_heads, max_len,
+                         cfg.head_dim_))
+    o = x.new_zeros((B, cfg.num_heads, rows, cfg.head_dim_))
+    for l, lp in enumerate(params["layers"]):
+        q, k, v = _prefill_qkv(x, lp, cfg, positions)
+        cache[l, 0, :, :, :S] = k[:, :, :S]
+        cache[l, 1, :, :, :S] = v[:, :, :S]
+        for b in range(B):
+            qb = q[b, :, :S].contiguous()
+            kb, vb = k[b, :, :S].contiguous(), v[b, :, :S].contiguous()
+            if sparse_items is None:
+                o[b, :, :S] = kernel_ops.flash_attention(
+                    qb, kb, vb, causal=True, block_q=cfg.block_q,
+                    block_kv=cfg.block_kv)
+            else:
+                o[b, :, :S] = kernel_ops.sparse_prefill_contiguous(
+                    qb, kb, vb, sparse_items[l], block_q=cfg.block_q,
+                    block_kv=cfg.block_kv)
+        x = _prefill_out(x, o, lp, cfg)
+    last = S - 1 if last_index is None else last_index
+    return _logits(x[:, last:last + 1], params, cfg)[:, 0], cache
+
+
 def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
                   cfg: TransformerConfig, *, kv_len: int | None = None,
-                  sparse_items, last_index: int | None = None):
+                  sparse_items=None, last_index: int | None = None):
     """Contiguous partial prefill of one sequence chunk into row ``slot`` of
     ``cache [L, 2, B, Hkv, Smax, Dh]``, in place.
 
     ``tokens [1, C]`` (the chunk bucket); ``slot`` / ``q_offset`` /
     ``kv_len`` / ``last_index`` are host ints; ``sparse_items [L, P,
-    ITEM_FIELDS]`` int32 chunk work lists.  Each layer writes the chunk's
-    K/V at rows ``[q_offset, q_offset + C)`` of the slot, then the chunk's
-    queries attend the slot row in place (keys ``< kv_len``) with the
-    sparse prefill kernel.  Returns logits ``[1, V]`` float32 at
-    chunk-local ``last_index`` (default: the last row).
+    ITEM_FIELDS]`` int32 chunk work lists, or None for dense attention
+    (:func:`dense_chunk_items`).  Each layer writes the chunk's K/V at rows
+    ``[q_offset, q_offset + C)`` of the slot, then the chunk's queries
+    attend the slot row in place (keys ``< kv_len``) with the sparse
+    prefill kernel.  Returns logits ``[1, V]`` float32 at chunk-local
+    ``last_index`` (default: the last row).
     """
-    if sparse_items is None:
-        raise NotImplementedError("dense chunked prefill is not ported yet")
     _, C = tokens.shape
     if q_offset + C > cache.shape[4]:
         raise ValueError("chunk overruns the slot cache")
     kv_len = q_offset + C if kv_len is None else kv_len
+    lists = _chunk_lists(sparse_items, cfg, C, q_offset, kv_len,
+                         tokens.device)
     positions = q_offset + torch.arange(C, device=tokens.device)
     rows = slice(q_offset, q_offset + C)
     x = params["embed"][tokens]                            # [1, C, d]
     for l, lp in enumerate(params["layers"]):
-        h = common.rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv(h, lp["attn"], cfg, positions)
+        q, k, v = _prefill_qkv(x, lp, cfg, positions)
         kc, vc = cache[l, 0, slot], cache[l, 1, slot]      # [Hkv, Smax, Dh]
         kc[:, rows] = k[0].to(kc.dtype)
         vc[:, rows] = v[0].to(vc.dtype)
@@ -186,16 +389,16 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
         # list unwindowed on every layer (only its decode applies
         # local_window), and the port keeps its tokens
         o = kernel_ops.sparse_prefill_contiguous(
-            q[0], kc, vc, sparse_items[l], block_q=cfg.block_q,
+            q[0], kc, vc, lists[l], block_q=cfg.block_q,
             block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len)[None]
-        x = _block_out(x, o, lp)
+        x = _prefill_out(x, o, lp, cfg)
     last = C - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0]
 
 
 def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
                         cfg: TransformerConfig, *, kv_len: int | None = None,
-                        sparse_items, last_index: int | None = None,
+                        sparse_items=None, last_index: int | None = None,
                         scales=None, kv_dtype: str = "bf16"):
     """Paged partial prefill of one sequence chunk; writes ``pool`` in
     place.
@@ -204,7 +407,8 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     bucket); ``table [T]`` int32 logical -> pool block of this sequence (-1
     pad: bucket-padding blocks past the prompt scatter into the trash
     block); ``q_offset`` / ``kv_len`` / ``last_index`` are host ints;
-    ``sparse_items [L, P, ITEM_FIELDS]`` int32 chunk work lists.  Each
+    ``sparse_items [L, P, ITEM_FIELDS]`` int32 chunk work lists, or None for
+    dense attention (:func:`dense_chunk_items`).  Each
     layer scatters the chunk's K/V into its pool blocks in place
     (``index_put_``), then the chunk's queries attend the resident prefix
     through the table with the sparse prefill kernel.  Returns logits
@@ -217,8 +421,6 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     scales beside the codes.  Returns ``(logits, pool, scales)`` then
     (both written in place).
     """
-    if sparse_items is None:
-        raise NotImplementedError("dense chunked prefill is not ported yet")
     _, C = tokens.shape
     block = pool.shape[4]
     trash = pool.shape[2] - 1
@@ -229,6 +431,8 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     if ob + nblk > table.shape[0]:
         raise ValueError("chunk overruns the sequence's block table")
     kv_len = q_offset + C if kv_len is None else kv_len
+    lists = _chunk_lists(sparse_items, cfg, C, q_offset, kv_len,
+                         tokens.device)
     positions = q_offset + torch.arange(C, device=tokens.device)
     gsl = table[ob:ob + nblk]
     gids = torch.where(gsl >= 0, gsl, trash).long()
@@ -236,8 +440,7 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     ks = vs = None
     x = params["embed"][tokens]                            # [1, C, d]
     for l, lp in enumerate(params["layers"]):
-        h = common.rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv(h, lp["attn"], cfg, positions)
+        q, k, v = _prefill_qkv(x, lp, cfg, positions)
         kc, vc = pool[l, 0], pool[l, 1]
         k_blocks = k[0].reshape(hkv, nblk, block, dh).transpose(0, 1)
         v_blocks = v[0].reshape(hkv, nblk, block, dh).transpose(0, 1)
@@ -253,13 +456,29 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
         # unwindowed on every layer, as the reference's paged chunked
         # prefill (see prefill_chunk)
         o = kernel_ops.sparse_prefill(
-            q[0], kc, vc, sparse_items[l], table, block_q=cfg.block_q,
+            q[0], kc, vc, lists[l], table, block_q=cfg.block_q,
             block_kv=block, q_offset=q_offset, kv_len=kv_len, k_scales=ks,
             v_scales=vs)[None]
-        x = _block_out(x, o, lp)
+        x = _prefill_out(x, o, lp, cfg)
     last = C - 1 if last_index is None else last_index
     logits = _logits(x[:, last:last + 1], params, cfg)[:, 0]
     return (logits, pool, scales) if qz else logits
+
+
+def _decode_work(packed_items, block_ids, pos, active, cfg, block: int):
+    """The decode step's per-layer packed item tables: ``packed_items``;
+    None where ``block_ids`` is given (each layer's ids run as the padded
+    table); or, given neither, dense decode's table (the same for every
+    layer) from the rows' positions, read on the host."""
+    if packed_items is not None and block_ids is not None:
+        raise ValueError("pass at most one of packed_items and block_ids")
+    if packed_items is not None or block_ids is not None:
+        return packed_items
+    act = (np.ones(pos.shape[0], bool) if active is None
+           else active.cpu().numpy())
+    items = torch.from_numpy(dense_decode_items(
+        pos.cpu().numpy(), act, cfg.num_kv_heads, block)).to(pos.device)
+    return items.expand(cfg.num_layers, -1, -1)
 
 
 def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
@@ -271,7 +490,8 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
     ``token [B]`` int; ``pos [B]`` int32 (the position each row writes);
     ``packed_items [L, Lb, DEC_FIELDS]`` int32 cost-packed decode work lists
     or, instead, ``block_ids [L, B, Hkv, nb]`` int32 per-slot selections
-    (-1 pad), run as the padded item table; ``active
+    (-1 pad), run as the padded item table, or neither for dense attention
+    over every resident block (:func:`dense_decode_items`); ``active
     [B]`` bool.  Active rows write their new K/V token at ``pos``; inactive
     rows write their current row back, so their cache rows keep their
     values (the contiguous layout has no trash block).  Returns logits
@@ -284,12 +504,12 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
     ``where``).  Returns ``(logits, cache, scales)`` then (both written in
     place).
     """
-    if (packed_items is None) == (block_ids is None):
-        raise ValueError("pass exactly one of packed_items and block_ids")
     B = token.shape[0]
     dev = token.device
     qz = scales is not None
     blk = cfg.block_kv
+    packed_items = _decode_work(packed_items, block_ids, pos, active, cfg,
+                                blk)
     if qz and cache.shape[4] % blk:
         raise ValueError("a quantized slot cache needs Smax % block_kv == 0")
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
@@ -348,7 +568,8 @@ def decode_step_paged(params, pool, token, pos, table,
     ``packed_items [L, Lb, DEC_FIELDS]`` int32 cost-packed decode work
     lists (LOGICAL kv blocks) or, instead, ``block_ids [L, B, Hkv, nb]``
     int32 LOGICAL per-slot selections (-1 pad), run as the padded item
-    table; ``active [B]`` bool.  Each row's new K/V
+    table, or neither for dense attention over every resident block
+    (:func:`dense_decode_items`); ``active [B]`` bool.  Each row's new K/V
     token is written in place (``index_put_``) into its current block,
     ``(table[b, pos // block], pos % block)``; inactive or unmapped rows
     write the trash block.  Returns logits ``[B, V]`` float32.
@@ -361,12 +582,12 @@ def decode_step_paged(params, pool, token, pos, table,
     block.  Returns ``(logits, pool, scales)`` then (both written in
     place).
     """
-    if (packed_items is None) == (block_ids is None):
-        raise ValueError("pass exactly one of packed_items and block_ids")
     B = token.shape[0]
     block = pool.shape[4]
     trash = pool.shape[2] - 1
     dev = token.device
+    packed_items = _decode_work(packed_items, block_ids, pos, active, cfg,
+                                block)
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active)
     phys = table.gather(1, (pos // block).long()[:, None])[:, 0]

@@ -8,6 +8,15 @@ chunked prefill whose per-chunk work lists are slices of the prompt
 bucket's lists, and decode over either cost-packed work lists padded to pow2
 item buckets (``decode_worklist="packed"``, the default) or the padded
 per-slot block-id grid (``"padded"``, the step-invariant baseline).  The
+paper's baselines run too: ``attention="dense"`` (no plan; dense chunks
+through the sparse prefill kernel on a dense causal work list, monolithic
+prefill through the dense flash attention kernel, decode over every
+resident block; refused on a config with sliding-window layers, whose
+windowed dense prefill is not ported), ``prefill_mode="monolithic"``
+(whole prompts at admission) and ``prefill_buckets="exact"`` (the prompt's
+own length as its bucket).  Sampling is greedy or stochastic (temperature,
+top-k, top-p) from one ``torch.Generator`` on the device, seeded by
+``EngineConfig.seed``.  The
 KV cache is the paged pool (``cache_layout="paged"``, the default) or the
 contiguous slot cache (``"contiguous"``, the parity baseline: chunks build
 in a one-sequence staging cache merged into the slot row at the final
@@ -22,7 +31,8 @@ device as the reference does: the plan places KV groups on D shards, the
 packed decode table is the D shards' lists end to end (``[L, D*bucket]``,
 pads between them), and ``decode_bubble_stats`` reads the grid's padding
 and the shards' imbalance.  D must divide the KV heads (``kv_group``
-placement).  Other ``EngineConfig`` options raise ``NotImplementedError``.
+placement).  The options that ``EngineConfig.check_supported`` lists as not
+ported raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,14 +54,13 @@ from repro_torch.core.worklist import (
     worklist_from_budgets)
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kv_cache import PagedKVCache
-from repro_torch.serving import sampler
 from repro_torch.serving.sampler import SamplingParams, sample
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    attention: str = "sparse"        # S-HPLB sparse attention
+    attention: str = "sparse"        # "sparse" (S-HPLB) | "dense"
     policy: str = "strided"          # static selection policy
     budget_per_head: int = 512       # k — the uniform-equivalent budget
     block: int = 128
@@ -61,13 +70,20 @@ class EngineConfig:
     num_model_shards: int = 1        # HP degree for planning
     max_seq_len: int = 4096
     num_slots: int = 8
+    # prefill bucket policy: "pow2" pads prompts up to the next power of
+    # two; "exact" takes each prompt's own length (its work lists too)
     prefill_buckets: str = "pow2"
-    prefill_mode: str = "chunked"
+    # chunked prefill (Sarathi-style mixed ticks): each scheduler tick runs
+    # at most one prefill chunk of <= prefill_chunk_tokens alongside the
+    # full decode batch, so admissions never stall decodes.  "monolithic"
+    # prefills whole prompts at admission (the benchmark baseline).
+    prefill_mode: str = "chunked"    # "chunked" | "monolithic"
     prefill_chunk_tokens: int = 256  # per-tick token budget (chunk cap)
     cache_layout: str = "paged"
     num_kv_blocks: int | None = None  # None = num_slots * max_seq / block
     kv_dtype: str = "bf16"
     decode_worklist: str = "packed"
+    seed: int = 0                    # the sampling generator's seed
     # reference options whose non-default values are not ported yet
     seq_shards: int = 1
     replan_every: int | None = None
@@ -78,8 +94,9 @@ class EngineConfig:
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for options the port does not run
         yet."""
-        ported = {"attention": ("sparse",), "prefill_buckets": ("pow2",),
-                  "prefill_mode": ("chunked",),
+        ported = {"attention": ("sparse", "dense"),
+                  "prefill_buckets": ("pow2", "exact"),
+                  "prefill_mode": ("chunked", "monolithic"),
                   "cache_layout": ("paged", "contiguous"),
                   "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
@@ -99,11 +116,13 @@ class Engine:
 
     ``device`` holds the params and the KV pool; it defaults to CUDA and
     the engine raises when CUDA is absent.  Pass ``device="cpu"`` to run
-    every kernel's plain PyTorch version instead.
+    every kernel's plain PyTorch version instead.  ``profile`` is required
+    for sparse attention; dense attention plans nothing.
     """
 
     def __init__(self, cfg: TransformerConfig, params: dict,
-                 engine_cfg: EngineConfig, profile: HeadSparsityProfile,
+                 engine_cfg: EngineConfig,
+                 profile: HeadSparsityProfile | None,
                  device: str | torch.device = "cuda"):
         engine_cfg.check_supported()
         self.device = torch.device(device)
@@ -113,9 +132,10 @@ class Engine:
                                "run the plain PyTorch kernels")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if profile is None:
-            raise ValueError("sparse attention needs a sparsity profile")
         ecfg = engine_cfg
+        self.sparse = ecfg.attention == "sparse"
+        if self.sparse and profile is None:
+            raise ValueError("sparse attention needs a sparsity profile")
         if ecfg.max_seq_len % ecfg.block:
             raise ValueError("chunked prefill needs max_seq_len % block "
                              "== 0")
@@ -126,7 +146,9 @@ class Engine:
                                       block_kv=ecfg.block)
         self.cfg = cfg
         self.ecfg = ecfg
-        if cfg.num_kv_heads % ecfg.num_model_shards:
+        if not self.sparse:
+            tfm.check_dense_prefill(cfg)
+        if self.sparse and cfg.num_kv_heads % ecfg.num_model_shards:
             raise NotImplementedError(
                 f"EngineConfig.num_model_shards={ecfg.num_model_shards} is "
                 f"not ported for {cfg.num_kv_heads} KV heads: it needs the "
@@ -134,12 +156,15 @@ class Engine:
                 f"while the one-device attention pairs q slot s with kv "
                 f"head s // G (the port runs degrees that divide the KV "
                 f"heads)")
-        self.plan: HPLBPlan = make_plan(
-            profile, num_devices=ecfg.num_model_shards,
-            num_kv_heads=cfg.num_kv_heads, seq_len=ecfg.max_seq_len,
-            total_budget_per_head=ecfg.budget_per_head, block=ecfg.block,
-            floor=ecfg.floor, allocator=ecfg.allocator,
-            partitioner=ecfg.partitioner)
+        # dense attention has no plan and keeps the heads in place
+        self.plan: HPLBPlan | None = None
+        if self.sparse:
+            self.plan = make_plan(
+                profile, num_devices=ecfg.num_model_shards,
+                num_kv_heads=cfg.num_kv_heads, seq_len=ecfg.max_seq_len,
+                total_budget_per_head=ecfg.budget_per_head,
+                block=ecfg.block, floor=ecfg.floor,
+                allocator=ecfg.allocator, partitioner=ecfg.partitioner)
         self.params = self._permute_params(params)
         self.paged = ecfg.cache_layout == "paged"
         # quantized KV: codes in kv_cache_dtype with per-(block, kv head)
@@ -190,6 +215,7 @@ class Engine:
         # their item caps, decode selections per resident block count, and
         # an LRU of packed decode plans keyed by the per-slot block counts
         self._worklists_cache: dict[int, list[WorkList]] = {}
+        self._prefill_items_cache: dict[int, list[torch.Tensor]] = {}
         self._chunk_cap: dict[int, int] = {}
         self._chunk_wl_cache: dict[tuple, torch.Tensor] = {}
         self._decode_ids_by_nblocks: dict[int, np.ndarray] = {}
@@ -201,20 +227,25 @@ class Engine:
                              "padded_grid_items": 0, "imbalance_sum": 0.0,
                              "plan_hits": 0, "plan_misses": 0,
                              "plan_prefetches": 0, "last": {}}
+        # the stochastic sampler's generator (the reference's PRNGKey(0))
+        self.rng = torch.Generator(device=self.device).manual_seed(ecfg.seed)
 
     # -- offline artifacts -------------------------------------------------
     def _permute_params(self, params: dict) -> dict:
         """Apply the plan's head permutation to every layer's attention
-        projections (a new params dict; the input is not modified)."""
+        projections (a new params dict on the device; the input is not
+        modified).  Without a plan (dense) the heads stay in place."""
         cfg = self.cfg
         to = lambda t: t.to(self.device).contiguous()    # noqa: E731
         layers = []
-        for lp, layer_plan in zip(params["layers"], self.plan.layers):
+        for l, lp in enumerate(params["layers"]):
             ap = lp["attn"]
-            wq, wk, wv, wo = permute_attention_params(
-                ap["wq"], ap["wk"], ap["wv"], ap["wo"], layer_plan,
-                cfg.head_dim_, cfg.group_size,
-                kv_replicated=self.plan.mode == "kv_replication")
+            wq, wk, wv, wo = ap["wq"], ap["wk"], ap["wv"], ap["wo"]
+            if self.plan is not None:
+                wq, wk, wv, wo = permute_attention_params(
+                    wq, wk, wv, wo, self.plan.layers[l], cfg.head_dim_,
+                    cfg.group_size,
+                    kv_replicated=self.plan.mode == "kv_replication")
             layers.append({
                 "attn": {"wq": to(wq), "wk": to(wk), "wv": to(wv),
                          "wo": to(wo)},
@@ -427,7 +458,10 @@ class Engine:
 
     # -- chunked prefill ----------------------------------------------------
     def _prefill_bucket(self, seq_len: int) -> int:
-        """Next power of two (floored at one block, capped at max_seq_len)."""
+        """A prompt's bucket: the next power of two (floored at one block,
+        capped at max_seq_len), or its own length under ``"exact"``."""
+        if self.ecfg.prefill_buckets == "exact":
+            return seq_len
         b = self.ecfg.block
         while b < seq_len:
             b *= 2
@@ -482,12 +516,62 @@ class Engine:
             self._chunk_wl_cache[key] = got
         return got
 
+    def _prefill_items(self, bucket: int) -> list[torch.Tensor]:
+        """Per-layer ``[P, ITEM_FIELDS]`` work lists of a monolithic prefill
+        at ``bucket``, on device.  Memoized."""
+        got = self._prefill_items_cache.get(bucket)
+        if got is None:
+            got = [torch.from_numpy(
+                wl.items.reshape(-1, wl.items.shape[-1])).to(self.device)
+                for wl in self.worklists_for(bucket)]
+            self._prefill_items_cache[bucket] = got
+        return got
+
     def _table_for_slot(self, slot: int) -> np.ndarray:
         """``[T]`` int32 pool block ids (-1 pad) of the sequence in
         ``slot``."""
         return self.kv.table_row(self._batcher.rid_of_slot(slot))
 
     # -- device steps ---------------------------------------------------------
+    def prefill_into_slot(self, tokens: np.ndarray, slot: int,
+                          sampling: SamplingParams = SamplingParams()) -> int:
+        """Monolithic prefill of one whole prompt at its bucket into its
+        cache (the sequence's pool blocks, paged; the slot's row,
+        contiguous); returns the first sampled token.  The sequence cache
+        spans the bucket rounded up to whole blocks; a quantized cache
+        takes its codes and scales at the scatter (paged) or the slot
+        insert (contiguous), as the reference quantizes once."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        S = tokens.shape[0]
+        blk = self.ecfg.block
+        bucket = self._prefill_bucket(S)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :S] = tokens
+        logits, seq = tfm.prefill(
+            self.params, torch.from_numpy(toks).to(self.device), self.cfg,
+            cache_len=-(-bucket // blk) * blk,
+            sparse_items=self._prefill_items(bucket) if self.sparse else None,
+            last_index=S - 1)
+        if self.paged:
+            table = torch.from_numpy(self._table_for_slot(slot)).to(
+                self.device)
+            if self.quantized:
+                tfm.scatter_seq_cache_paged(
+                    self.kv.pool, seq, table, scales=self.kv.scales,
+                    kv_dtype=self.ecfg.kv_dtype)
+            else:
+                tfm.scatter_seq_cache_paged(self.kv.pool, seq, table)
+        elif self.quantized:
+            n = seq.shape[4]
+            codes, sc = quant.quantize_seq_cache(seq, blk,
+                                                 self.ecfg.kv_dtype)
+            quant.code_bits(self.cache)[:, :, slot, :, :n] = \
+                quant.code_bits(codes)[:, :, 0]
+            self.cache_scales[:, :, slot, :, :n // blk] = sc[:, :, 0]
+        else:
+            self.cache[:, :, slot, :, :seq.shape[4]] = seq[:, :, 0]
+        return int(sample(logits, sampling, self.rng)[0])
+
     def prefill_chunk_into_slot(self, tokens: np.ndarray, slot: int,
                                 q_offset: int, prompt_len: int,
                                 sampling: SamplingParams = SamplingParams(),
@@ -499,7 +583,9 @@ class Engine:
         bucket = self._chunk_bucket(c, q_offset)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :c] = tokens
-        items = self._chunk_worklists(prompt_len, q_offset, bucket)
+        # dense: None, and the model runs its dense causal chunk list
+        items = (self._chunk_worklists(prompt_len, q_offset, bucket)
+                 if self.sparse else None)
         toks = torch.from_numpy(toks).to(self.device)
         if self.paged:
             table = torch.from_numpy(self._table_for_slot(slot)).to(
@@ -531,7 +617,7 @@ class Engine:
                 self.cache_scales[:, :, slot] = sc[:, :, 0]
             else:
                 self.cache[:, :, slot] = self._staging[:, :, 0]
-        return int(sample(logits, sampling)[0])
+        return int(sample(logits, sampling, self.rng)[0])
 
     def decode_slots(self, slots, tokens, positions,
                      sampling: SamplingParams = SamplingParams()):
@@ -545,8 +631,17 @@ class Engine:
         pos_all[list(slots)] = positions
         act_all[list(slots)] = True   # padding rows must not write KV
         dev = self.device
-        packed = ecfg.decode_worklist == "packed"
-        if packed:
+        packed = self.sparse and ecfg.decode_worklist == "packed"
+        stats = None
+        if not self.sparse:
+            # dense: every resident block of each active row, one table
+            # for all layers; no plan, so no bubble telemetry (as the
+            # reference records none)
+            items = torch.from_numpy(tfm.dense_decode_items(
+                pos_all, act_all, self.cfg.num_kv_heads, ecfg.block)).to(dev)
+            work = {"packed_items": items.expand(self.cfg.num_layers, -1,
+                                                 -1)}
+        elif packed:
             items, stats = self._plan_for(self._nb_sig(pos_all))
             work = {"packed_items": items}
         else:
@@ -579,12 +674,13 @@ class Engine:
                                      self.cfg, active=act, **work)
         if self.quantized:
             logits = logits[0]
-        self._record_tick(stats)
+        if stats is not None:
+            self._record_tick(stats)
         if packed:
             # the step's kernels are queued on the stream: plan the next
             # tick now, before sampling waits for them
             self._prefetch_next_plan()
-        return sample(logits, sampling).cpu().numpy()[list(slots)]
+        return sample(logits, sampling, self.rng).cpu().numpy()[list(slots)]
 
     def kv_bytes(self) -> int:
         """Resident device bytes of the KV cache: the pool's codes and
@@ -602,20 +698,26 @@ class Engine:
         """A ContinuousBatcher for this engine.  Paged: it shares the pool's
         allocator, so admission and the device pool count the same blocks.
         Contiguous: its allocator is private accounting over
-        ``num_slots * max_seq_len / block`` blocks."""
+        ``num_slots * max_seq_len / block`` blocks.  Monolithic prefill
+        takes no chunk budget (whole prompts at admission)."""
         ecfg = self.ecfg
         self._batcher = ContinuousBatcher(
             num_slots=ecfg.num_slots,
             num_blocks=(self.kv.num_blocks if self.paged else
                         ecfg.num_slots * (ecfg.max_seq_len // ecfg.block)),
             max_seq_len=ecfg.max_seq_len, block=ecfg.block,
-            token_budget=ecfg.prefill_chunk_tokens,
+            token_budget=(ecfg.prefill_chunk_tokens
+                          if ecfg.prefill_mode == "chunked" else None),
             allocator=self.kv.alloc if self.paged else None)
         return self._batcher
 
     def step_fns(self, sampling: SamplingParams = SamplingParams()):
-        """(prefill_chunk_fn, decode_fn) closures for a ContinuousBatcher."""
+        """(prefill_chunk_fn, decode_fn) closures for a ContinuousBatcher.
+        Monolithic mode gets each whole prompt as one final chunk at offset
+        0 and prefills it at its bucket."""
         def prefill_chunk(toks, slot, q_offset, is_final, prompt_len):
+            if self.ecfg.prefill_mode == "monolithic":
+                return self.prefill_into_slot(toks[0], slot, sampling)
             return self.prefill_chunk_into_slot(
                 toks[0], slot, q_offset, prompt_len, sampling,
                 is_final=is_final)
@@ -630,7 +732,6 @@ class Engine:
         """Continuous-batching serve of a list of prompts.  Returns one
         Request per prompt in input order: completed requests carry their
         generated tokens, over-length ones come back ``rejected``."""
-        sampler.check_supported(sampling)
         batcher = self.make_batcher()
         for i, pr in enumerate(prompts):
             batcher.submit(Request(rid=i, prompt=np.asarray(pr, np.int32),

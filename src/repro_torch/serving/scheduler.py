@@ -7,6 +7,8 @@ Each tick runs at most one prefill CHUNK plus the full decode batch.
 Prompts split into block-aligned chunks (only the final chunk may be
 partial) of ``max(block, token_budget - num_active_decodes)`` tokens, so a
 long prompt is amortized over many ticks while decodes keep stepping.
+``token_budget=None`` is monolithic prefill: every admitted prompt is
+prefilled whole, at admission, as one final chunk.
 
 Contracts kept from the reference: over-length requests are rejected but
 still returned (``completed + rejected == submitted``); the token sampled at
@@ -74,12 +76,14 @@ class ContinuousBatcher:
     decode_fn(active_slots, tokens, positions) -> next tokens (per slot)
 
     ``token_budget``: per-tick token budget shared by one prefill chunk and
-    the decode batch.  ``allocator``: share the engine's pool allocator so
+    the decode batch, or None for monolithic prefill (whole prompts at
+    admission).  ``allocator``: share the engine's pool allocator so
     admission and the device pool count the same blocks.
     """
 
     def __init__(self, *, num_slots: int, num_blocks: int,
-                 max_seq_len: int, token_budget: int, block: int = 128,
+                 max_seq_len: int, token_budget: int | None,
+                 block: int = 128,
                  allocator: BlockAllocator | None = None,
                  clock: Callable[[], float] = time.monotonic):
         self.alloc = allocator or BlockAllocator(num_blocks, block)
@@ -142,9 +146,11 @@ class ContinuousBatcher:
         self.stats.rejected += 1
         finished.append(req)
 
-    def _admit(self, finished: list[Request]):
+    def _admit(self, prefill_chunk_fn, finished: list[Request]):
         """Claim a slot and blocks for queued requests, in arrival order,
-        while one fits; at most one sequence is mid-prefill at a time."""
+        while one fits.  Chunked mode holds at most one sequence
+        mid-prefill (its chunks run in :meth:`_prefill_step`); monolithic
+        mode prefills each admitted prompt whole, here."""
         while self._queue:
             req = self._queue[0]
             need = len(req.prompt) + req.sampling.max_tokens
@@ -166,7 +172,15 @@ class ContinuousBatcher:
             self._queue.popleft()
             self.stats.admitted += 1
             req.prefill_pos = 0
-            self.prefilling = req
+            if self.token_budget is None:
+                first = prefill_chunk_fn(req.prompt[None], slot, 0, True,
+                                         len(req.prompt))
+                req.prefill_pos = len(req.prompt)
+                self.stats.prefill_tokens += len(req.prompt)
+                self.stats.prefill_chunks += 1
+                self._finish_prefill(req, first, finished)
+            else:
+                self.prefilling = req
 
     def _prefill_step(self, prefill_chunk_fn, finished: list[Request]):
         """Run at most one prefill chunk, sized to the tick's leftover token
@@ -190,12 +204,17 @@ class ContinuousBatcher:
         self.stats.prefill_chunks += 1
         if final:
             self.prefilling = None
-            self.lengths[req.rid] = len(req.prompt) + 1
-            if self._record_token(req, int(first)):
-                self._retire(req)
-                finished.append(req)
-            else:
-                self.active[req.rid] = req
+            self._finish_prefill(req, first, finished)
+
+    def _finish_prefill(self, req: Request, first, finished: list[Request]):
+        """Prefill done: record the first sampled token and either retire
+        the request (the completion check decode uses) or activate it."""
+        self.lengths[req.rid] = len(req.prompt) + 1
+        if self._record_token(req, int(first)):
+            self._retire(req)
+            finished.append(req)
+        else:
+            self.active[req.rid] = req
 
     def _retire(self, req: Request):
         req.done = True
@@ -213,8 +232,9 @@ class ContinuousBatcher:
         """One scheduler iteration; returns the requests finished this tick
         (completed and rejected)."""
         finished: list[Request] = []
-        self._admit(finished)
-        self._prefill_step(prefill_chunk_fn, finished)
+        self._admit(prefill_chunk_fn, finished)
+        if self.token_budget is not None:
+            self._prefill_step(prefill_chunk_fn, finished)
         if self.active:
             rids = sorted(self.active)
             slots = [self._slot_of[r] for r in rids]

@@ -1087,3 +1087,241 @@ def test_cuda_sharded_f32_serve_matches_cpu(cuda, shards, layout):
             prompts, SamplingParams(max_tokens=10))])
     assert outs[0] == outs[1]
     assert decode.launches > before
+
+
+# -- the paper's baselines: dense attention, monolithic prefill, exact
+# buckets, stochastic sampling ----------------------------------------------
+
+@pytest.mark.parametrize("D,G", [(64, 3), (128, 8)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("S", [513, 1010, 3500, 512, 1024, 4096])
+def test_cuda_flash_attention_prompt_buckets(cuda, dtype, atol, S, D, G):
+    """#4 as the dense monolithic prefill runs it: causal, Sq = Skv = the
+    prompt bucket, at exact (ragged: not a multiple of 128) and pow2
+    lengths, against its plain version."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in ((2 * G, S, D), (2, S, D),
+                                          (2, S, D)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def dense_chunk_case(seed, H=6, Hkv=2, D=64, q_offset=256, chunk=256,
+                     real=200, kind=None):
+    """A dense chunk (``real`` rows of a ``chunk`` bucket at ``q_offset``)
+    over a pool holding the sequence, its table, the slot row holding the
+    same values, and the dense causal work list of its real q blocks; with
+    ``kind`` the pool holds int8 / fp8 codes and per-block scales."""
+    from repro_torch.models.transformer import dense_chunk_items
+    rng = np.random.default_rng(seed)
+    nblk = (q_offset + chunk) // BLK
+    T, N = nblk + 1, nblk + 3
+    q = rng.standard_normal((H, chunk, D)).astype(np.float32)
+    kp = rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+    vp = rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+    table = np.full((T,), -1, np.int32)
+    table[:nblk] = rng.permutation(N - 1)[:nblk]
+    items = dense_chunk_items(H, H // Hkv, block_q=BLK, block_kv=BLK,
+                              q_offset=q_offset, q_blocks=-(-real // BLK))
+    scales = None
+    if kind is not None:
+        kp, vp = quant_codes(kp, kind), quant_codes(vp, kind)
+        scales = [code_scales(rng, (N, Hkv), kind) for _ in range(2)]
+    return q, kp, vp, items, table, scales
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("q_offset,real", [(0, 256), (256, 200),
+                                           (512, 44)])
+def test_cuda_dense_chunk_list_through_prefill(cuda, dtype, atol, q_offset,
+                                               real):
+    """#2 over the dense causal chunk list, paged and contiguous, each
+    against its plain version, and the two layouts bit for bit."""
+    q, kp, vp, items, table, _ = dense_chunk_case(40 + q_offset,
+                                                  q_offset=q_offset,
+                                                  real=real)
+    kc = as_slot_cache(kp, table[None])[0]
+    vc = as_slot_cache(vp, table[None])[0]
+    q, kp, vp, kc, vc, items, table = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table))
+    q, kp, vp, kc, vc = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+    kw = dict(q_offset=q_offset, kv_len=q_offset + real)
+    paged = sparse_prefill_paged(q, kp, vp, items, table, **kw)
+    torch.testing.assert_close(
+        paged[:, :real].float(),
+        worklist_attention_paged(q, kp, vp, items, table, **kw)[
+            :, :real].float(), atol=atol, rtol=0)
+    contig = sparse_prefill_attention(q, kc, vc, items, **kw)
+    torch.testing.assert_close(
+        contig[:, :real].float(),
+        worklist_attention(q, kc, vc, items, **kw)[:, :real].float(),
+        atol=atol, rtol=0)
+    assert torch.equal(paged, contig)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_cuda_dense_chunk_list_over_codes(cuda, kind):
+    """The paged #2 code form over the dense chunk list (bf16 q, tolerance
+    2^-6, as the other code-form checks)."""
+    q, kp, vp, items, table, (ks, vs) = dense_chunk_case(50, kind=kind)
+    kp, vp = code_tensor(kp, kind).to(cuda), code_tensor(vp, kind).to(cuda)
+    q, items, table, ks, vs = (t.to(cuda) for t in as_torch(
+        q, items, table, ks, vs))
+    q = q.to(torch.bfloat16)
+    kw = dict(q_offset=256, kv_len=456, k_scales=ks, v_scales=vs)
+    got = sparse_prefill_paged(q, kp, vp, items, table, **kw)
+    want = worklist_attention_paged(q, kp, vp, items, table, **kw)
+    torch.testing.assert_close(got[:, :200].float(), want[:, :200].float(),
+                               atol=2.0 ** -6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, None),
+                                        (torch.float32, None),
+                                        (torch.float32, "int8"),
+                                        (torch.float32, "fp8")])
+def test_cuda_dense_decode_from_full_ids(cuda, dtype, kind):
+    """#1 and #3 over dense decode's table (every resident block of each
+    active row, one row inactive): each within 1e-4 of its plain version,
+    paged == contiguous bit for bit; with ``kind`` the code forms (q
+    float32, as the engine passes it over codes)."""
+    from repro_torch.models.transformer import dense_decode_items
+    B, Hkv, G, D, T = 4, 2, 3, 64, 8
+    rng = np.random.default_rng(60)
+    N = B * T + 1
+    q = rng.standard_normal((B, Hkv * G, 1, D)).astype(np.float32)
+    kp = rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+    vp = rng.standard_normal((N, Hkv, BLK, D)).astype(np.float32)
+    pos = np.array([3 * BLK + 5, 0, T * BLK - 1, BLK], np.int32)
+    act = np.array([True, False, True, True])
+    table = np.full((B, T), -1, np.int32)
+    perm = rng.permutation(N - 1)
+    for b in range(B):
+        nb = int(pos[b]) // BLK + 1
+        table[b, :nb] = perm[b * T:b * T + nb]
+    items = dense_decode_items(pos, act, Hkv, BLK)
+    scales = {}
+    if kind is not None:
+        kp, vp = quant_codes(kp, kind), quant_codes(vp, kind)
+        ks, vs = (code_scales(rng, (N, Hkv), kind) for _ in range(2))
+    kc, vc = as_slot_cache(kp, table), as_slot_cache(vp, table)
+
+    def slot_scales(s):
+        """The slot cache's scales [B, Hkv, T]: each row's blocks'."""
+        return np.stack([np.where(table[b][None, :] >= 0,
+                                  s[np.maximum(table[b], 0)].T, 1.0)
+                         for b in range(B)]).astype(np.float32)
+
+    cscales = {}
+    if kind is None:
+        kp, vp, kc, vc = (t.to(cuda, dtype) for t in as_torch(kp, vp, kc,
+                                                              vc))
+        q = q.astype(np.float32)
+    else:
+        kp, vp, kc, vc = (code_tensor(t, kind).to(cuda)
+                          for t in (kp, vp, kc, vc))
+        scales = dict(zip(("k_scales", "v_scales"), (
+            t.to(cuda) for t in as_torch(ks, vs))))
+        cscales = dict(zip(("k_scales", "v_scales"), (
+            t.to(cuda) for t in as_torch(slot_scales(ks), slot_scales(vs)))))
+    q, items, table, pos = (t.to(cuda) for t in as_torch(q, items, table,
+                                                         pos))
+    if kind is None:
+        q = q.to(dtype)
+    qg = q.reshape(B, Hkv, G, D)
+    paged = flash_decode_paged_kernel(qg, kp, vp, items, table, pos,
+                                      block_kv=BLK, **scales)
+    want = packed_decode_attention_paged(qg, kp, vp, items, table, pos,
+                                         block_kv=BLK, **scales)
+    contig = flash_decode_kernel(qg, kc, vc, items, pos, block_kv=BLK,
+                                 **cscales)
+    want_c = packed_decode_attention(qg, kc, vc, items, pos, block_kv=BLK,
+                                     **cscales)
+    rows = torch.from_numpy(act).to(cuda)
+    for got, w in ((paged, want), (contig, want_c)):
+        torch.testing.assert_close(got[0][rows], w[0][rows], atol=1e-4,
+                                   rtol=1e-5)
+    for a, c in zip(paged, contig):
+        assert torch.equal(a, c)
+
+
+def _baseline_serve(dev, dtype=torch.float32, max_tokens=8, sampling=None,
+                    **kw):
+    """A SMOKE serve of three prompts (300, 513, 40 tokens) on ``dev``:
+    its tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=dtype)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 513, 40)]
+    eng = Engine(cfg, init_params(cfg, seed=6, device=dev),
+                 EngineConfig(max_seq_len=1024, num_slots=4,
+                              budget_per_head=256, **kw),
+                 synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                 device=dev)
+    sampling = sampling or SamplingParams(max_tokens=max_tokens)
+    return [r.generated for r in eng.serve(prompts, sampling)]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(attention="dense"),
+    dict(attention="dense", prefill_mode="monolithic"),
+    dict(attention="dense", prefill_mode="monolithic",
+         prefill_buckets="exact"),
+    dict(prefill_mode="monolithic"),
+    dict(attention="dense", kv_dtype="int8")])
+def test_cuda_baseline_serves_match_cpu_and_layouts(cuda, mode):
+    """SMOKE float32 serves of the baselines: the card's greedy tokens
+    equal the plain versions' on the CPU, paged == contiguous on the card,
+    and a dense monolithic serve launched #4."""
+    before = flash_attention.launches
+    got = _baseline_serve(cuda, **mode)
+    assert got == _baseline_serve(cuda, cache_layout="contiguous", **mode)
+    assert got == _baseline_serve(torch.device("cpu"), **mode)
+    if mode.get("prefill_mode") == "monolithic" and "attention" in mode:
+        assert flash_attention.launches > before
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_bf16_chunked_equals_monolithic(cuda, layout):
+    """Sparse attention in bf16 on the card: chunked == monolithic (pow2
+    and exact buckets) greedy tokens, bit for bit."""
+    kw = dict(dtype=torch.bfloat16, cache_layout=layout, max_tokens=12)
+    base = _baseline_serve(cuda, **kw)
+    assert base == _baseline_serve(cuda, prefill_mode="monolithic", **kw)
+    assert base == _baseline_serve(cuda, prefill_mode="monolithic",
+                                   prefill_buckets="exact", **kw)
+
+
+def test_cuda_sampling_on_the_card(cuda):
+    """The sampler on CUDA logits with a CUDA generator: seeded draws
+    repeat and stay on the card, greedy is the argmax; a seeded stochastic
+    serve repeats itself, and greedy serves are unchanged by the seed."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.sampler import filter_logits, sample
+    logits = torch.randn((64, 1000), generator=torch.Generator().manual_seed(
+        0)).to(cuda)
+    p = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    draw = lambda: sample(logits, p, torch.Generator(  # noqa: E731
+        device=cuda).manual_seed(9))
+    a = draw()
+    assert a.device.type == "cuda" and torch.equal(a, draw())
+    assert torch.isfinite(filter_logits(logits, p).gather(
+        1, a.long()[:, None])).all()
+    assert torch.equal(sample(logits, SamplingParams()),
+                       logits.argmax(-1).int())
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, max_tokens=8)
+    one = _baseline_serve(cuda, sampling=sp)
+    assert one == _baseline_serve(cuda, sampling=sp)
+    assert one != _baseline_serve(cuda, sampling=sp, seed=1)
+    assert _baseline_serve(cuda) == _baseline_serve(cuda, seed=5)

@@ -81,7 +81,6 @@ def test_engine_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("option", [
-    {"attention": "dense"}, {"prefill_mode": "monolithic"},
     {"drift_threshold": 0.5}, {"num_model_shards": 3},
     {"seq_shards": 2}, {"replan_every": 8}, {"preemption": True},
     {"prefix_cache": True}])
@@ -102,8 +101,6 @@ def test_over_length_request_comes_back_rejected():
                      SamplingParams(max_tokens=8))
     assert done[0].rejected and done[0].reject_reason == "over_length"
     assert not done[0].generated and len(done[1].generated) == 8
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        eng.serve([np.arange(30)], SamplingParams(temperature=1.0))
 
 
 def test_allocator_reserves_maps_lazily_and_audits():
