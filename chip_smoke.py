@@ -57,7 +57,9 @@ Phases, in order; any failure exits non-zero:
    phases 3 and 4 at its shapes (the decodes also with its window), its
    widths at 6 layers (one ``LLLLLG`` period) in float32 with a prompt
    longer than the window (card tokens == CPU tokens, bf16 / int8 / fp8
-   caches, both layouts), and three full-width serves (26 layers);
+   caches, both layouts; and dense attention, monolithic and chunked, both
+   layouts, through the window forms of #4 and #2), and three full-width
+   serves (26 layers);
 8. the head-parallel degree (``num_model_shards`` = D: KV groups placed on
    D shards, emulated on the one card; the packed decode table holds the D
    shards' lists end to end, pads between them): #1 and #3 (bf16, f32) on
@@ -73,31 +75,51 @@ Phases, in order; any failure exits non-zero:
    path's, grid vs padded, mean shard imbalance, plan hits / misses /
    prefetches), the D = 1 serves' included;
 9. the paper's baselines and stochastic sampling (SmolLM-135M, and Yi-6B
-   after its own serves): #4 causal at the dense monolithic prefill's
-   prompt buckets (exact 513 / 1010 / 3500, pow2 1024 / 4096), #2 paged
-   and contiguous over a dense chunk's causal list, #1 and #3 over dense
-   decode's table of every resident block (bf16 and int8 codes), each
-   against its plain version and the layouts bit for bit, #4 timed at each
-   bucket; full-width serves (``BASELINE_SERVES``): dense attention with
+   and Gemma3-1B after their own serves): #4 causal at the dense
+   monolithic prefill's prompt buckets (exact 513 / 1010 / 3500, pow2 1024
+   / 4096), #2 paged and contiguous over a dense chunk's causal list, #1
+   and #3 over dense decode's table of every resident block (bf16 and int8
+   codes), each against its plain version and the layouts bit for bit, #4
+   timed at each bucket; at Gemma3-1B's shapes all of them in their window
+   forms (window 512, its 'L' layers'; #2 paged's int8 / fp8 code forms
+   too), #4 at 4096 and #2 on the dense chunk timed beside SDPA under the
+   windowed boolean mask and a bound over the pairs inside the window;
+   full-width serves (``BASELINE_SERVES``): dense attention with
    monolithic prefill (SmolLM-135M paged, contiguous, paged int8 and paged
-   with exact buckets; Yi-6B paged), whose #4 launches are counted, the
-   paged and contiguous ones giving equal tokens, and sparse monolithic
-   serves, whose tokens must equal the chunked serve's of their layout;
-   SmolLM-135M's stochastic serve (temperature 0.8, top-k 50, top-p 0.95,
-   the engine's generator seeded 0; the four prompts of at most 1010
-   tokens) twice, which must repeat itself; and
-   SMOKE float32 dense serves (monolithic and chunked, both layouts) whose
-   card tokens must equal the CPU's.
+   with exact buckets; Yi-6B paged; Gemma3-1B paged), whose #4 launches are
+   counted, the paged and contiguous ones giving equal tokens, Gemma3-1B's
+   dense chunked serves (paged and contiguous: equal tokens; against the
+   monolithic serve's reported), each windowed serve launching its
+   prefill kernel's window form, and sparse monolithic serves, whose tokens
+   must equal the chunked serve's of their layout; SmolLM-135M's
+   stochastic serve (temperature 0.8, top-k 50, top-p 0.95, the engine's
+   generator seeded 0; the four prompts of at most 1010 tokens) twice,
+   which must repeat itself; and SMOKE float32 dense serves (monolithic
+   and chunked, both layouts) whose card tokens must equal the CPU's;
+10. plan epochs: SmolLM-135M paged with ``REPLAN`` (a recovery probe
+    every 4 decode ticks, a replan every 16) completes every request and
+    reaches epoch 1 or later, every probe's estimator forward launching
+    #1; it prints the bubble stats, realized recovery and epochs, and a
+    probe tick's host time against a plain decode tick's; a SMOKE float32
+    replanning serve gives the CPU's tokens and epochs on the card; and
+    Yi-6B at D = 4 (``HEAD_MOVE``) moves its KV groups one shard on
+    mid-serve: replaying the frozen serve's tokens, its logits stay within
+    ``HEAD_MOVE_ATOL`` of the frozen serve's, a free moved serve's tokens
+    are reported, and the swap's parts (weights, the 2.16 GB pool's
+    kv-head gather) are timed.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
-Gemma3-1B's shapes, ``...@yi-6b`` / ``...@gemma3-1b``; its ``launches`` are
-those of the run that launches it on a serving path (a full-width serve;
-for #4 the dense monolithic paged serve, or, at Gemma3-1B's shapes, whose
-dense attention is refused, the library-path run; the library-path run for
-#5; the float32 parity serves for the f32
-forms and the code decodes no full-width serve runs; the paged int8 serve
-for the bf16-q fp8 prefill, which no serve launches, so its count is 0).
+Gemma3-1B's shapes, ``...@yi-6b`` / ``...@gemma3-1b``, and the window
+forms ``<kernel>.window@gemma3-1b``; its ``launches`` are those of the run
+that launches it on a serving path (a full-width serve; for #4 the dense
+monolithic paged serve, whose 'G' layers run the unwindowed form and 'L'
+layers the window form; for #2's window forms the dense chunked serve of
+their layout; the library-path run for #5; the float32 parity serves for
+the f32 forms and the code decodes no full-width serve runs; the paged
+int8 serve for the bf16-q fp8 prefill, which no serve launches, so its
+count is 0).  A kernel's plain name counts its launches but those of its
+window form.
 
 The last two lines are a JSON object of per-kernel numbers and the card
 line, then ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -199,7 +221,33 @@ BASELINE_SERVES = {
     "yi-6b": (
         ("dense,monolithic,paged",
          dict(attention="dense", prefill_mode="monolithic")),
-        ("sparse,monolithic,paged", dict(prefill_mode="monolithic")))}
+        ("sparse,monolithic,paged", dict(prefill_mode="monolithic"))),
+    # the windowed dense prefill: #4's window form on the prompt bucket
+    # (monolithic), #2's over dense chunks (chunked, both layouts)
+    "gemma3-1b": (
+        ("dense,monolithic,paged",
+         dict(attention="dense", prefill_mode="monolithic")),
+        ("dense,chunked,paged", dict(attention="dense")),
+        ("dense,chunked,contiguous",
+         dict(attention="dense", cache_layout="contiguous")))}
+# the kernels whose window forms a sliding-window model's dense prefill
+# runs on its 'L' layers (the kernels line's "<kernel>.window@<model>")
+WINDOW_KERNELS = ("flash_attention", "sparse_prefill_paged",
+                  "sparse_prefill_contig")
+# plan epochs (phase 10): SmolLM-135M's replanning serve, and the model and
+# degree of the forced head move (its KV groups rotated across the shards
+# mid-serve, at the first tick from HEAD_MOVE_TICK with every prompt
+# prefilled: a moved head's prefill lists would select other blocks, as the
+# strided policy takes the slot, but a decode selection moves with its KV
+# group); the moved serve replays the frozen serve's tokens and its
+# logits must stay within HEAD_MOVE_ATOL of the frozen serve's (median,
+# max): a moved wo sums the heads in another order, so bf16 logits differ
+# by rounding; the max limit is half the planted one-call fault of the
+# quantized parity (an output shifted by 1.0)
+REPLAN = dict(telemetry_every=4, replan_every=16)
+HEAD_MOVE = {"yi-6b": 4}
+HEAD_MOVE_TICK = 12
+HEAD_MOVE_ATOL = (0.1, 0.5)
 # the prompt buckets #4 takes in those serves: exact (ragged) lengths of
 # SERVE_LENS and pow2 buckets
 FLASH_BUCKETS = (513, 1010, 3500, 1024, 4096)
@@ -240,8 +288,12 @@ FORMS = (*KERNELS,
              *(f"{n}{sh.tag}" for n in KERNELS),
              *(f"{n}.f32{sh.tag}" for n in PATH_KERNELS),
              *(f"{n}.{k}{sh.tag}" for n in CODE_KERNELS
-               for k in QUANT_KINDS))))
-KIND_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn", "f32": "float32"}
+               for k in QUANT_KINDS))),
+         *(f"{n}.window{GEMMA.tag}" for n in WINDOW_KERNELS))
+# a form's kind -> the key of its wrapper's launches_by_dtype ("window":
+# the window form's launches, whatever the dtype)
+KIND_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn", "f32": "float32",
+               "window": "window"}
 
 
 def form(kernel: str, kind: str | None, sh: Shapes) -> str:
@@ -276,14 +328,16 @@ def reset_counts():
 
 
 def read_counts(names):
-    """Launches of each form name: a kernel's (all its launches) or, for
-    ``<kernel>.<kind>``, those over ``kind``'s K/V dtype (the shape tag
-    names the run, not a count)."""
+    """Launches of each form name: a kernel's (its launches but those of
+    its window form) or, for ``<kernel>.<kind>``, those over ``kind``'s K/V
+    dtype, or of the window form (the shape tag names the run, not a
+    count)."""
     c, got = counters(), {}
     for n in names:
         base, _, kind = n.partition("@")[0].partition(".")
-        got[n] = (c[base].launches_by_dtype.get(KIND_DTYPES[kind], 0)
-                  if kind else c[base].launches)
+        by = c[base].launches_by_dtype
+        got[n] = (by.get(KIND_DTYPES[kind], 0) if kind
+                  else c[base].launches - by.get("window", 0))
     return got
 
 
@@ -1233,15 +1287,35 @@ def run_sharded_serves(cfg, params, dev, sh: Shapes):
                      f"differ from the {','.join(base)} serve's")
 
 
-def check_baselines(gen, dev, sh: Shapes):
-    """Phase 9's kernel checks at ``sh``'s shapes (printed, not in the
+def window_pairs(sq: int, skv: int, q_offset: int, kv_len: int,
+                 window: int | None):
+    """Boolean ``[sq, skv]`` mask of the (query, key) pairs a causal dense
+    prefill keeps: queries at ``q_offset + i``, keys below ``kv_len`` and,
+    with ``window``, past ``qpos - window``."""
+    import torch
+    qpos = q_offset + torch.arange(sq)[:, None]
+    kpos = torch.arange(skv)[None, :]
+    keep = (kpos <= qpos) & (kpos < kv_len)
+    if window is not None:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def check_baselines(gen, dev, sh: Shapes, results=None,
+                    window: int | None = None):
+    """Phase 9's kernel checks at ``sh``'s shapes (printed; with
+    ``window``, the window forms' numbers also go to ``results`` for the
     kernels line): #4 causal at the dense monolithic prefill's buckets
     (``FLASH_BUCKETS``), bf16 and f32 against its plain version, the bf16
     form timed beside its bound and SDPA at each; #2 paged and contiguous
     over a dense chunk's causal list (256 rows at q_offset 2048, 200 of
-    them real), bf16 and f32, the layouts bit for bit; #1 and #3 over dense
+    them real), bf16 and f32 (with ``window``, the int8 / fp8 code forms
+    of #2 paged too), the layouts bit for bit; #1 and #3 over dense
     decode's table (8 rows at ``SERVE_LENS`` + 16, every resident block),
-    bf16 and int8 codes, the layouts bit for bit."""
+    bf16 and int8 codes, the layouts bit for bit.  ``window`` (a
+    sliding-window model's, as its 'L' layers pass it) runs every kernel
+    in its window form, SDPA under the windowed boolean mask and the bound
+    over the pairs inside the window."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attn import (
@@ -1255,8 +1329,11 @@ def check_baselines(gen, dev, sh: Shapes):
     from repro_torch.models.transformer import (
         dense_chunk_items, dense_decode_items)
     t0 = time.time()
+    wkind = None if window is None else "window"
+    wtag = "" if window is None else f",window {window}"
+    results = {} if results is None else results
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    name = form("flash_attention", None, sh)
+    name = form("flash_attention", wkind, sh)
     for S in FLASH_BUCKETS:
         q, k, v = (torch.randn(s, generator=gen).to(dev) for s in (
             (sh.H, S, sh.D), (sh.HKV, S, sh.D), (sh.HKV, S, sh.D)))
@@ -1265,18 +1342,24 @@ def check_baselines(gen, dev, sh: Shapes):
                             (torch.float32, F32_ATOL)):
             args = [t.to(dtype) for t in (q, k, v)]
             errs[dtype] = check(
-                name, f"causal,{S},{str(dtype)[6:]}",
-                flash_attention(*args, causal=True),
-                flash_attention_reference(*args, causal=True), atol)
+                name, f"causal,{S},{str(dtype)[6:]}{wtag}",
+                flash_attention(*args, causal=True, window=window),
+                flash_attention_reference(*args, causal=True, window=window),
+                atol)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        pairs = sh.H * S * (S + 1) // 2
-        measure({}, f"{name}[causal,{S}]",
-                lambda: flash_attention(q, k, v, causal=True),
-                lambda: flash_attention_reference(q, k, v, causal=True),
-                lambda: sdpa(q[None], k[None], v[None], is_causal=True,
-                             enable_gqa=True),
-                (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * sh.D * pairs,
-                0, errs[torch.bfloat16])
+        keep = window_pairs(S, S, 0, S, window)
+        mask = keep.to(dev) if window is not None else None
+        measure(results if S == FLASH_BUCKETS[-1] and window else {},
+                f"{name}[causal,{S}]",
+                lambda: flash_attention(q, k, v, causal=True, window=window),
+                lambda: flash_attention_reference(q, k, v, causal=True,
+                                                  window=window),
+                lambda: sdpa(q[None], k[None], v[None], attn_mask=mask,
+                             is_causal=mask is None, enable_gqa=True),
+                (2 * q.numel() + k.numel() + v.numel()) * 2,
+                4 * sh.D * sh.H * int(keep.sum()), 0, errs[torch.bfloat16])
+    if window is not None:
+        results[name] = results.pop(f"{name}[causal,{FLASH_BUCKETS[-1]}]")
 
     C, q_off, real = 256, 2048, 200
     T = SMAX // BLK
@@ -1289,25 +1372,64 @@ def check_baselines(gen, dev, sh: Shapes):
     items = torch.from_numpy(dense_chunk_items(
         sh.H, sh.G, block_q=BLK, block_kv=BLK, q_offset=q_off,
         q_blocks=-(-real // BLK))).to(dev)
-    kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_off, kv_len=q_off + real)
-    pname = form("sparse_prefill_paged", None, sh)
+    kw = dict(block_q=BLK, block_kv=BLK, q_offset=q_off, kv_len=q_off + real,
+              window=window)
+    pname = form("sparse_prefill_paged", wkind, sh)
+    cname = form("sparse_prefill_contig", wkind, sh)
+    errs = {}
     for dtype, atol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
-        tag = f"dense chunk,{str(dtype)[6:]}"
+        tag = f"dense chunk,{str(dtype)[6:]}{wtag}"
         qd, pk, pv, ck, cv = (t.to(dtype) for t in (q, kp, vp, kc, vc))
         got_p = sparse_prefill_paged(qd, pk, pv, items, table, **kw)
-        check(pname, tag, got_p,
-              worklist_attention_paged(qd, pk, pv, items, table, **kw), atol)
+        errs["paged", dtype] = check(
+            pname, tag, got_p,
+            worklist_attention_paged(qd, pk, pv, items, table, **kw), atol)
         got_c = sparse_prefill_attention(qd, ck, cv, items, **kw)
-        check(form("sparse_prefill_contig", None, sh), tag, got_c,
-              worklist_attention(qd, ck, cv, items, **kw), atol)
+        errs["contig", dtype] = check(
+            cname, tag, got_c, worklist_attention(qd, ck, cv, items, **kw),
+            atol)
         if not torch.equal(got_p, got_c):
             fail(f"the prefill layouts differ on a dense chunk ({sh.arch}, "
                  f"{tag})")
-    qb, pk, pv = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    qb, pk, pv, ck, cv = (t.to(torch.bfloat16) for t in (q, kp, vp, kc, vc))
+    if window is not None:
+        for kind in QUANT_KINDS:
+            codes_k, ks, _ = quant_pool(pk, kind)
+            codes_v, vs, _ = quant_pool(pv, kind)
+            ckw = dict(kw, k_scales=ks, v_scales=vs)
+            check(form("sparse_prefill_paged", kind, sh),
+                  f"dense chunk,{kind}{wtag}",
+                  sparse_prefill_paged(qb, codes_k, codes_v, items, table,
+                                       **ckw),
+                  worklist_attention_paged(qb, codes_k, codes_v, items,
+                                           table, **ckw), BF16_ATOL)
+        # the bound and SDPA over the pairs the chunk's real rows keep
+        keep = window_pairs(C, T * BLK, q_off, q_off + real, window)
+        keep[real:] = False
+        tiles = int(keep.reshape(C, T, BLK).any(dim=(0, 2)).sum())
+        mask = keep.to(dev)[None]
+        nbytes = (2 * qb.numel() * 2 + tiles * sh.HKV * 2 * BLK * sh.D * 2
+                  + items.numel() * 4)
+        flops = 4 * sh.D * sh.H * int(keep.sum())
+        note = f" (dense chunk {C} at q_offset {q_off}, {real} real{wtag})"
+        measure(results, pname,
+                lambda: sparse_prefill_paged(qb, pk, pv, items, table, **kw),
+                lambda: worklist_attention_paged(qb, pk, pv, items, table,
+                                                 **kw),
+                lambda: sdpa(qb[None], ck[None], cv[None], attn_mask=mask,
+                             enable_gqa=True),
+                nbytes + table.numel() * 4, flops, 0,
+                errs["paged", torch.bfloat16], note)
+        measure(results, cname,
+                lambda: sparse_prefill_attention(qb, ck, cv, items, **kw),
+                lambda: worklist_attention(qb, ck, cv, items, **kw),
+                lambda: sdpa(qb[None], ck[None], cv[None], attn_mask=mask,
+                             enable_gqa=True),
+                nbytes, flops, 0, errs["contig", torch.bfloat16], note)
     ms = time_ms(lambda: sparse_prefill_paged(qb, pk, pv, items, table, **kw),
                  graph=True)
-    print(f"{pname}[dense chunk]: {items.shape[0]} items, longest run "
+    print(f"{pname}[dense chunk{wtag}]: {items.shape[0]} items, longest run "
           f"{max(run_lengths(items))} tiles, contiguous == paged bit for "
           f"bit, kernel {ms:.4f} ms")
 
@@ -1334,22 +1456,22 @@ def check_baselines(gen, dev, sh: Shapes):
                       for t in (kp, vp))
             csc = dict(k_scales=slot_scales(ks, table),
                        v_scales=slot_scales(vs, table))
-        tag = f"dense decode{',' + kind if kind else ''}"
+        tag = f"dense decode{',' + kind if kind else ''}{wtag}"
+        dkw = dict(block_kv=BLK, window=window)
         got_p = flash_decode_paged_kernel(q, kp, vp, items, table, pos,
-                                          block_kv=BLK, **sc)
+                                          **dkw, **sc)
         check(form("flash_decode_paged", kind, sh), tag, got_p,
               packed_decode_attention_paged(q, kp, vp, items, table, pos,
-                                            block_kv=BLK, **sc), F32_ATOL)
-        got_c = flash_decode_kernel(q, ck, cv, items, pos, block_kv=BLK,
-                                    **csc)
+                                            **dkw, **sc), F32_ATOL)
+        got_c = flash_decode_kernel(q, ck, cv, items, pos, **dkw, **csc)
         check(form("flash_decode_contig", kind, sh), tag, got_c,
-              packed_decode_attention(q, ck, cv, items, pos, block_kv=BLK,
-                                      **csc), F32_ATOL)
+              packed_decode_attention(q, ck, cv, items, pos, **dkw, **csc),
+              F32_ATOL)
         if not all(torch.equal(a, b) for a, b in zip(got_p, got_c)):
             fail(f"the decode layouts differ on dense decode's table "
                  f"({sh.arch}, {tag})")
         ms = time_ms(lambda: flash_decode_paged_kernel(
-            q, kp, vp, items, table, pos, block_kv=BLK, **sc), graph=True)
+            q, kp, vp, items, table, pos, **dkw, **sc), graph=True)
         print(f"{form('flash_decode_paged', kind, sh)}[{tag}]: "
               f"{items.shape[0]} items ({int(items[:, 5].sum())} valid), "
               f"contiguous == paged bit for bit, kernel {ms:.4f} ms")
@@ -1360,18 +1482,26 @@ def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
     """Phase 9's full-width serves of the paper's baselines
     (``BASELINE_SERVES``, 8 prompts, 32 greedy tokens): each completes
     every request through its path's kernels (dense monolithic: #4 on the
-    prompt bucket).  The dense paged and contiguous serves give equal
-    tokens, and each sparse monolithic serve the tokens of the chunked
-    serve of its layout (``chunked``: tokens by layout); the dense serves'
-    other pairs are reported.  Returns the #4 launches of the first."""
+    prompt bucket; on a sliding-window model each dense serve also through
+    its prefill kernel's window form).  The dense paged and contiguous
+    serves give equal tokens, and each sparse monolithic serve the tokens
+    of the chunked serve of its layout (``chunked``: tokens by layout); the
+    dense serves' other pairs are reported.  Returns the #4 launches of the
+    first and each window form's launches of the first serve running it."""
     import torch
     prompts = serve_prompts(cfg)
     fa = form("flash_attention", None, sh)
+    windowed = "L" in cfg.attn_pattern
     tokens, launches = {}, {}
     for tag, options in BASELINE_SERVES[sh.arch]:
         eng = build_engine(cfg, params, dev, **options)
-        tokens[tag], got = run_serve(eng, prompts, tag, sh, also=[fa])
-        launches.setdefault(fa, got[fa])
+        wins = ([form(serve_kernels(eng.ecfg)[1], "window", sh)]
+                if windowed and not eng.sparse else [])
+        tokens[tag], got = run_serve(eng, prompts, tag, sh, also=[fa, *wins])
+        if not all(got[w] for w in wins):
+            fail(f"{sh.arch}:{tag}: a window form never launched: {got}")
+        for n in (fa, *wins):
+            launches.setdefault(n, got[n])
         del eng
         torch.cuda.empty_cache()
 
@@ -1390,8 +1520,11 @@ def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
             ("dense,monolithic,contiguous", "dense,monolithic,paged", True),
             ("dense,monolithic,exact,paged", "dense,monolithic,paged",
              False),
-            ("dense,monolithic,paged", "sparse,monolithic,paged", False)):
-        if tag in tokens:
+            ("dense,monolithic,paged", "sparse,monolithic,paged", False),
+            ("dense,chunked,contiguous", "dense,chunked,paged", True),
+            # #4 and #2 are different kernels: reported
+            ("dense,chunked,paged", "dense,monolithic,paged", False)):
+        if tag in tokens and base in tokens:
             same(tag, tokens[base], base, required)
     return launches
 
@@ -1648,6 +1781,230 @@ def dense_smoke_parity(dev):
         fail(f"smoke dense f32 parity: a kernel never launched: {launches}")
 
 
+def replan_smoke_parity(dev):
+    """Phase 10's float32 pair: SMOKE serves with telemetry and
+    ``replan_every`` (paged, bf16 cache) on the CPU (plain versions) and on
+    the card: equal greedy tokens and the same epochs, at least one swap."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 250, 513)]
+    params = init_params(cfg, seed=1, device=dev)
+    runs = []
+    for d, p in ((torch.device("cpu"), to_device(params, "cpu")),
+                 (dev, params)):
+        eng = Engine(cfg, p, EngineConfig(
+            max_seq_len=1024, num_slots=4, budget_per_head=256,
+            telemetry_every=2, replan_every=6),
+            synthetic_head_curves(cfg.num_layers, cfg.num_heads), device=d)
+        runs.append(([r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=20))], eng.epoch, eng.replans))
+    (cpu_toks, cpu_epoch, _), (toks, epoch, replans) = runs
+    same = toks == cpu_toks
+    print(f"smoke replanning f32 serve[paged,bf16]: card epoch {epoch} after "
+          f"{replans} replan(s), CPU epoch {cpu_epoch}; card tokens "
+          f"{'==' if same else '!='} CPU plain-version tokens")
+    if not same or epoch != cpu_epoch or epoch < 1:
+        fail("the replanning f32 serve: card and CPU differ, or no swap")
+
+
+def time_decode_ticks(eng) -> list:
+    """Record each decode tick's host time (the step ends with its sampled
+    tokens on the host): ``(tick, seconds)`` per call of
+    ``eng.decode_slots``."""
+    ticks, inner = [], eng.decode_slots
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        ticks.append((eng._decode_ticks, time.perf_counter() - t0))
+        return out
+    eng.decode_slots = timed
+    return ticks
+
+
+def timed_swap_parts(eng) -> dict:
+    """Time an epoch swap's parts on the card: the weights' permutation
+    (``_permute_params``) and the cache's kv-head gather
+    (``_permute_cache``), each between synchronizations; seconds per
+    part, appended per swap."""
+    import torch
+    parts = {"params": [], "cache": []}
+    for part, attr in (("params", "_permute_params"),
+                       ("cache", "_permute_cache")):
+        def timed(*args, _inner=getattr(eng, attr), _part=part, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(*args, **kw)
+            torch.cuda.synchronize()
+            parts[_part].append(time.perf_counter() - t0)
+            return out
+        setattr(eng, attr, timed)
+    return parts
+
+
+def run_replan_serve(cfg, params, dev, sh: Shapes):
+    """Phase 10 at full width: a paged serve with telemetry and replanning
+    (``REPLAN``) completes every request through the path's kernels and
+    reaches epoch 1 or later; the probe's estimator forward launches the
+    decode kernel (#1) on every probe.  Prints the bubble stats, the
+    realized recovery, the epochs, and a probe tick's host time against a
+    plain decode tick's."""
+    import numpy as np
+    prompts = serve_prompts(cfg)
+    eng = build_engine(cfg, params, dev, **REPLAN)
+    ticks = time_decode_ticks(eng)
+    swaps = timed_swap_parts(eng)
+    dec, per_probe = counters()["flash_decode_paged"], []
+    dispatch = eng._dispatch_telemetry
+
+    def probe(*args, **kw):
+        n = dec.launches
+        out = dispatch(*args, **kw)
+        per_probe.append(dec.launches - n)
+        return out
+    eng._dispatch_telemetry = probe
+    run_serve(eng, prompts, "paged,packed,replanning", sh)
+    every = REPLAN["telemetry_every"]
+    probed = [t for k, t in ticks if k % every == 0]
+    plain = [t for k, t in ticks if k % every]
+    bs = eng.decode_bubble_stats
+    print(f"serve[replanning {REPLAN}]: epoch {eng.epoch} after "
+          f"{eng.replans} replan(s) over {bs['ticks']} decode ticks; "
+          f"realized recovery {bs['realized_recovery']}; drift "
+          f"{bs['drift']}; epochs {bs['epochs']}")
+    print(f"serve[replanning]: {len(probed)} probe ticks, host time median "
+          f"{1e3 * np.median(probed):.2f} ms (mean "
+          f"{1e3 * np.mean(probed):.2f}), plain decode ticks {len(plain)}: "
+          f"median {1e3 * np.median(plain):.2f} ms (mean "
+          f"{1e3 * np.mean(plain):.2f}); the probes launched #1 "
+          f"{sum(per_probe)} times ({per_probe[:3]}... a probe); swaps: "
+          f"params {[round(1e3 * t, 2) for t in swaps['params']]} ms, "
+          f"cache {[round(1e3 * t, 2) for t in swaps['cache']]} ms")
+    if eng.epoch < 1:
+        fail("the replanning serve never swapped its plan epoch")
+    if not per_probe or not all(per_probe):
+        fail(f"a probe's estimator forward did not launch #1: {per_probe}")
+
+
+def rotate_shards(plan):
+    """``plan`` with every shard's KV groups (slots and kv slots, with
+    their budgets) moved to the next shard."""
+    import numpy as np
+    layers = []
+    for lp in plan.layers:
+        H, hkv = len(lp.perm), len(lp.kv_perm)
+        s = np.roll(np.arange(H), H // plan.num_devices)
+        perm = lp.perm[s]
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(H)
+        layers.append(dataclasses.replace(
+            lp, perm=perm, inv_perm=inv, budgets=lp.budgets[s],
+            kv_perm=lp.kv_perm[np.roll(np.arange(hkv),
+                                       hkv // plan.num_devices)],
+            device_loads=np.roll(lp.device_loads, 1)))
+    return dataclasses.replace(plan, layers=layers)
+
+
+def run_head_move(cfg, params, dev, sh: Shapes):
+    """Phase 10's forced head move at full width (``HEAD_MOVE``): at the
+    first safe point from decode tick ``HEAD_MOVE_TICK`` with every prompt
+    prefilled (nothing queued or in flight) the engine swaps
+    onto its plan with the KV groups rotated across the shards (weights
+    permuted, the resident pool's kv heads gathered once).  Against the
+    frozen serve: the moved serve replaying the frozen serve's tokens holds
+    its logits within ``HEAD_MOVE_ATOL`` (median, max), and a free moved
+    serve's tokens are reported.  Prints the swap's parts' times."""
+    import torch
+    d = HEAD_MOVE[sh.arch]
+    prompts = serve_prompts(cfg)
+    eng = build_engine(cfg, params, dev, num_model_shards=d)
+    with sampled_logits([]) as frozen:
+        want, _ = run_serve(eng, prompts, f"paged,packed,D={d},frozen", sh)
+    pool_gb = eng.kv.pool_bytes() / 1e9
+    del eng
+    torch.cuda.empty_cache()
+    for replay in (True, False):
+        eng = build_engine(cfg, params, dev, num_model_shards=d)
+        swaps = timed_swap_parts(eng)
+        card, moved_at = [], []
+
+        def policy(batcher=None, eng=eng, card=card, moved_at=moved_at):
+            batcher = batcher or eng._batcher
+            if (eng.replans or eng._decode_ticks < HEAD_MOVE_TICK
+                    or not batcher.replan_safe or batcher._queue):
+                return False
+            moved_at.append(len(card))      # the first moved model call
+            return eng.replan_now(plan=rotate_shards(eng.plan))
+        eng._maybe_replan = policy
+        tag = f"paged,packed,D={d},head move{',replayed' if replay else ''}"
+        with sampled_logits(card, frozen if replay else None):
+            got, _ = run_serve(eng, prompts, tag, sh)
+        print(f"serve[{sh.arch}:{tag}]: epoch {eng.epoch} after "
+              f"{eng.replans} swap(s) at tick >= {HEAD_MOVE_TICK}; swap "
+              f"parts: weights {1e3 * sum(swaps['params']):.2f} ms, cache "
+              f"gather {1e3 * sum(swaps['cache']):.2f} ms ({pool_gb:.2f} GB "
+              f"pool)")
+        if eng.epoch != 1 or not swaps["cache"]:
+            fail(f"{sh.arch}: the forced head move did not swap the epoch "
+                 f"and gather the cache")
+        if replay:
+            at = moved_at[0]
+            med, worst, flips = forced_logit_diff(card[at:], frozen[at:])
+            ok = med <= HEAD_MOVE_ATOL[0] and worst <= HEAD_MOVE_ATOL[1]
+            print(f"serve[{sh.arch}:{tag}]: logits against the frozen "
+                  f"serve's over the {len(card) - at} model calls after the "
+                  f"move (of {len(card)}): median "
+                  f"{med:.3e}, max {worst:.3e} (limits {HEAD_MOVE_ATOL}); "
+                  f"greedy argmax differs in {flips} rows: "
+                  f"{'held' if ok else 'NOT held'}")
+            if not ok:
+                fail(f"{sh.arch}: the moved serve's logits leave the frozen "
+                     f"serve's beyond the limit")
+        else:
+            same = sum(a == b for a, b in zip(got, want))
+            first = min((next(i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y) for a, b in zip(got, want)
+                         if a != b), default=None)
+            print(f"serve[{sh.arch}:{tag}]: greedy tokens equal the frozen "
+                  f"serve's in {same} of {len(want)} requests (reported; "
+                  f"first departure at token {first})")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def dense_f32_parity(dev, params, sh: Shapes):
+    """A sliding-window model's widths at ``PARITY``'s depth in float32
+    with dense attention, monolithic (#4, windowed on 'L' layers) and
+    chunked (#2 over dense causal lists, windowed), both layouts, bf16
+    cache: the card's tokens == the plain versions' on the CPU.  Every
+    window form and f32 path form launches."""
+    import numpy as np
+    cfg = parity_config(sh)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in PARITY[sh.arch][1]]
+    tag = f"{sh.arch} {cfg.num_layers}-layer dense"
+    t0 = time.time()
+    reset_counts()
+    for mode in ("monolithic", "chunked"):
+        smoke_parity(cfg, dev, prompts, ("bf16",), params, 8,
+                     f"{tag} {mode}", attention="dense", prefill_mode=mode)
+    launches = read_counts([form(n, "window", sh) for n in WINDOW_KERNELS]
+                           + [form(n, "f32", sh) for n in PATH_KERNELS])
+    print(f"{tag} f32 parity: launches {launches}, "
+          f"{time.time() - t0:.1f} s")
+    if not all(launches.values()):
+        fail(f"{tag}: a kernel form never launched: {launches}")
+
+
 # the float32 parity models: (layers, prompt lengths); Gemma3-1B's 6
 # layers are one LLLLLG period, and its 700-token prompt reaches past the
 # 512-token window of the local layers' decode
@@ -1729,6 +2086,9 @@ def model_phases(dev, gen, results, sh: Shapes):
                              (torch.bfloat16, torch.float32))
     del eng
     launches.update(f32_parity(dev, params, sh))
+    windowed = "L" in cfg.attn_pattern
+    if windowed:
+        dense_f32_parity(dev, params, sh)
     print(f"kernel and parity phases ({sh.arch}): {time.time() - t0:.1f} s")
     sharded = sh.arch in SHARDED_SERVES
     if sharded:
@@ -1753,7 +2113,8 @@ def model_phases(dev, gen, results, sh: Shapes):
     print(f"serve phases ({cfg.name}): {time.time() - t0:.1f} s")
     if sh.arch in BASELINE_SERVES:
         t0 = time.time()
-        check_baselines(gen, dev, sh)
+        check_baselines(gen, dev, sh, results,
+                        cfg.local_window if windowed else None)
         launches.update(run_baseline_serves(
             cfg, params, dev, sh, {"paged": full_tokens["paged", "bf16"],
                                    "contiguous": full_tokens["contiguous",
@@ -1764,6 +2125,10 @@ def model_phases(dev, gen, results, sh: Shapes):
         run_sharded_serves(cfg, params, dev, sh)
         t_sharded += time.time() - t0
         print(f"head-parallel phases ({cfg.name}): {t_sharded:.1f} s")
+    if sh.arch in HEAD_MOVE:
+        t0 = time.time()
+        run_head_move(cfg, params, dev, sh)
+        print(f"plan-epoch phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1832,6 +2197,10 @@ def main() -> int:
     run_stochastic_serves(cfg, params, dev, SMOL)
     dense_smoke_parity(dev)
     print(f"baseline phases ({cfg.name}): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    run_replan_serve(cfg, params, dev, SMOL)
+    replan_smoke_parity(dev)
+    print(f"plan-epoch phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
 
     for sh in (YI, GEMMA):

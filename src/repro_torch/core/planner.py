@@ -1,6 +1,7 @@
 """S-HPLB deployment planner: budgets + partitioning -> executable plan.
-A copy of the reference package's ``core/planner.py`` (plan construction
-and the weight permutation; plan epochs are not ported yet).
+A copy of the reference package's ``core/planner.py``: plan construction,
+the composable deltas between plan epochs (``plans_equal``,
+``plan_delta``, ``PlanDelta``) and the weight permutation.
 
 Placement is a head permutation applied once to the attention projections:
 device ``d`` owns the permuted head slots ``[d*Hd, (d+1)*Hd)``.  Under GQA
@@ -285,6 +286,89 @@ def make_plan(
         num_kv_heads=Hkv, block=block, seq_len=seq_len, mode=mode,
         partitioner=partitioner, allocator=allocator, epoch=epoch,
     )
+
+
+# ---------------------------------------------------------------------------
+# Plan epochs: composable deltas between plans (DESIGN.md §2.9)
+# ---------------------------------------------------------------------------
+
+def plans_equal(a: HPLBPlan, b: HPLBPlan) -> bool:
+    """Same placement AND budgets on every layer (epoch tags ignored) —
+    the replanner's no-op check."""
+    if len(a.layers) != len(b.layers):
+        return False
+    return all(
+        np.array_equal(la.perm, lb.perm)
+        and np.array_equal(la.kv_perm, lb.kv_perm)
+        and np.array_equal(la.budgets, lb.budgets)
+        for la, lb in zip(a.layers, b.layers))
+
+
+def plan_delta(old: HPLBPlan, new: HPLBPlan) -> "PlanDelta":
+    """The slot-order shuffle taking epoch ``old`` to epoch ``new``.
+
+    Weights permuted by ``old`` hold original head ``old.perm[s]`` in slot
+    ``s``; the new epoch wants ``new.perm[s]`` there.  The delta slot
+    permutation is therefore ``old.inv_perm[new.perm]`` (and likewise for
+    kv heads), satisfying the composition law
+
+        ``old.perm[delta.perm] == new.perm``.
+
+    Each per-layer delta is packaged as a :class:`LayerPlan` (carrying the
+    NEW epoch's slot-order budgets/loads), so applying an epoch swap is the
+    very same host-side :func:`permute_attention_params` call used at
+    engine init — jitted model code never changes.  The resident KV
+    cache's kv-head axis must be gathered by ``delta.kv_perm`` per layer
+    (in ``kv_replication`` mode kv heads are never permuted, so the cache
+    is untouched).
+    """
+    assert old.num_heads == new.num_heads, "head-count mismatch"
+    assert old.num_kv_heads == new.num_kv_heads, "kv-head-count mismatch"
+    assert old.mode == new.mode, (
+        f"cannot delta across modes ({old.mode} -> {new.mode})")
+    layers = []
+    identity = True
+    for lo, ln in zip(old.layers, new.layers):
+        d_perm = lo.inv_perm[ln.perm]
+        if old.mode == "kv_replication":
+            d_kv = np.arange(len(lo.kv_perm), dtype=np.int64)
+        else:
+            kv_inv = np.empty_like(lo.kv_perm)
+            kv_inv[lo.kv_perm] = np.arange(len(lo.kv_perm))
+            d_kv = kv_inv[ln.kv_perm]
+        identity = (identity
+                    and np.array_equal(d_perm, np.arange(len(d_perm)))
+                    and np.array_equal(d_kv, np.arange(len(d_kv))))
+        inv = np.empty_like(d_perm)
+        inv[d_perm] = np.arange(len(d_perm))
+        layers.append(LayerPlan(
+            perm=d_perm, inv_perm=inv, budgets=ln.budgets.copy(),
+            kv_perm=d_kv, device_loads=ln.device_loads.copy(),
+            assignment=ln.assignment))
+    return PlanDelta(layers=layers, from_epoch=old.epoch,
+                     to_epoch=new.epoch, identity=identity,
+                     mode=new.mode)
+
+
+@dataclasses.dataclass
+class PlanDelta:
+    """Composable epoch-to-epoch permutation delta (see :func:`plan_delta`).
+
+    ``layers[l].perm`` / ``.kv_perm`` are SLOT-ORDER shuffles over the
+    previous epoch's layout; ``identity`` is True when the swap moves no
+    head (budget-only replan — params and cache stay put).
+    """
+
+    layers: list[LayerPlan]
+    from_epoch: int
+    to_epoch: int
+    identity: bool
+    mode: str
+
+    def kv_perm_table(self) -> np.ndarray:
+        """``[L, Hkv]`` per-layer kv-slot shuffle — the gather indices for
+        re-permuting the resident KV cache's kv-head axis on-device."""
+        return np.stack([lp.kv_perm for lp in self.layers]).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
-"""Per-head sparsity profiles (paper §2.4): the offline profile type and
-the synthetic generator, copied from the reference package's
-``core/sparsity.py``.
+"""Per-head sparsity profiles (paper §2.4): the offline profile type, the
+online estimator and the synthetic generator, copied from the reference
+package's ``core/sparsity.py``.
 
 A :class:`HeadSparsityProfile` holds, per (layer, head), the recovery ratio
 of the top-``frac`` tokens on a normalized budget grid — the input of the
-budget allocator.  :func:`synthetic_head_curves` draws structured per-head
-power-law curves (the profile the serving engine plans from when no
-calibration run exists).
+budget allocator.  :class:`OnlineSparsityEstimator` folds the serving
+path's realized recovery into per-head EMAs and fits them back into a
+profile (plan epochs, §2.9).  :func:`synthetic_head_curves` draws
+structured per-head power-law curves (the profile the serving engine plans
+from when no calibration run exists).
 """
 from __future__ import annotations
 
@@ -163,6 +165,167 @@ class HeadSparsityProfile:
             z["curves"], z["grid"], int(z["num_samples"]), meta
         )
 
+
+
+# ---------------------------------------------------------------------------
+# Online telemetry: live recovery curves + drift detection (DESIGN.md §2.9).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class OnlineSparsityEstimator:
+    """EMA accumulator of *realized* per-head recovery on the serving path.
+
+    The decode hot path hands this estimator, every few ticks, one sample
+    per (layer, head): the Quest-bound estimate of the attention mass the
+    head's selected blocks recovered (``rec``) and the normalized budget it
+    spent (``frac`` = selected tokens / resident context).  Samples are
+    folded into per-head EMAs; :meth:`to_profile` fits each head's (frac,
+    rec) operating point back onto the one-parameter power-law family
+    ``rec(f) = f^beta`` (the closed form behind
+    :func:`synthetic_head_curves`), yielding a full
+    :class:`HeadSparsityProfile` that is directly comparable to the offline
+    profile via :meth:`HeadSparsityProfile.stability_vs` — and directly
+    consumable by the budget allocator for replanning.
+
+    ``decay`` is the EMA half-life knob (weight of one new sample);
+    ``min_samples`` gates heads into :meth:`to_profile` / :meth:`drift_vs`
+    so a head observed once cannot steer a replan.
+    """
+
+    num_layers: int
+    num_heads: int
+    decay: float = 0.1
+    min_samples: int = 4
+
+    def __post_init__(self) -> None:
+        shape = (self.num_layers, self.num_heads)
+        self.rec_ema = np.zeros(shape)
+        self.frac_ema = np.zeros(shape)
+        self.count = np.zeros(shape, np.int64)
+
+    @property
+    def total_samples(self) -> int:
+        return int(self.count.sum())
+
+    def update(self, rec: np.ndarray, frac: np.ndarray) -> None:
+        """Fold one telemetry batch in.  ``rec`` / ``frac``: ``[L, H]`` (one
+        sample per head) or ``[L, B, H]`` (per batch row — averaged here;
+        rows the caller wants excluded must be filtered before the call).
+        Non-finite entries (empty rows) are dropped."""
+        rec = np.asarray(rec, np.float64)
+        frac = np.asarray(frac, np.float64)
+        if rec.ndim == 3:
+            ok = np.isfinite(rec) & np.isfinite(frac)
+            n = np.maximum(ok.sum(axis=1), 1)
+            rec = np.where(ok, rec, 0.0).sum(axis=1) / n
+            frac = np.where(ok, frac, 0.0).sum(axis=1) / n
+            seen = ok.any(axis=1)
+        else:
+            seen = np.isfinite(rec) & np.isfinite(frac)
+            rec = np.where(seen, rec, 0.0)
+            frac = np.where(seen, frac, 0.0)
+        first = (self.count == 0) & seen
+        a = np.where(first, 1.0, self.decay) * seen
+        self.rec_ema = (1 - a) * self.rec_ema + a * np.clip(rec, 0.0, 1.0)
+        self.frac_ema = (1 - a) * self.frac_ema + a * np.clip(frac, 0.0, 1.0)
+        self.count += seen
+
+    def realized_recovery(self) -> float:
+        """Mean EMA recovery over heads with at least one sample (nan when
+        nothing has been observed yet)."""
+        seen = self.count > 0
+        if not seen.any():
+            return float("nan")
+        return float(self.rec_ema[seen].mean())
+
+    def head_betas(self) -> np.ndarray:
+        """``[L, H]`` fitted power-law exponents (nan where under-sampled):
+        ``beta = log(rec) / log(frac)`` at the EMA operating point — sparse
+        heads (high recovery at tiny fractions) get beta near 0, diffuse
+        heads beta near 1.  Heads observed only at (near-)full budget are
+        treated as UNOBSERVED: recovering ~everything while selecting
+        ~everything says nothing about the head's sparsity, and fitting it
+        would fabricate a linear curve."""
+        out = np.full((self.num_layers, self.num_heads), np.nan)
+        ok = (self.count >= self.min_samples) & (self.frac_ema < 0.95)
+        r = np.clip(self.rec_ema, 1e-4, 1.0 - 1e-4)
+        f = np.clip(self.frac_ema, 1e-4, 1.0 - 1e-4)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            beta = np.log(r) / np.log(f)
+        out[ok] = np.clip(beta[ok], 1e-3, 20.0)
+        return out
+
+    def to_profile(self, grid: np.ndarray | None = None,
+                   fallback: HeadSparsityProfile | None = None,
+                   meta: dict | None = None) -> HeadSparsityProfile:
+        """Live recovery curves as a :class:`HeadSparsityProfile`.
+
+        Heads below ``min_samples`` fall back to the offline profile's
+        curves when ``fallback`` is given (the replanner's contract: never
+        move budget based on heads it has not observed), else to the linear
+        ``rec(f) = f`` curve.
+        """
+        if grid is None:
+            grid = (fallback.grid if fallback is not None
+                    else DEFAULT_BUDGET_GRID)
+        grid = np.asarray(grid, np.float64)
+        betas = self.head_betas()
+        curves = np.empty((self.num_layers, self.num_heads, len(grid)))
+        for l in range(self.num_layers):
+            for h in range(self.num_heads):
+                b = betas[l, h]
+                if np.isnan(b):
+                    curves[l, h] = (fallback.curves[l, h]
+                                    if fallback is not None else grid)
+                else:
+                    curves[l, h] = np.clip(
+                        np.maximum(grid, 0.0) ** b, 0.0, 1.0)
+        curves[..., 0] = 0.0
+        curves[..., -1] = np.maximum(curves[..., -1], 1.0)
+        m = {"online": True, "schema_version": SCHEMA_VERSION,
+             "total_samples": self.total_samples}
+        m.update(meta or {})
+        return HeadSparsityProfile(
+            curves, grid, num_samples=max(1, int(self.count.max())), meta=m)
+
+    def drift_vs(self, offline: HeadSparsityProfile,
+                 target: float = 0.9) -> dict:
+        """How far the live curves have drifted from the offline profile.
+
+        Returns ``stability`` (the paper-Fig.-6 budget correlation between
+        the online and offline profiles, restricted to observed heads),
+        ``budget_shift`` (mean |log2 online/offline budget| over observed
+        heads — the magnitude the correlation misses when ALL heads move
+        together), ``drift`` = ``max(1 - stability, min(1, budget_shift))``
+        scaled into [0, 1+], and coverage counters.  With no sufficiently
+        sampled heads, drift is 0 (no evidence => no replan).
+        """
+        betas = self.head_betas()
+        seen = ~np.isnan(betas)
+        n_seen = int(seen.sum())
+        if n_seen == 0:
+            return {"drift": 0.0, "stability": 1.0, "budget_shift": 0.0,
+                    "heads_observed": 0,
+                    "heads_total": betas.size}
+        online = self.to_profile(grid=offline.grid, fallback=offline)
+        a, b = [], []
+        for l in range(self.num_layers):
+            for h in range(self.num_heads):
+                if not seen[l, h]:
+                    continue
+                a.append(online.budget_for_recovery(l, h, target))
+                b.append(offline.budget_for_recovery(l, h, target))
+        a = np.clip(np.asarray(a), 1e-6, 1.0)
+        b = np.clip(np.asarray(b), 1e-6, 1.0)
+        if a.std() < 1e-12 or b.std() < 1e-12:
+            stability = 1.0 if np.allclose(a, b, rtol=0.25) else 0.0
+        else:
+            stability = float(np.corrcoef(a, b)[0, 1])
+        shift = float(np.mean(np.abs(np.log2(a / b))))
+        drift = float(max(1.0 - stability, min(1.0, shift)))
+        return {"drift": drift, "stability": stability,
+                "budget_shift": shift, "heads_observed": n_seen,
+                "heads_total": betas.size}
 
 
 # ---------------------------------------------------------------------------

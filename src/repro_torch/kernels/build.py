@@ -112,14 +112,16 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def count_launch(wrapper, dtype) -> None:
+def count_launch(wrapper, dtype, windowed: bool = False) -> None:
     """Count one launch of ``wrapper``'s kernel on K/V of ``dtype``:
     ``wrapper.launches`` counts them all, ``wrapper.launches_by_dtype``
-    by the K/V element type (``"bfloat16"``, ``"int8"``, ...)."""
+    by the K/V element type (``"bfloat16"``, ``"int8"``, ...) and, for a
+    launch of a kernel's window form, also under ``"window"``."""
     wrapper.launches += 1
-    key = str(dtype).removeprefix("torch.")
     by = wrapper.launches_by_dtype
-    by[key] = by.get(key, 0) + 1
+    for key in (str(dtype).removeprefix("torch."),
+                *(("window",) if windowed else ())):
+        by[key] = by.get(key, 0) + 1
 
 
 def reset_launches(*wrappers) -> None:

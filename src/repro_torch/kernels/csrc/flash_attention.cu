@@ -9,6 +9,10 @@
 // positions 0..Sq-1 and keys at 0..Skv-1; keys at kpos >= Skv are masked,
 // and with `causal` so are keys at kpos > qpos.  Output [H, Sq, D] in q's
 // dtype, finalized as acc / max(l, 1e-30) (no zeroing, as the reference).
+// The window form (a sliding-window layer's dense prefill, as the
+// reference's flash_scan_attention(window=) computes it outside Pallas)
+// also masks keys at kpos <= qpos - window, and each CTA starts its kv loop
+// at the first tile that meets its first row's window, not at tile 0.
 //
 // Design.  The TPU grid (H, nQ, nKV) carries (acc, m, l) across its
 // innermost kv axis; here a CTA loops over the kv tiles, skipping those
@@ -38,13 +42,13 @@ namespace {
 // kRowSplit<D> threads per query row; a CTA per (q block, head), or at
 // prefill::kSliced<D> per (64-row slice of a q block, head) with K/V staged
 // prefill::kSliceKeys keys at a time.
-template <typename T, int D>
+template <typename T, int D, bool kWin>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
                                        T* __restrict__ out, int Sq, int Skv,
                                        int n_rep, int bq, int bkv,
-                                       bool causal, float scale) {
+                                       bool causal, float scale, int window) {
   using prefill::kSliceKeys;
   using prefill::kSliceRows;
   constexpr bool kSlice = prefill::kSliced<D>;
@@ -71,14 +75,18 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
   }
   float m = -CUDART_INF_F, l = 0.f;
   auto keep = [&](int kpos) {
-    return row_ok && kpos < Skv && (!causal || kpos <= qpos);
+    return row_ok && kpos < Skv && (!causal || kpos <= qpos) &&
+           (!kWin || kpos > qpos - window);
   };
+  // kWin: the first tile that holds a key of the CTA's first row's window
+  const int kfirst =
+      kWin ? max(0, qblk * bq + slice * kSliceRows - window + 1) / bkv : 0;
   if constexpr (kSlice) {
     // no row of the slice keeps a key at or past kend
     const int kend = causal ? min(Skv, qblk * bq + min(bq, (slice + 1) *
                                                                kSliceRows))
                             : Skv;
-    for (int kb = 0; kb * bkv < kend; ++kb) {
+    for (int kb = kfirst; kb * bkv < kend; ++kb) {
       const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
       prefill::sliced_tile_update<T, D, kSplit>(
           qr, acc, m, l, k_s, v_s, k + row0 * D, v + row0 * D,
@@ -90,7 +98,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     // causal: tiles with k_start > q_start + bq - 1 are skipped
     const int last = causal ? min(nkv - 1, (qblk * bq + bq - 1) / bkv)
                             : nkv - 1;
-    for (int kb = 0; kb <= last; ++kb) {
+    for (int kb = kfirst; kb <= last; ++kb) {
       const size_t row0 = (size_t)kvh * Skv + (size_t)kb * bkv;
       prefill::stage_tile<T, D>(k_s, v_s, k + row0 * D, v + row0 * D,
                                 min(bkv, Skv - kb * bkv), bkv);
@@ -107,17 +115,18 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWin>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int H, int Sq, int Skv, int n_rep, int bq, int bkv,
-                   bool causal, float scale, cudaStream_t stream) {
+                   bool causal, float scale, int window,
+                   cudaStream_t stream) {
   constexpr bool kSlice = prefill::kSliced<D>;
   const int rows = kSlice ? prefill::kSliceRows : bq;  // query rows a CTA
   const int threads = rows * prefill::kRowSplit<D>;
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem =
       2 * (size_t)(kSlice ? prefill::kSliceKeys : bkv) * D * sizeof(T);
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<T, D, kWin>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -129,7 +138,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kern<<<dim3((unsigned)nx, H), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, n_rep, bq,
-      bkv, causal, scale);
+      bkv, causal, scale, window);
   return cudaGetLastError();
 }
 
@@ -146,7 +155,7 @@ struct DenseSource {
   }
 };
 
-template <int D>
+template <int D, bool kWin>
 __global__ void __launch_bounds__(prefill::tc::kWarps * 32)
     flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
@@ -154,7 +163,7 @@ __global__ void __launch_bounds__(prefill::tc::kWarps * 32)
                               __nv_bfloat16* __restrict__ out, int H, int Sq,
                               int Skv, int n_rep, int bq, int bkv,
                               int bkv_pad, int nslices, int total,
-                              bool causal, float scale_log2) {
+                              bool causal, float scale_log2, int window) {
   using namespace prefill::tc;
   const int head = blockIdx.x % H;
   const int idx = total - 1 - (int)(blockIdx.x / H);  // last q slices first
@@ -170,21 +179,24 @@ __global__ void __launch_bounds__(prefill::tc::kWarps * 32)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = align_smem(smem_raw);
   const size_t qoff = ((size_t)head * Sq + qrow0) * D;
-  GroupRows<D> w;
-  w.init(q + qoff, nrows, qrow0, causal, smem);
-  DenseSource src{(long long)(head / n_rep) * Skv, Skv, bkv, 0, last};
+  GroupRows<D, kWin> w;
+  w.init(q + qoff, nrows, qrow0, causal, smem, window);
+  // kWin: the first tile that holds a key of the slice's first row's window
+  const int first = kWin ? max(0, qrow0 - window + 1) / bkv : 0;
+  DenseSource src{(long long)(head / n_rep) * Skv, Skv, bkv, first, last};
   run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, Skv, scale_log2);
   w.store(out + qoff, nrows, false);
 }
 
-template <int D>
+template <int D, bool kWin>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int H, int Sq, int Skv, int n_rep, int bq, int bkv,
-                      bool causal, float scale, cudaStream_t stream) {
+                      bool causal, float scale, int window,
+                      cudaStream_t stream) {
   namespace tc = prefill::tc;
   const int bkv_pad = tc::pad_keys(bkv);
   const size_t smem = tc::smem_bytes<D>(bkv_pad);
-  auto kern = flash_attention_tc_kernel<D>;
+  auto kern = flash_attention_tc_kernel<D, kWin>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -197,7 +209,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), H, Sq,
       Skv, n_rep, bq, bkv, bkv_pad, nslices, (int)total, causal,
-      scale * tc::kLog2e);
+      scale * tc::kLog2e, window);
   return cudaGetLastError();
 }
 
@@ -206,27 +218,35 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = bfloat16 (tensor-core body), 1 = float32 (scalar body, one
 // thread per query row up to head_dim 64, two at 128 (block_q <= 1024 or
 // 512), four at 256 over 64-row slices); q, k, v and out share it; head_dim
-// 32, 64, 128 or 256.  Returns the launch's cudaError_t.
+// 32, 64, 128 or 256.  window > 0: the window form (keys kpos > qpos -
+// window only); < 0: none.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int H, int Hkv, int Sq, int Skv,
                                int D, int block_q, int block_kv, int causal,
-                               float scale, int dtype, void* stream) {
+                               float scale, int dtype, int window,
+                               void* stream) {
   if (H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Skv < 1 || block_q < 1 ||
-      block_kv < 1)
+      block_kv < 1 || window == 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rep = H / Hkv;
   const bool c = causal != 0;
-#define FLASH_LAUNCH(FN)                                                     \
-  return FN(q, k, v, out, H, Sq, Skv, n_rep, block_q, block_kv, c, scale, s)
-  if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc<32>);
-  if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc<64>);
-  if (dtype == 0 && D == 128) FLASH_LAUNCH(launch_tc<128>);
-  if (dtype == 0 && D == 256) FLASH_LAUNCH(launch_tc<256>);
-  if (dtype == 1 && D == 32) FLASH_LAUNCH((launch<float, 32>));
-  if (dtype == 1 && D == 64) FLASH_LAUNCH((launch<float, 64>));
-  if (dtype == 1 && D == 128) FLASH_LAUNCH((launch<float, 128>));
-  if (dtype == 1 && D == 256) FLASH_LAUNCH((launch<float, 256>));
+#define FLASH_LAUNCH(FN, ...)                                               \
+  do {                                                                      \
+    if (window > 0)                                                         \
+      return FN<__VA_ARGS__, true>(q, k, v, out, H, Sq, Skv, n_rep,         \
+                                   block_q, block_kv, c, scale, window, s); \
+    return FN<__VA_ARGS__, false>(q, k, v, out, H, Sq, Skv, n_rep, block_q, \
+                                  block_kv, c, scale, window, s);           \
+  } while (0)
+  if (dtype == 0 && D == 32) FLASH_LAUNCH(launch_tc, 32);
+  if (dtype == 0 && D == 64) FLASH_LAUNCH(launch_tc, 64);
+  if (dtype == 0 && D == 128) FLASH_LAUNCH(launch_tc, 128);
+  if (dtype == 0 && D == 256) FLASH_LAUNCH(launch_tc, 256);
+  if (dtype == 1 && D == 32) FLASH_LAUNCH(launch, float, 32);
+  if (dtype == 1 && D == 64) FLASH_LAUNCH(launch, float, 64);
+  if (dtype == 1 && D == 128) FLASH_LAUNCH(launch, float, 128);
+  if (dtype == 1 && D == 256) FLASH_LAUNCH(launch, float, 256);
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -71,6 +71,17 @@
 // Both addressings run the same body for a dtype, so they give the same
 // bits on equal K/V.
 //
+// Window form (kWin, a template flag; the sliding-window layers' dense
+// prefill, the reference's masked _chunk_attend / flash_scan_attention):
+// a key also takes part only if kpos > qpos - window, so row i keeps the
+// keys (qpos - window, qpos].  Each row keeps its own diagonal key, so a
+// run over a dense list never ends with nothing kept.  The scalar body
+// skips a tile that lies wholly below the window of the CTA's first row
+// (its rows' windows all start later); the tensor-core body stages no such
+// tile (WindowSource) and skips a 64-key step wholly below every row's
+// window.  The unwindowed instantiations (kWin false) compile to the code
+// they compiled to before the flag: every window term folds away.
+//
 // Quantized pool (the paged form only, as the reference twin's k_scales /
 // v_scales branch).  K/V hold int8 or fp8 (e4m3) codes with one f32 scale
 // per (physical block, kv head); an item is one pool block, so every
@@ -303,7 +314,7 @@ __device__ __forceinline__ void sliced_tile_update(
 // row: the block has bq * kRowSplit<D> threads, one CTA per item; at
 // kSliced<D>, kSliceRows * kRowSplit<D> threads and a CTA per (item,
 // 64-row slice of its q block).
-template <typename T, typename TK, int D, class Tiles>
+template <typename T, typename TK, int D, class Tiles, bool kWin>
 __global__ void sparse_prefill_kernel(
     const T* __restrict__ q,   // [H, Sq, D]
     const TK* __restrict__ k,  // pool or [Hkv, Skv, D]
@@ -312,7 +323,7 @@ __global__ void sparse_prefill_kernel(
     T* __restrict__ out,            // [H, Sq, D], zero-filled by the caller
     int L, int Sq, int bq, int bkv, Tiles tiles, int q_offset, int klim,
     float scale, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales) {
+    const float* __restrict__ v_scales, int window) {
   constexpr bool kSlice = kSliced<D>;
   const int nslices = kSlice ? (bq + kSliceRows - 1) / kSliceRows : 1;
   const int i = kSlice ? blockIdx.x / nslices : blockIdx.x;
@@ -340,7 +351,13 @@ __global__ void sparse_prefill_kernel(
     acc[d] = 0.f;
   }
   float m = -CUDART_INF_F, l = 0.f;
-  auto keep = [&](int kpos) { return row_ok && kpos <= qg && kpos < klim; };
+  auto keep = [&](int kpos) {
+    return row_ok && kpos <= qg && kpos < klim && (!kWin || kpos > qg - window);
+  };
+  // kWin: the first key position any row of the CTA keeps (its first row's
+  // window start); a tile wholly before it is skipped
+  const int klo = kWin ? q_offset + qblk * bq + slice * kSliceRows - window + 1
+                       : 0;
 
   for (int j = i; j < L; ++j) {
     const int* jt = items + (size_t)j * ITEM_FIELDS;
@@ -349,8 +366,9 @@ __global__ void sparse_prefill_kernel(
     if (j > i && jt[F_FIRST] == 1) return;
     const bool valid = jt[F_VALID] == 1;
     const int kvblk = jt[F_KVBLK];
+    const bool use = valid && (!kWin || (kvblk + 1) * bkv > klo);
     int rows = 0;
-    const long long row0 = valid ? tiles.row0(jt[F_KVHEAD], kvblk, rows) : -1;
+    const long long row0 = use ? tiles.row0(jt[F_KVHEAD], kvblk, rows) : -1;
     if constexpr (kSlice) {
       if (row0 >= 0) {
         float ksc = 1.f, vsc = 1.f;
@@ -615,7 +633,7 @@ __device__ __forceinline__ void stage_async(bf16* ks, bf16* vs, const bf16* k,
 // The CTA's 64 query rows, one warpgroup: warp w holds rows 16w..16w+15,
 // lane l of it rows g = l/4 and g + 8 (h = 0, 1), as wgmma's register
 // fragments do.
-template <int D>
+template <int D, bool kWin = false>
 struct GroupRows {
   // at head_dim 256 q lives in shared memory (q_s, the K tile's panel
   // layout) and S reads it through descriptors: its A fragments (64
@@ -628,14 +646,18 @@ struct GroupRows {
   float m[2], l[2];        // running max (log2 units), this lane's partial sum
   int qlim[2];             // row h sees keys kpos <= qlim[h]; -1: no row
   int gmax;                // the largest qlim of the CTA
+  int qlo[2];              // kWin: row h sees keys kpos >= qlo[h]
+  int gmin;                // kWin: the smallest qlo of the CTA
   const bf16* q_s;         // kQShared: q [kRows][D], 1024-byte aligned
 
-  // q rows start at `qbase` (CTA row 0); CTA rows >= nrows are not
-  // computed.  CTA row i sees keys up to qlim0 + i (causal) or all.  With
+  // q rows start at `qbase` (CTA row 0, at position qlim0); CTA rows >=
+  // nrows are not computed.  CTA row i sees keys up to qlim0 + i (causal)
+  // or all, and with kWin only those past qlim0 + i - window.  With
   // kQShared, q is copied to `q_smem` (zeros past nrows).
   __device__ __forceinline__ void init(const bf16* qbase, int nrows,
                                        int qlim0, bool causal,
-                                       bf16* q_smem = nullptr) {
+                                       bf16* q_smem = nullptr,
+                                       int window = 0) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int g = lane >> 2, t = lane & 3;
     const unsigned* rowp[2];
@@ -644,6 +666,7 @@ struct GroupRows {
       const int r = warp * 16 + g + 8 * h;
       const bool ok = r < nrows;
       qlim[h] = !ok ? -1 : causal ? qlim0 + r : 0x7fffffff;
+      if constexpr (kWin) qlo[h] = qlim0 + r - window + 1;
       rowp[h] = ok ? reinterpret_cast<const unsigned*>(qbase + (size_t)r * D)
                    : nullptr;
       m[h] = -CUDART_INF_F;
@@ -675,6 +698,7 @@ struct GroupRows {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
     gmax = nrows <= 0 ? -1 : causal ? qlim0 + nrows - 1 : 0x7fffffff;
+    if constexpr (kWin) gmin = qlim0 - window + 1;
   }
 
   // One online-softmax step over the 64 staged keys [c0, c0 + 64) of a tile
@@ -719,7 +743,8 @@ struct GroupRows {
       for (int e = 0; e < 4; ++e) {
         const int kk = c0 + nb * 8 + 2 * t + (e & 1);
         const int kpos = kbase + kk;
-        const bool keep = kk < bkv && kpos < klim && kpos <= qlim[e >> 1];
+        const bool keep = kk < bkv && kpos < klim && kpos <= qlim[e >> 1] &&
+                          (!kWin || kpos >= qlo[e >> 1]);
         s[nb][e] = keep ? s[nb][e] * scale_log2 : -CUDART_INF_F;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
       }
@@ -903,17 +928,19 @@ struct ScaledTile {
 // the head_dim-256 ring, which stages a step and not a tile: a step is its
 // tile with row0, rows and kbase moved to the step's first key, and `keys`
 // of its 64 keys lie inside the tile.  Steps no row of the CTA keeps a key
-// of (wholly above its causal diagonal `gmax`, or at or past klim) are
-// skipped, never loaded.
+// of (wholly above its causal diagonal `gmax`, at or past klim, or with
+// kWin wholly below every row's window, before `gmin`) are skipped, never
+// loaded.
 __device__ __forceinline__ TileRef& ref_of(TileRef& t) { return t; }
 __device__ __forceinline__ TileRef& ref_of(ScaledTile& t) { return t.ref; }
 
-template <class Source, class Tile>
+template <class Source, class Tile, bool kWin = false>
 struct StepSource {
   Source& src;
   int bkv, klim, gmax;
   Tile tile;
   int c0;  // the next step's first key in `tile`; bkv: take a new tile
+  int gmin;
 
   __device__ __forceinline__ bool next(Tile& t, int& keys) {
     for (;;) {
@@ -924,7 +951,7 @@ struct StepSource {
       const TileRef& r = ref_of(tile);
       const int c = c0, kb = r.kbase + c;
       c0 += kStep;
-      if (kb > gmax || kb >= klim) continue;
+      if (kb > gmax || kb >= klim || (kWin && kb + kStep <= gmin)) continue;
       t = tile;
       ref_of(t) = TileRef{r.row0 + c, max(0, min(r.rows - c, kStep)), kb};
       keys = min(kStep, bkv - c);
@@ -936,13 +963,14 @@ struct StepSource {
 // run_tiles at head_dim 256: a 2-stage cp.async ring of 64-key K/V steps at
 // `ring` ([kStep][D] K0, V0, K1, V1; 128 KB), step j+1 loading while step j
 // multiplies.
-template <int D, class Source>
-__device__ __forceinline__ void run_steps(GroupRows<D>& w, Source& src,
+template <int D, bool kWin, class Source>
+__device__ __forceinline__ void run_steps(GroupRows<D, kWin>& w, Source& src,
                                           bf16* ring, const bf16* k,
                                           const bf16* v, int bkv, int klim,
                                           float scale_log2) {
   constexpr size_t kBuf = (size_t)kStep * D;  // one K or V step
-  StepSource<Source, TileRef> steps{src, bkv, klim, w.gmax, {}, bkv};
+  StepSource<Source, TileRef, kWin> steps{src,    bkv, klim, w.gmax,
+                                          {},     bkv, kWin ? w.gmin : 0};
   TileRef cur, nxt;
   int ncur = 0, nnxt = 0;
   bool have = steps.next(cur, ncur);
@@ -975,14 +1003,16 @@ __device__ __forceinline__ void run_steps(GroupRows<D>& w, Source& src,
 // steps, each landed step converted into the one bf16 K/V step pair the
 // products read.  At `bufs`: bf16 K, V [kStep][D] (64 KB), then code K0,
 // V0, K1, V1 [kStep][D] (64 KB).
-template <int D, typename TK, class Source>
-__device__ __forceinline__ void run_code_steps(GroupRows<D>& w, Source& src,
+template <int D, typename TK, bool kWin, class Source>
+__device__ __forceinline__ void run_code_steps(GroupRows<D, kWin>& w,
+                                               Source& src,
                                                bf16* bufs, const TK* k,
                                                const TK* v, int bkv,
                                                int klim, float scale_log2) {
   constexpr size_t kBuf = (size_t)kStep * D;  // one K or V step
   TK* ring = reinterpret_cast<TK*>(bufs + 2 * kBuf);
-  StepSource<Source, ScaledTile> steps{src, bkv, klim, w.gmax, {}, bkv};
+  StepSource<Source, ScaledTile, kWin> steps{
+      src, bkv, klim, w.gmax, {}, bkv, kWin ? w.gmin : 0};
   ScaledTile cur, nxt;
   int ncur = 0, nnxt = 0;
   bool have = steps.next(cur, ncur);
@@ -1019,12 +1049,12 @@ __device__ __forceinline__ void run_code_steps(GroupRows<D>& w, Source& src,
 // cp.async ring: tile j+1 loads while tile j multiplies.  At head_dim 256
 // (q in shared memory at `smem`) the ring after q stages 64-key steps
 // instead (run_steps).
-template <int D, class Source>
-__device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
+template <int D, bool kWin, class Source>
+__device__ __forceinline__ void run_tiles(GroupRows<D, kWin>& w, Source& src,
                                           bf16* smem, const bf16* k,
                                           const bf16* v, int bkv, int bkv_pad,
                                           int klim, float scale_log2) {
-  if constexpr (GroupRows<D>::kQShared) {
+  if constexpr (GroupRows<D, kWin>::kQShared) {
     run_steps<D>(w, src, smem + kRows * D, k, v, bkv, klim, scale_log2);
   } else {
     const size_t tile = (size_t)bkv_pad * D;
@@ -1049,7 +1079,9 @@ __device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
       const bf16* ks = smem + (size_t)(2 * s) * tile;
       for (int c0 = 0; c0 < bkv; c0 += kStep) {
         const int kb = cur.kbase + c0;
-        if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+        // else the step is wholly masked: above the rows' causal diagonal,
+        // at or past klim, or (kWin) below every row's window
+        if (kb <= w.gmax && kb < klim && (!kWin || kb + kStep > w.gmin))
           w.step(ks, ks + tile, c0, cur.kbase, bkv, klim, scale_log2);
       }
       __syncthreads();  // stage s is read out before it is refilled
@@ -1066,15 +1098,16 @@ __device__ __forceinline__ void run_tiles(GroupRows<D>& w, Source& src,
 // memory: bf16 K, V [bkv_pad][D], then code K0, V0, K1, V1 [bkv_pad][D].
 // At head_dim 256 (q in shared memory at `smem`) the buffers after q hold
 // 64-key steps instead (run_code_steps).
-template <int D, typename TK, class Source>
-__device__ __forceinline__ void run_code_tiles(GroupRows<D>& w, Source& src,
+template <int D, typename TK, bool kWin, class Source>
+__device__ __forceinline__ void run_code_tiles(GroupRows<D, kWin>& w,
+                                               Source& src,
                                                bf16* smem, const TK* k,
                                                const TK* v, int bkv,
                                                int bkv_pad, int klim,
                                                float scale_log2) {
-  if constexpr (GroupRows<D>::kQShared) {
-    run_code_steps<D>(w, src, smem + kRows * D, k, v, bkv, klim,
-                      scale_log2);
+  if constexpr (GroupRows<D, kWin>::kQShared) {
+    run_code_steps<D, TK>(w, src, smem + kRows * D, k, v, bkv, klim,
+                          scale_log2);
   } else {
     const size_t tile = (size_t)bkv_pad * D;
     TK* ring = reinterpret_cast<TK*>(smem + 2 * tile);
@@ -1102,7 +1135,8 @@ __device__ __forceinline__ void run_code_tiles(GroupRows<D>& w, Source& src,
       __syncthreads();  // the bf16 tile is complete
       for (int c0 = 0; c0 < bkv; c0 += kStep) {
         const int kb = cur.ref.kbase + c0;
-        if (kb <= w.gmax && kb < klim)  // else the step is wholly masked
+        // else the step is wholly masked (see run_tiles)
+        if (kb <= w.gmax && kb < klim && (!kWin || kb + kStep > w.gmin))
           w.template step<true>(smem, smem + tile, c0, cur.ref.kbase, bkv,
                                 klim, scale_log2 * cur.ks, cur.vs);
       }
@@ -1163,9 +1197,25 @@ struct ScaledItemSource {
   }
 };
 
+// The tiles of `src` (TileRef or ScaledTile) that hold a key at or past
+// `klo`: with a window, a tile wholly below every row's window is never
+// staged.
+template <class Source>
+struct WindowSource {
+  Source& src;
+  int bkv, klo;
+
+  template <class Tile>
+  __device__ __forceinline__ bool next(Tile& t) {
+    while (src.next(t))
+      if (ref_of(t).kbase + bkv > klo) return true;
+    return false;
+  }
+};
+
 // TK: the K/V tiles' element type, bf16 or codes (with k_scales /
-// v_scales, unused otherwise).
-template <int D, typename TK, class Tiles>
+// v_scales, unused otherwise).  kWin: the window form (`window` keys).
+template <int D, typename TK, class Tiles, bool kWin>
 __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
     const bf16* __restrict__ q,  // [H, Sq, D]
     const TK* __restrict__ k,    // pool or [Hkv, Skv, D]
@@ -1174,7 +1224,8 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
     bf16* __restrict__ out,         // [H, Sq, D], zero-filled by the caller
     int L, int nslices, int Sq, int bq, int bkv, int bkv_pad, Tiles tiles,
     int q_offset, int klim, float scale_log2,
-    const float* __restrict__ k_scales, const float* __restrict__ v_scales) {
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+    int window) {
   const int start = blockIdx.x / nslices, slice = blockIdx.x % nslices;
   const int* it = items + (size_t)start * ITEM_FIELDS;
   if (it[F_FIRST] != 1) return;
@@ -1187,16 +1238,26 @@ __global__ void __launch_bounds__(kWarps * 32) sparse_prefill_tc_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = align_smem(smem_raw);
   const size_t qoff = ((size_t)head * Sq + qrow0) * D;
-  GroupRows<D> w;
-  w.init(q + qoff, nrows, qrow0 + q_offset, true, smem);
+  GroupRows<D, kWin> w;
+  w.init(q + qoff, nrows, qrow0 + q_offset, true, smem, window);
   ItemSource<Tiles> src{items, L, start, start, bkv, tiles, false, false};
   if constexpr (kIsCode<TK>) {
     ScaledItemSource<Tiles> scaled{src, k_scales, v_scales};
-    run_code_tiles<D>(w, scaled, smem, k, v, bkv, bkv_pad, klim,
-                      scale_log2);
+    if constexpr (kWin) {
+      WindowSource<ScaledItemSource<Tiles>> win{scaled, bkv, w.gmin};
+      run_code_tiles<D>(w, win, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+    } else {
+      run_code_tiles<D>(w, scaled, smem, k, v, bkv, bkv_pad, klim,
+                        scale_log2);
+    }
     if (scaled.items.write) w.store(out + qoff, nrows, true);
   } else {
-    run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+    if constexpr (kWin) {
+      WindowSource<ItemSource<Tiles>> win{src, bkv, w.gmin};
+      run_tiles<D>(w, win, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+    } else {
+      run_tiles<D>(w, src, smem, k, v, bkv, bkv_pad, klim, scale_log2);
+    }
     if (src.write) w.store(out + qoff, nrows, true);
   }
 }
@@ -1217,15 +1278,15 @@ inline int pad_keys(int bkv) { return (bkv + kStep - 1) / kStep * kStep; }
 
 }  // namespace tc
 
-template <int D, typename TK, class Tiles>
+template <int D, typename TK, class Tiles, bool kWin>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const float* k_scales, const float* v_scales,
                       const int* items, void* out, int L, int Sq, int bq,
                       int bkv, Tiles tiles, int q_offset, int klim,
-                      float scale, cudaStream_t stream) {
+                      float scale, int window, cudaStream_t stream) {
   const int bkv_pad = tc::pad_keys(bkv);
   const size_t smem = tc::smem_bytes<D>(bkv_pad);
-  auto kern = tc::sparse_prefill_tc_kernel<D, TK, Tiles>;
+  auto kern = tc::sparse_prefill_tc_kernel<D, TK, Tiles, kWin>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1238,22 +1299,22 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const tc::bf16*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), items, static_cast<tc::bf16*>(out),
       L, nslices, Sq, bq, bkv, bkv_pad, tiles, q_offset, klim,
-      scale * tc::kLog2e, k_scales, v_scales);
+      scale * tc::kLog2e, k_scales, v_scales, window);
   return cudaGetLastError();
 }
 
-template <int D, typename TK, class Tiles>
+template <int D, typename TK, class Tiles, bool kWin>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const float* k_scales, const float* v_scales,
                        const int* items, void* out, int L, int Sq, int bq,
                        int bkv, Tiles tiles, int q_offset, int klim,
-                       float scale, cudaStream_t stream) {
+                       float scale, int window, cudaStream_t stream) {
   constexpr bool kSlice = kSliced<D>;
   const int rows = kSlice ? kSliceRows : bq;  // query rows a CTA
   const int threads = rows * kRowSplit<D>;    // kRowSplit<D> threads a row
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)(kSlice ? kSliceKeys : bkv) * D * sizeof(TK);
-  auto kern = sparse_prefill_kernel<float, TK, D, Tiles>;
+  auto kern = sparse_prefill_kernel<float, TK, D, Tiles, kWin>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1264,7 +1325,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   kern<<<(unsigned)grid, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), items, static_cast<float*>(out), L, Sq, bq,
-      bkv, tiles, q_offset, klim, scale, k_scales, v_scales);
+      bkv, tiles, q_offset, klim, scale, k_scales, v_scales, window);
   return cudaGetLastError();
 }
 
@@ -1272,18 +1333,27 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // 1 = float32 (scalar body, block_q * kRowSplit<D> <= 1024 up to head_dim
 // 128).  kv_dtype: the K/V tiles', equal to dtype, or 2 = int8 / 3 = fp8
 // e4m3 codes with k_scales / v_scales (tiles with scales only: the pool).
-// head_dim 32, 64, 128 or 256.  Returns the launch's cudaError_t.
+// head_dim 32, 64, 128 or 256.  window > 0: the window form (keys kpos >
+// qpos - window only); < 0: none.  Returns the launch's cudaError_t.
 template <class Tiles>
 cudaError_t dispatch(int dtype, int kv_dtype, int D, const void* q,
                      const void* k, const void* v, const float* k_scales,
                      const float* v_scales, const int* items, void* out,
                      int L, int Sq, int bq, int bkv, Tiles tiles,
-                     int q_offset, int klim, float scale,
+                     int q_offset, int klim, float scale, int window,
                      cudaStream_t stream) {
-  if (L <= 0 || bq < 1 || bkv < 1) return cudaErrorInvalidValue;
+  if (L <= 0 || bq < 1 || bkv < 1 || window == 0)
+    return cudaErrorInvalidValue;
 #define PREFILL_LAUNCH(FN, DD, TK)                                          \
-  return FN<DD, TK, Tiles>(q, k, v, k_scales, v_scales, items, out, L, Sq,  \
-                           bq, bkv, tiles, q_offset, klim, scale, stream)
+  do {                                                                      \
+    if (window > 0)                                                         \
+      return FN<DD, TK, Tiles, true>(q, k, v, k_scales, v_scales, items,    \
+                                     out, L, Sq, bq, bkv, tiles, q_offset,  \
+                                     klim, scale, window, stream);          \
+    return FN<DD, TK, Tiles, false>(q, k, v, k_scales, v_scales, items,     \
+                                    out, L, Sq, bq, bkv, tiles, q_offset,   \
+                                    klim, scale, window, stream);           \
+  } while (0)
 #define PREFILL_DIMS(FN, TK)                                                \
   if (D == 32) PREFILL_LAUNCH(FN, 32, TK);                                  \
   if (D == 64) PREFILL_LAUNCH(FN, 64, TK);                                  \

@@ -12,18 +12,19 @@
 #include "sparse_prefill.cuh"
 
 // dtype: 0 = bfloat16, 1 = float32 (q, K/V and out share it).  Keys at
-// positions >= min(kv_len, Skv) are masked.  Returns the launch's
+// positions >= min(kv_len, Skv) are masked, and with window > 0 (the window
+// form; -1: none) those at kpos <= qpos - window.  Returns the launch's
 // cudaError_t.
 extern "C" int sparse_prefill_contig(const void* q, const void* k,
                                      const void* v, const int* items,
                                      void* out, int L, int Sq, int Skv, int D,
                                      int block_q, int block_kv, int q_offset,
                                      int kv_len, float scale, int dtype,
-                                     void* stream) {
+                                     int window, void* stream) {
   if (Skv < 1) return cudaErrorInvalidValue;
   const prefill::RowTiles tiles{Skv, block_kv};
   return prefill::dispatch(dtype, dtype, D, q, k, v, nullptr, nullptr,
                            items, out, L, Sq, block_q, block_kv, tiles,
                            q_offset, kv_len < Skv ? kv_len : Skv, scale,
-                           static_cast<cudaStream_t>(stream));
+                           window, static_cast<cudaStream_t>(stream));
 }

@@ -14,8 +14,9 @@
 // dtype: q's and out's element type, 0 = bfloat16, 1 = float32.  kv_dtype:
 // the pools', equal to dtype, or 2 = int8 / 3 = fp8 e4m3 codes with
 // k_scales / v_scales [N, Hkv] f32 at the physical block (null otherwise).
-// Keys at positions >= min(kv_len, table_width * block_kv) are masked.
-// Returns the launch's cudaError_t.
+// Keys at positions >= min(kv_len, table_width * block_kv) are masked, and
+// with window > 0 (the window form; -1: none) those at kpos <= qpos -
+// window.  Returns the launch's cudaError_t.
 extern "C" int sparse_prefill_paged(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const float* k_scales,
@@ -24,13 +25,14 @@ extern "C" int sparse_prefill_paged(const void* q, const void* k_pool,
                                     int Sq, int Hkv, int D, int block_q,
                                     int block_kv, int table_width,
                                     int q_offset, int kv_len, float scale,
-                                    int dtype, int kv_dtype, void* stream) {
+                                    int dtype, int kv_dtype, int window,
+                                    void* stream) {
   if (table_width < 1) return cudaErrorInvalidValue;
   const prefill::PoolTiles tiles{table, table_width, Hkv, block_kv};
   const int klim = kv_len < table_width * block_kv ? kv_len
                                                    : table_width * block_kv;
   return prefill::dispatch(dtype, kv_dtype, D, q, k_pool, v_pool, k_scales,
                            v_scales, items, out, L, Sq, block_q, block_kv,
-                           tiles, q_offset, klim, scale,
+                           tiles, q_offset, klim, scale, window,
                            static_cast<cudaStream_t>(stream));
 }

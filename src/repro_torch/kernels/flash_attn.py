@@ -8,7 +8,10 @@ launches ``csrc/flash_attention.cu`` on CUDA tensors and runs
 :func:`flash_attention_reference` on CPU tensors.  q ``[H, Sq, D]``, k/v
 ``[Hkv, Skv, D]``, query head h reading kv head ``h // (H // Hkv)``; ragged
 Sq / Skv; queries at positions ``0..Sq-1``, so with ``causal`` and Sq != Skv
-the mask is ``kpos <= qpos`` from position 0.  Output in q's dtype.
+the mask is ``kpos <= qpos`` from position 0.  ``window`` (a
+sliding-window layer's dense prefill, the reference's
+``flash_scan_attention(window=)``) also masks keys at ``kpos <= qpos -
+window``; the CUDA kernel runs its window form.  Output in q's dtype.
 """
 from __future__ import annotations
 
@@ -20,16 +23,18 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import (
     HEAD_DIMS, check_launch, count_launch, f32_max_block_q, kernel_function,
     reset_launches)
+from repro_torch.kernels.sparse_prefill import window_arg
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True,
                               block_q: int = 128, block_kv: int = 128,
-                              scale: float | None = None):
+                              scale: float | None = None,
+                              window: int | None = None):
     """Plain PyTorch version: the TPU kernel's online softmax in float32,
     one kv tile at a time for every (head, q block) together.  Tiles the
     TPU kernel skips above the causal diagonal run fully masked here, which
@@ -59,6 +64,8 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
         mask = kpos < skv
         if causal:
             mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(mask, torch.exp(s - m_new), 0.0)
@@ -86,14 +93,18 @@ def check_flash_kernel_args(q, k, v, block_q: int) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
-                    block_kv: int = 128, scale: float | None = None):
+                    block_kv: int = 128, scale: float | None = None,
+                    window: int | None = None):
     """Dense flash attention (see module docstring).
 
     CPU tensors run :func:`flash_attention_reference`.  CUDA tensors launch
     the CUDA kernel (q, k, v of one dtype: bf16 runs its tensor-core body,
     f32 its scalar body with block_q <= 1024, or 512 at head_dim 128;
-    head_dim 32/64/128/256) or raise; there is no fallback.  ``launches`` counts kernel launches.
+    head_dim 32/64/128/256) or raise; there is no fallback.  ``launches``
+    counts kernel launches (``launches_by_dtype["window"]`` those of the
+    window form).
     """
+    win = window_arg(window)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be [H, Sq, D] and k/v [Hkv, Skv, D] of one "
                          f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -111,7 +122,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          block_q=block_q, block_kv=block_kv,
-                                         scale=scale)
+                                         scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
@@ -122,10 +133,10 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  hq, hkv, sq, skv, dh, block_q, block_kv, int(bool(causal)),
-                 scale_v, _DTYPES[q.dtype],
+                 scale_v, _DTYPES[q.dtype], win,
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    count_launch(flash_attention, q.dtype)
+    count_launch(flash_attention, q.dtype, window is not None)
     return out
 
 

@@ -19,7 +19,9 @@ chunked-prefill offsets of its jnp twins, one CUDA body
 q ``[H, Sq, D]``, items ``[L, ITEM_FIELDS]`` with chunk-local q blocks and
 LOGICAL kv blocks.  Queries sit at positions ``q_offset + i`` and attend
 keys ``< kv_len``.  Output ``[H, Sq, D]`` in q's dtype; rows of (head,
-q_blk) pairs no item covers are zero.
+q_blk) pairs no item covers are zero.  ``window`` (a sliding-window
+layer's dense chunk, the reference's masked ``_chunk_attend``) also masks
+keys at ``kpos <= qpos - window``; the CUDA kernels run their window form.
 
 On the card both launch one CTA per item (per 64-row slice of its q block
 in bf16), and every CTA whose item does not start a run exits at once.
@@ -51,13 +53,25 @@ from repro_torch.kernels.flash_decode import (
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _CONTIG_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_float] + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+
+
+def window_arg(window: int | None) -> int:
+    """A kernel's ``window`` argument: the window, or -1 for none (a
+    window below 1 would mask every key, the diagonal too)."""
+    if window is None:
+        return -1
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    return int(window)
 
 
 def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
-                  scale: float | None, q_offset: int, klim: int):
+                  scale: float | None, q_offset: int, klim: int,
+                  window: int | None = None):
     """The reference's prefill item scan in float32, one item at a time —
     the plain version both prefill kernels are held against.
 
@@ -66,7 +80,8 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
     mapped (an unmapped block is computed fully masked, as the reference
     does) and the scales of a code pool (None otherwise).  A run initializes on
     ``first`` and writes its tile on a valid ``last``; keys at ``kpos <
-    klim`` and ``kpos <= q_offset + i`` count for query row i."""
+    klim`` and ``kpos <= q_offset + i`` (and, with ``window``, ``kpos >
+    q_offset + i - window``) count for query row i."""
     hq, sq, dh = q.shape
     dev = q.device
     scale_v = float(dh ** -0.5) if scale is None else float(scale)
@@ -94,6 +109,8 @@ def worklist_scan(q, tile, items, *, block_q: int, block_kv: int,
         kpos = kvblk * block_kv + ki
         mask = ((kpos <= qpos + q_offset) & (kpos < klim) & (qpos < sq)
                 & mapped)
+        if window is not None:
+            mask &= kpos > qpos + q_offset - window
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(mask, torch.exp(s - m_new), 0.0)
@@ -114,7 +131,7 @@ def worklist_attention_paged(q, k_pool, v_pool, items, table, *,
                              block_q: int = 128, block_kv: int = 128,
                              scale: float | None = None, q_offset: int = 0,
                              kv_len: int | None = None, k_scales=None,
-                             v_scales=None):
+                             v_scales=None, window: int | None = None):
     """Plain version of :func:`sparse_prefill_paged` (the reference's jnp
     twin of the same name): tiles through the table, the logical index
     clamped into it, -1 entries masked; a code pool's scales ``[N, Hkv]``
@@ -131,12 +148,14 @@ def worklist_attention_paged(q, k_pool, v_pool, items, table, *,
                 None if k_scales is None else k_scales[safe, kvh],
                 None if v_scales is None else v_scales[safe, kvh])
     return worklist_scan(q, tile, items, block_q=block_q, block_kv=block_kv,
-                         scale=scale, q_offset=q_offset, klim=klim)
+                         scale=scale, q_offset=q_offset, klim=klim,
+                         window=window)
 
 
 def worklist_attention(q, k, v, items, *, block_q: int = 128,
                        block_kv: int = 128, scale: float | None = None,
-                       q_offset: int = 0, kv_len: int | None = None):
+                       q_offset: int = 0, kv_len: int | None = None,
+                       window: int | None = None):
     """Plain version of :func:`sparse_prefill_attention` (the reference's
     jnp twin ``worklist_attention``): K/V ``[Hkv, Skv, D]`` zero-padded to
     whole blocks, a tile's start clamped into them as ``dynamic_slice``
@@ -152,14 +171,15 @@ def worklist_attention(q, k, v, items, *, block_q: int = 128,
                 F.pad(v[kvh, lo:lo + block_kv], pad).to(torch.float32), True,
                 None, None)
     return worklist_scan(q, tile, items, block_q=block_q, block_kv=block_kv,
-                         scale=scale, q_offset=q_offset, klim=klim)
+                         scale=scale, q_offset=q_offset, klim=klim,
+                         window=window)
 
 
 def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
                          block_q: int = 128, block_kv: int = 128,
                          scale: float | None = None, q_offset: int = 0,
                          kv_len: int | None = None, k_scales=None,
-                         v_scales=None):
+                         v_scales=None, window: int | None = None):
     """Work-list sparse prefill over the block pool (see module docstring).
 
     CPU tensors run :func:`worklist_attention_paged`.  CUDA tensors launch
@@ -167,9 +187,11 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
     code pools with ``k_scales`` / ``v_scales [N, Hkv]``; head_dim
     32/64/128/256; f32 block_q <= 1024, or 512 at head_dim 128) or raise; there
     is no fallback.  ``launches``
-    counts kernel launches, ``launches_by_dtype`` per pool dtype.
+    counts kernel launches, ``launches_by_dtype`` per pool dtype (and
+    those of the window form under ``"window"``).
     """
     hq, sq, dh = q.shape
+    win = window_arg(window)
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"pools must be [N, Hkv, block, D] of one shape; "
                          f"got {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
@@ -185,7 +207,7 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
         return worklist_attention_paged(
             q, k_pool, v_pool, items, table, block_q=block_q,
             block_kv=block_kv, scale=scale, q_offset=q_offset, kv_len=kv_len,
-            k_scales=k_scales, v_scales=v_scales)
+            k_scales=k_scales, v_scales=v_scales, window=window)
     _check_cuda("sparse_prefill_paged", q, k_pool, block_q, k_scales)
     out = torch.zeros_like(q)
     L = items.shape[0]
@@ -201,17 +223,18 @@ def sparse_prefill_paged(q, k_pool, v_pool, items, table, *,
                  table.data_ptr(), out.data_ptr(),
                  L, sq, k_pool.shape[1], dh, block_q, block_kv, T,
                  int(q_offset), kv, scale_v, _DTYPES[q.dtype],
-                 kernel_dtype(k_pool, k_scales),
+                 kernel_dtype(k_pool, k_scales), win,
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_paged", err)
-    count_launch(sparse_prefill_paged, k_pool.dtype)
+    count_launch(sparse_prefill_paged, k_pool.dtype, window is not None)
     return out
 
 
 def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
                              block_kv: int = 128,
                              scale: float | None = None, q_offset: int = 0,
-                             kv_len: int | None = None):
+                             kv_len: int | None = None,
+                             window: int | None = None):
     """Work-list sparse prefill over contiguous K/V ``[Hkv, Skv, D]``, read
     in place: the TPU kernel's own signature, with the chunked-prefill
     ``q_offset`` / ``kv_len`` of its jnp twin (keys at ``kpos < min(kv_len,
@@ -221,9 +244,11 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
     ``csrc/sparse_prefill_contig.cu`` (q and K/V of one dtype, bf16 or f32;
     head_dim 32/64/128/256; f32 block_q <= 1024, or 512 at head_dim 128)
     or raise; there is no fallback.
-    ``launches`` counts kernel launches.
+    ``launches`` counts kernel launches (``launches_by_dtype["window"]``
+    those of the window form).
     """
     hq, sq, dh = q.shape
+    win = window_arg(window)
     if k.dim() != 3 or k.shape != v.shape or k.shape[2] != dh:
         raise ValueError(f"K/V must be [Hkv, Skv, {dh}] of one shape; got "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -231,7 +256,8 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
     if q.device.type == "cpu":
         return worklist_attention(q, k, v, items, block_q=block_q,
                                   block_kv=block_kv, scale=scale,
-                                  q_offset=q_offset, kv_len=kv_len)
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  window=window)
     _check_cuda("sparse_prefill_contig", q, k, block_q)
     out = torch.zeros_like(q)
     L = items.shape[0]
@@ -244,10 +270,10 @@ def sparse_prefill_attention(q, k, v, items, *, block_q: int = 128,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), items.data_ptr(),
                  out.data_ptr(), L, sq, skv, dh, block_q, block_kv,
-                 int(q_offset), kv, scale_v, _DTYPES[q.dtype],
+                 int(q_offset), kv, scale_v, _DTYPES[q.dtype], win,
                  torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("sparse_prefill_contig", err)
-    count_launch(sparse_prefill_attention, k.dtype)
+    count_launch(sparse_prefill_attention, k.dtype, window is not None)
     return out
 
 

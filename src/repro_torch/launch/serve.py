@@ -6,7 +6,8 @@
         [--decode-worklist packed|padded] [--kv-dtype bf16|int8|fp8] \
         [--attention sparse|dense] [--prefill-mode chunked|monolithic] \
         [--prefill-buckets pow2|exact] [--temperature 0.8 --top-k 50 \
-        --top-p 0.95 --sample-seed 0] [--profile]
+        --top-p 0.95 --sample-seed 0] [--telemetry-every 4 \
+        --replan-every 16 --drift-threshold 0.5] [--profile]
 
 Weights and prompts are random, drawn from ``--seed``; the sparsity profile
 is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
@@ -16,10 +17,14 @@ prefill mode and buckets, the cache layout, the decode work list and the
 KV storage dtype (``--kv-dtype``: int8 / fp8 codes with per-block scales,
 or bf16) default to ``EngineConfig()``'s.  Sampling is greedy unless
 ``--temperature`` > 0 (then ``--top-k`` / ``--top-p`` cut, and the draws
-come from the engine's generator, seeded by ``--sample-seed``).  The default
+come from the engine's generator, seeded by ``--sample-seed``).  Plan epochs:
+``--telemetry-every N`` probes the realized recovery every N decode ticks,
+``--replan-every N`` replans every N decode ticks and ``--drift-threshold``
+when the online profile drifts that far (it needs telemetry).  The default
 device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
 After the serve it prints the plan's imbalance (sparse) and the decode
-grid's bubble stats (``Engine.decode_bubble_stats``).
+grid's bubble stats (``Engine.decode_bubble_stats``: with the plan's epoch,
+its replans and the realized recovery).
 ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
@@ -68,6 +73,15 @@ def main(argv=None) -> list:
     ap.add_argument("--top-p", type=float, default=1.0, help="1: no cut")
     ap.add_argument("--sample-seed", type=int, default=defaults.seed,
                     help="seed of the engine's sampling generator")
+    ap.add_argument("--telemetry-every", type=int,
+                    default=defaults.telemetry_every,
+                    help="probe realized recovery every N decode ticks "
+                         "(0 = telemetry off)")
+    ap.add_argument("--replan-every", type=int, default=None,
+                    help="force an in-flight replan every N decode ticks")
+    ap.add_argument("--drift-threshold", type=float, default=None,
+                    help="replan when the online-vs-offline profile drift "
+                         "reaches this value (needs --telemetry-every)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -78,6 +92,8 @@ def main(argv=None) -> list:
     ap.add_argument("--profile", action="store_true",
                     help="print device busy share and time by kernel")
     args = ap.parse_args(argv)
+    if args.drift_threshold is not None and args.telemetry_every <= 0:
+        ap.error("--drift-threshold needs --telemetry-every > 0")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to run the "
@@ -93,7 +109,10 @@ def main(argv=None) -> list:
                               attention=args.attention,
                               prefill_mode=args.prefill_mode,
                               prefill_buckets=args.prefill_buckets,
-                              seed=args.sample_seed),
+                              seed=args.sample_seed,
+                              telemetry_every=args.telemetry_every,
+                              replan_every=args.replan_every,
+                              drift_threshold=args.drift_threshold),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)
@@ -135,13 +154,20 @@ def main(argv=None) -> list:
 
 
 def bubble_line(bs: dict) -> str:
-    """One line of ``Engine.decode_bubble_stats``."""
+    """One line of ``Engine.decode_bubble_stats``: the decode grid's
+    bubbles and the plan's epoch, replans and realized recovery (and the
+    latest drift reading, where one was taken)."""
+    rec = bs["realized_recovery"]
+    rec = "not probed" if rec is None else f"{rec:.4f}"
+    drift = ("" if bs["drift"] is None
+             else f", drift {bs['drift']['drift']:.4f}")
     return (f"decode bubbles: padding waste {bs['padding_waste']:.4f} "
             f"(padded path {bs['padded_path_waste']:.4f}), grid vs padded "
             f"{bs['grid_vs_padded']:.4f}, mean shard imbalance "
             f"{bs['mean_imbalance']:.4f} over {bs['ticks']} ticks; plan hits "
             f"{bs['plan_hits']}, misses {bs['plan_misses']}, prefetches "
-            f"{bs['plan_prefetches']}")
+            f"{bs['plan_prefetches']}; epoch {bs['epoch']} after "
+            f"{bs['replans']} replan(s), realized recovery {rec}{drift}")
 
 
 def _print_profile(prof, wall: float, top: int = 10) -> None:

@@ -8,18 +8,18 @@ is ``[L, 2, N+1, Hkv, block, Dh]``; its last block is the trash block that
 absorbs writes of padding rows.  The contiguous slot cache is ``[L, 2, B,
 Hkv, Smax, Dh]``, one row per batch slot (the reference's parity baseline).
 The layer loop is a Python loop; cache writes are in place.  An 'L'
-layer of ``cfg.attn_pattern`` decodes within its last ``cfg.local_window``
-positions; the sparse prefill attends unwindowed on every layer, as the
-reference's does.
+layer of ``cfg.attn_pattern`` decodes, and prefills densely, within its
+last ``cfg.local_window`` positions; the sparse prefill attends unwindowed
+on every layer, as the reference's does.
 
 Attention is S-HPLB sparse (work lists) or dense, the reference's baseline.
 Dense chunks run the sparse prefill kernel over a dense causal work list
 (:func:`dense_chunk_items`), the monolithic :func:`prefill` runs the dense
 flash attention kernel over the prompt, and dense decode runs the decode
-kernels over every resident block (:func:`dense_decode_items`).  The
-reference windows its dense prefill on 'L' layers; the port's prefill
-kernels have no window, so dense prefill raises ``NotImplementedError`` on
-a config with 'L' layers.
+kernels over every resident block (:func:`dense_decode_items`).  On
+'L' layers both dense prefills pass the window to their kernels (the
+window forms of the sparse prefill and flash attention kernels), as the
+reference masks its dense chunks and windows its flash scan there.
 
 A quantized cache (``kv_dtype`` int8 or fp8) holds codes in the pool or
 slot cache and one float32 scale per (block, kv head) tile beside it:
@@ -194,23 +194,18 @@ def _logits(x, params, cfg: TransformerConfig):
 
 
 def _window_of(cfg: TransformerConfig, layer: int) -> int | None:
-    """The decode kernels' sliding window of ``layer``: the config's
-    ``local_window`` on an 'L' layer, none on a 'G' one."""
+    """The sliding window of ``layer`` (decode and dense prefill): the
+    config's ``local_window`` on an 'L' layer, none on a 'G' one."""
     return cfg.local_window if cfg.layer_kind(layer) == "L" else None
 
 
-def check_dense_prefill(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` has sliding-window ('L')
-    layers: the reference's dense prefill is windowed there, and neither
-    prefill kernel (``csrc/sparse_prefill.cuh``, ``csrc/flash_attention.cu``)
-    has a windowed form yet."""
-    if any(cfg.layer_kind(l) == "L" for l in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"dense prefill on {cfg.name}'s sliding-window layers (pattern "
-            f"{cfg.attn_pattern!r}, window {cfg.local_window}) is not ported: "
-            f"it needs the windowed forms of the sparse prefill kernel "
-            f"(dense chunks) and the flash attention kernel (monolithic "
-            f"prefill)")
+def _prefill_window(sparse_items, cfg: TransformerConfig,
+                    layer: int) -> int | None:
+    """The window a prefill passes to its kernel at ``layer``: the layer's
+    on a dense prefill, none on a sparse one (the reference's sparse
+    prefill attends its work list unwindowed on every layer, and the port
+    keeps its tokens)."""
+    return _window_of(cfg, layer) if sparse_items is None else None
 
 
 def dense_chunk_items(num_heads: int, group_size: int, *, block_q: int,
@@ -253,10 +248,10 @@ def _chunk_lists(sparse_items, cfg: TransformerConfig, C: int, q_offset: int,
                  kv_len: int, device):
     """Per-layer prefill work lists of a chunk: ``sparse_items``, or the
     dense causal list over the q blocks that hold a row below ``kv_len``
-    (the same list for every layer)."""
+    (the same list for every layer; an 'L' layer's window masks it in the
+    kernel)."""
     if sparse_items is not None:
         return sparse_items
-    check_dense_prefill(cfg)
     rows = min(max(kv_len - q_offset, 1), C)
     dense = _dense_chunk_list(cfg.num_heads, cfg.group_size, cfg.block_q,
                               cfg.block_kv, q_offset, -(-rows // cfg.block_q),
@@ -319,14 +314,12 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
     ``sparse_items``: per-layer ``[P, ITEM_FIELDS]`` int32 work lists of the
     prompt bucket (S-HPLB sparse prefill over the sequence's own K/V, the
     contiguous sparse prefill kernel at ``q_offset`` 0), or None for dense
-    causal attention (the flash attention kernel).  The cache holds the
-    full K/V either way."""
+    causal attention (the flash attention kernel, windowed on 'L' layers).
+    The cache holds the full K/V either way."""
     B, S = tokens.shape
     max_len = S if cache_len is None else cache_len
     if max_len < S:
         raise ValueError(f"cache_len {max_len} < prompt bucket {S}")
-    if sparse_items is None:
-        check_dense_prefill(cfg)
     # the row-wise work runs on whole q blocks of rows (_prefill_qkv): a
     # ragged bucket's last block is padded with token 0 rows, which
     # attention never sees and the cache never holds
@@ -346,7 +339,7 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
             if sparse_items is None:
                 o[b, :, :S] = kernel_ops.flash_attention(
                     qb, kb, vb, causal=True, block_q=cfg.block_q,
-                    block_kv=cfg.block_kv)
+                    block_kv=cfg.block_kv, window=_window_of(cfg, l))
             else:
                 o[b, :, :S] = kernel_ops.sparse_prefill_contiguous(
                     qb, kb, vb, sparse_items[l], block_q=cfg.block_q,
@@ -365,11 +358,11 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
     ``tokens [1, C]`` (the chunk bucket); ``slot`` / ``q_offset`` /
     ``kv_len`` / ``last_index`` are host ints; ``sparse_items [L, P,
     ITEM_FIELDS]`` int32 chunk work lists, or None for dense attention
-    (:func:`dense_chunk_items`).  Each layer writes the chunk's K/V at rows
-    ``[q_offset, q_offset + C)`` of the slot, then the chunk's queries
-    attend the slot row in place (keys ``< kv_len``) with the sparse
-    prefill kernel.  Returns logits ``[1, V]`` float32 at chunk-local
-    ``last_index`` (default: the last row).
+    (:func:`dense_chunk_items`, windowed on 'L' layers).  Each layer writes
+    the chunk's K/V at rows ``[q_offset, q_offset + C)`` of the slot, then
+    the chunk's queries attend the slot row in place (keys ``< kv_len``)
+    with the sparse prefill kernel.  Returns logits ``[1, V]`` float32 at
+    chunk-local ``last_index`` (default: the last row).
     """
     _, C = tokens.shape
     if q_offset + C > cache.shape[4]:
@@ -385,12 +378,10 @@ def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,
         kc, vc = cache[l, 0, slot], cache[l, 1, slot]      # [Hkv, Smax, Dh]
         kc[:, rows] = k[0].to(kc.dtype)
         vc[:, rows] = v[0].to(vc.dtype)
-        # no window here: the reference's chunked prefill attends its work
-        # list unwindowed on every layer (only its decode applies
-        # local_window), and the port keeps its tokens
         o = kernel_ops.sparse_prefill_contiguous(
             q[0], kc, vc, lists[l], block_q=cfg.block_q,
-            block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len)[None]
+            block_kv=cfg.block_kv, q_offset=q_offset, kv_len=kv_len,
+            window=_prefill_window(sparse_items, cfg, l))[None]
         x = _prefill_out(x, o, lp, cfg)
     last = C - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0]
@@ -408,8 +399,8 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     pad: bucket-padding blocks past the prompt scatter into the trash
     block); ``q_offset`` / ``kv_len`` / ``last_index`` are host ints;
     ``sparse_items [L, P, ITEM_FIELDS]`` int32 chunk work lists, or None for
-    dense attention (:func:`dense_chunk_items`).  Each
-    layer scatters the chunk's K/V into its pool blocks in place
+    dense attention (:func:`dense_chunk_items`, windowed on 'L' layers).
+    Each layer scatters the chunk's K/V into its pool blocks in place
     (``index_put_``), then the chunk's queries attend the resident prefix
     through the table with the sparse prefill kernel.  Returns logits
     ``[1, V]`` float32 at chunk-local ``last_index`` (default: the last
@@ -453,12 +444,10 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
         else:
             kc[gids] = k_blocks.to(kc.dtype)
             vc[gids] = v_blocks.to(vc.dtype)
-        # unwindowed on every layer, as the reference's paged chunked
-        # prefill (see prefill_chunk)
         o = kernel_ops.sparse_prefill(
             q[0], kc, vc, lists[l], table, block_q=cfg.block_q,
             block_kv=block, q_offset=q_offset, kv_len=kv_len, k_scales=ks,
-            v_scales=vs)[None]
+            v_scales=vs, window=_prefill_window(sparse_items, cfg, l))[None]
         x = _prefill_out(x, o, lp, cfg)
     last = C - 1 if last_index is None else last_index
     logits = _logits(x[:, last:last + 1], params, cfg)[:, 0]
@@ -625,3 +614,158 @@ def decode_step_paged(params, pool, token, pos, table,
         x = _block_out(x, o, lp)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, pool, scales) if qz else logits
+
+
+# -- plan epochs: the cache's kv-head re-permutation and the recovery probe --
+
+def permute_cache_kv_heads(cache: torch.Tensor, kv_perm) -> torch.Tensor:
+    """A plan-epoch swap's gather of a resident cache's kv-head axis.
+
+    ``cache``: the paged pool ``[L, 2, N, Hkv, block, Dh]`` or the slot
+    cache ``[L, 2, B, Hkv, Smax, Dh]`` (kv heads on axis 3 in both), in the
+    model dtype or int8 / fp8 codes; ``kv_perm [L, Hkv]``: per layer, the
+    previous slot each new kv slot takes
+    (:meth:`repro_torch.core.planner.PlanDelta.kv_perm_table`).  Returns a
+    new tensor (one gather per layer): weights permuted by the delta expect
+    the cache's kv-head slots shuffled the same way."""
+    idx = torch.as_tensor(np.asarray(kv_perm), dtype=torch.long,
+                          device=cache.device)
+    bits = quant.code_bits(cache) if cache.element_size() == 1 else cache
+    out = torch.empty_like(bits)
+    for l in range(cache.shape[0]):
+        torch.index_select(bits[l], 2, idx[l], out=out[l])
+    return out.view(cache.dtype)
+
+
+def permute_cache_scales(scales: torch.Tensor, kv_perm) -> torch.Tensor:
+    """:func:`permute_cache_kv_heads` of a quantized cache's scales (paged
+    ``[L, 2, N, Hkv]``, contiguous ``[L, 2, B, Hkv, Smax / block]``; kv
+    heads on axis 3), so every tile's scale moves with its codes."""
+    idx = torch.as_tensor(np.asarray(kv_perm), dtype=torch.long,
+                          device=scales.device)
+    return torch.stack([scales[l].index_select(2, idx[l])
+                        for l in range(scales.shape[0])])
+
+
+def _resident_keys(kc, scales, table, blk: int):
+    """A layer's keys ``[B, Hkv, nkvb * blk, Dh]`` float32 for the probe's
+    Quest summaries: gathered through ``table [B, T]`` from the pool
+    (``kc [N, Hkv, blk, Dh]``), or the slot cache ``kc [B, Hkv, Smax,
+    Dh]`` padded to whole blocks; codes dequantized by their tile's scale
+    (pool ``[N, Hkv]``, slot cache ``[B, Hkv, Smax / blk]``)."""
+    if table is not None:
+        ids = table.clamp_min(0).long()                    # [B, T]
+        k = kc[ids].to(torch.float32)                  # [B, T, Hkv, blk, D]
+        if scales is not None:
+            k = k * scales[ids][..., None, None]
+        B, T, hkv, _, dh = k.shape
+        return k.transpose(1, 2).reshape(B, hkv, T * blk, dh)
+    B, hkv, smax, dh = kc.shape
+    k = kc.to(torch.float32)
+    if scales is not None:
+        k = (k.reshape(B, hkv, -1, blk, dh)
+             * scales[..., None, None]).reshape(B, hkv, smax, dh)
+    return torch.nn.functional.pad(k, (0, 0, 0, (-smax) % blk))
+
+
+def decode_telemetry(params, cache, token, pos, cfg: TransformerConfig, *,
+                     block_ids, cache_len, table=None, scales=None,
+                     with_health: bool = False):
+    """Quest-bound estimate of the recovery each head's decode selection
+    realizes (plan epochs, the reference's ``decode_telemetry``).
+
+    Runs one decode forward over the RESIDENT cache prefix (keys ``kpos <
+    cache_len``: the tick's token is not written yet) and per layer
+    computes, from Quest's per-block key min / max summaries, the share of
+    the estimated attention mass that the selected blocks capture::
+
+        rec[l, b, h] = sum_{blk in sel} w / sum_{blk resident} w,
+        w = exp(ub - max ub) * resident_tokens(blk)
+
+    and the normalized budget spent, ``frac[l, b, h] = selected resident
+    tokens / cache_len``.  The hidden state propagates through DENSE
+    attention over the prefix (an estimator forward: nothing is sampled and
+    no cache is written), run by the decode kernels (#1 paged, #3
+    contiguous; their code forms over an int8 / fp8 cache) over dense
+    decode's table of every resident block, with no window on any layer,
+    as the reference's.  The Quest summaries are torch ops.
+
+    ``cache``: the pool ``[L, 2, N+1, Hkv, block, Dh]`` with ``table [B,
+    T]`` int32 (logical -> pool block, -1 pad), or the slot cache ``[L, 2,
+    B, Hkv, Smax, Dh]``; ``scales`` beside a quantized cache (pool ``[L, 2,
+    N+1, Hkv]``, slot cache ``[L, 2, B, Hkv, Smax / block]``): summaries and
+    forward both see the dequantized values.  ``token [B]``, ``pos [B]``
+    int32, ``cache_len [B]`` int32 (the resident length, the tick's
+    ``pos``), ``block_ids [L, B, Hkv, nb]`` LOGICAL selections (-1 pad), the
+    engine's position-aware decode tables.  Returns ``(rec, frac)`` float32
+    ``[L, B, H]`` (rows with ``cache_len`` 0 are garbage the caller masks)
+    and, with ``with_health``, ``fin [B]`` bool: whether the row's hidden
+    state stayed finite through every layer."""
+    B = token.shape[0]
+    dev = token.device
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim_
+    n_rep = cfg.num_heads // hkv
+    paged = table is not None
+    blk = cache.shape[4] if paged else cfg.block_kv
+    clen = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
+    clen = clen.expand(B) if clen.dim() == 0 else clen
+    skv = table.shape[1] * blk if paged else cache.shape[4]
+    nkvb = -(-skv // blk)
+    kpos = torch.arange(nkvb * blk, device=dev)
+    valid = kpos[None] < clen[:, None].long()              # [B, Skv]
+    ntok = (clen[:, None] - torch.arange(nkvb, device=dev)[None] * blk
+            ).clamp(0, blk).to(torch.float32)              # [B, nkvb]
+    ids = torch.as_tensor(block_ids, device=dev).long()
+    clen_np = clen.cpu().numpy()
+    items = torch.from_numpy(dense_decode_items(
+        np.maximum(clen_np - 1, 0), clen_np > 0, hkv, blk)).to(dev)
+    last = (clen - 1).clamp_min(0).to(torch.int32)
+    vmask = valid.reshape(B, 1, nkvb, blk, 1)
+    has = vmask.any(dim=3)                                 # [B, 1, nkvb, 1]
+    bvalid = has[..., 0]                                   # [B, 1, nkvb]
+    blocks = torch.arange(nkvb, device=dev)
+    x = params["embed"][token][:, None, :]                 # [B, 1, d]
+    recs, fracs = [], []
+    for l, lp in enumerate(params["layers"]):
+        h = common.rmsnorm(x, lp["ln1"])
+        q = apply_rope(common.split_heads(h @ lp["attn"]["wq"], cfg.num_heads),
+                       pos.view(B, 1, 1), cfg.rope_theta)  # [B, H, 1, Dh]
+        kc, vc = cache[l, 0], cache[l, 1]
+        ks = vs = None
+        if scales is not None:
+            ks, vs = scales[l, 0], scales[l, 1]
+        # -- Quest summaries over the resident prefix -----------------------
+        kb = _resident_keys(kc, ks, table, blk).reshape(B, hkv, nkvb, blk, dh)
+        kmin = torch.where(vmask, kb, torch.inf).amin(dim=3)
+        kmax = torch.where(vmask, kb, -torch.inf).amax(dim=3)
+        kmin = torch.where(has, kmin, 0.0).repeat_interleave(n_rep, dim=1)
+        kmax = torch.where(has, kmax, 0.0).repeat_interleave(n_rep, dim=1)
+        qf = q[:, :, 0, :].to(torch.float32) * dh ** -0.5
+        ub = (torch.einsum("bhd,bhkd->bhk", qf.clamp_min(0.0), kmax)
+              + torch.einsum("bhd,bhkd->bhk", qf.clamp_max(0.0), kmin))
+        ub = torch.where(bvalid, ub, -torch.inf)
+        m = torch.exp(ub - ub.amax(dim=-1, keepdim=True))
+        w = torch.where(bvalid, m, 0.0) * ntok[:, None]    # [B, H, nkvb]
+        sel = (ids[l][..., None] == blocks).any(dim=2)     # [B, Hkv, nkvb]
+        sel = sel.repeat_interleave(n_rep, dim=1) & bvalid
+        tot = w.sum(-1).clamp_min(1e-30)
+        recs.append(torch.where(sel, w, 0.0).sum(-1) / tot)
+        fracs.append(torch.where(sel, ntok[:, None], 0.0).sum(-1)
+                     / clen[:, None].clamp_min(1))
+        # -- the dense estimator forward (decode kernels, no window) --------
+        if paged:
+            o = kernel_ops.flash_decode_packed_paged(
+                q, kc, vc, items, table, last, block_kv=blk, k_scales=ks,
+                v_scales=vs)
+        else:
+            if kc.shape[2] % blk:   # the kernels take whole blocks
+                kc, vc = (torch.nn.functional.pad(
+                    t, (0, 0, 0, (-t.shape[2]) % blk)) for t in (kc, vc))
+            o = kernel_ops.flash_decode_packed(
+                q, kc, vc, items, last, block_kv=blk, k_scales=ks,
+                v_scales=vs)
+        x = _block_out(x, o, lp)
+    rec, frac = torch.stack(recs), torch.stack(fracs)
+    if with_health:
+        return rec, frac, torch.isfinite(x).all(dim=2).all(dim=1)
+    return rec, frac

@@ -10,9 +10,9 @@ item buckets (``decode_worklist="packed"``, the default) or the padded
 per-slot block-id grid (``"padded"``, the step-invariant baseline).  The
 paper's baselines run too: ``attention="dense"`` (no plan; dense chunks
 through the sparse prefill kernel on a dense causal work list, monolithic
-prefill through the dense flash attention kernel, decode over every
-resident block; refused on a config with sliding-window layers, whose
-windowed dense prefill is not ported), ``prefill_mode="monolithic"``
+prefill through the dense flash attention kernel, both windowed on a
+sliding-window layer, decode over every resident block),
+``prefill_mode="monolithic"``
 (whole prompts at admission) and ``prefill_buckets="exact"`` (the prompt's
 own length as its bucket).  Sampling is greedy or stochastic (temperature,
 top-k, top-p) from one ``torch.Generator`` on the device, seeded by
@@ -31,8 +31,18 @@ device as the reference does: the plan places KV groups on D shards, the
 packed decode table is the D shards' lists end to end (``[L, D*bucket]``,
 pads between them), and ``decode_bubble_stats`` reads the grid's padding
 and the shards' imbalance.  D must divide the KV heads (``kv_group``
-placement).  The options that ``EngineConfig.check_supported`` lists as not
-ported raise ``NotImplementedError``.
+placement).
+
+The plan is epoch-versioned (§2.9), as the reference's: every
+``telemetry_every`` decode ticks a probe (``tfm.decode_telemetry``) reads
+the pre-step resident cache and folds each head's realized recovery into an
+:class:`OnlineSparsityEstimator`; ``replan_every`` forces, and drift of the
+online profile against the plan's basis past ``drift_threshold`` triggers,
+a replan at a scheduler safe point (no prefill in flight).  A swap applies
+the plan delta to the attention weights and gathers the resident cache's
+kv-head axis once, bumps ``epoch`` and purges the plan-dependent memos.
+The options that ``EngineConfig.check_supported`` lists as not ported raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,9 +55,10 @@ import torch
 from repro_torch.attention.policies import policy_by_name
 from repro_torch.configs import TransformerConfig
 from repro_torch.core import quant
-from repro_torch.core.planner import HPLBPlan, make_plan, \
-    permute_attention_params
-from repro_torch.core.sparsity import HeadSparsityProfile
+from repro_torch.core.planner import (
+    HPLBPlan, make_plan, permute_attention_params, plan_delta, plans_equal)
+from repro_torch.core.sparsity import (
+    HeadSparsityProfile, OnlineSparsityEstimator)
 from repro_torch.core.worklist import (
     DEC_FIELDS, WorkList, blocks_for_budget, chunk_item_counts, chunk_items,
     extend_packed_items, pack_decode_items, pow2_bucket,
@@ -84,10 +95,16 @@ class EngineConfig:
     kv_dtype: str = "bf16"
     decode_worklist: str = "packed"
     seed: int = 0                    # the sampling generator's seed
-    # reference options whose non-default values are not ported yet
-    seq_shards: int = 1
+    # plan epochs: every N decode ticks one recovery probe folds into the
+    # online estimator (0 = telemetry off); replan every N decode ticks,
+    # and / or when the online profile's drift against the plan's basis
+    # reaches the threshold (drift needs telemetry).  Both None = the plan
+    # stays frozen.  Swaps happen only at scheduler safe points
+    telemetry_every: int = 0
     replan_every: int | None = None
     drift_threshold: float | None = None
+    # reference options whose non-default values are not ported yet
+    seq_shards: int = 1
     preemption: bool = False
     prefix_cache: bool = False
 
@@ -101,7 +118,6 @@ class EngineConfig:
                   "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
                   "seq_shards": (1,),
-                  "replan_every": (None,), "drift_threshold": (None,),
                   "preemption": (False,), "prefix_cache": (False,)}
         for name, values in ported.items():
             got = getattr(self, name)
@@ -146,8 +162,6 @@ class Engine:
                                       block_kv=ecfg.block)
         self.cfg = cfg
         self.ecfg = ecfg
-        if not self.sparse:
-            tfm.check_dense_prefill(cfg)
         if self.sparse and cfg.num_kv_heads % ecfg.num_model_shards:
             raise NotImplementedError(
                 f"EngineConfig.num_model_shards={ecfg.num_model_shards} is "
@@ -158,13 +172,22 @@ class Engine:
                 f"heads)")
         # dense attention has no plan and keeps the heads in place
         self.plan: HPLBPlan | None = None
+        # the offline profile, and the one the live plan was derived from
+        # (the drift reference: after a swap drift is measured against the
+        # new plan's basis, so a one-time shift does not re-trigger)
+        self.profile = self._plan_profile = profile
+        self.epoch = 0
+        self.telemetry: OnlineSparsityEstimator | None = None
         if self.sparse:
             self.plan = make_plan(
                 profile, num_devices=ecfg.num_model_shards,
                 num_kv_heads=cfg.num_kv_heads, seq_len=ecfg.max_seq_len,
                 total_budget_per_head=ecfg.budget_per_head,
                 block=ecfg.block, floor=ecfg.floor,
-                allocator=ecfg.allocator, partitioner=ecfg.partitioner)
+                allocator=ecfg.allocator, partitioner=ecfg.partitioner,
+                epoch=0)
+            self.telemetry = OnlineSparsityEstimator(cfg.num_layers,
+                                                     cfg.num_heads)
         self.params = self._permute_params(params)
         self.paged = ecfg.cache_layout == "paged"
         # quantized KV: codes in kv_cache_dtype with per-(block, kv head)
@@ -211,9 +234,11 @@ class Engine:
             * quant.kv_dtype_bytes(ecfg.kv_dtype, block=ecfg.block,
                                    head_dim=cfg.head_dim_))
         self._batcher: ContinuousBatcher | None = None
-        # host planning memos: prompt-bucket work lists, chunk slices and
-        # their item caps, decode selections per resident block count, and
-        # an LRU of packed decode plans keyed by the per-slot block counts
+        # host planning memos (all derive from the live plan epoch and are
+        # purged at a swap, _purge_plan_memos): prompt-bucket work lists,
+        # chunk slices and their item caps, decode selections per resident
+        # block count, and an LRU of packed decode plans keyed by the
+        # per-slot block counts
         self._worklists_cache: dict[int, list[WorkList]] = {}
         self._prefill_items_cache: dict[int, list[torch.Tensor]] = {}
         self._chunk_cap: dict[int, int] = {}
@@ -229,21 +254,38 @@ class Engine:
                              "plan_prefetches": 0, "last": {}}
         # the stochastic sampler's generator (the reference's PRNGKey(0))
         self.rng = torch.Generator(device=self.device).manual_seed(ecfg.seed)
+        # plan-epoch state: decode ticks, ticks since the last replan, the
+        # per-epoch stats and the memoized drift reading
+        self._decode_ticks = 0
+        self._ticks_since_replan = 0
+        self._epoch_stats: dict[int, dict] = {0: self._fresh_epoch_stats()}
+        self._last_drift: tuple | None = None
+        self.replans = 0
 
     # -- offline artifacts -------------------------------------------------
-    def _permute_params(self, params: dict) -> dict:
-        """Apply the plan's head permutation to every layer's attention
-        projections (a new params dict on the device; the input is not
-        modified).  Without a plan (dense) the heads stay in place."""
+    @staticmethod
+    def _fresh_epoch_stats() -> dict:
+        return {"ticks": 0, "telemetry_samples": 0, "recovery_sum": 0.0,
+                "recovery_ticks": 0, "drift": None}
+
+    def _permute_params(self, params: dict, layer_plans=None) -> dict:
+        """Apply a head permutation to every layer's attention projections
+        (a new params dict on the device; the input is not modified): the
+        plan's (engine init), or ``layer_plans``, an epoch swap's
+        :class:`~repro_torch.core.planner.PlanDelta` layers applied to the
+        already-permuted weights.  Without a plan (dense) the heads stay in
+        place."""
         cfg = self.cfg
         to = lambda t: t.to(self.device).contiguous()    # noqa: E731
+        if layer_plans is None and self.plan is not None:
+            layer_plans = self.plan.layers
         layers = []
         for l, lp in enumerate(params["layers"]):
             ap = lp["attn"]
             wq, wk, wv, wo = ap["wq"], ap["wk"], ap["wv"], ap["wo"]
-            if self.plan is not None:
+            if layer_plans is not None:
                 wq, wk, wv, wo = permute_attention_params(
-                    wq, wk, wv, wo, self.plan.layers[l], cfg.head_dim_,
+                    wq, wk, wv, wo, layer_plans[l], cfg.head_dim_,
                     cfg.group_size,
                     kv_replicated=self.plan.mode == "kv_replication")
             layers.append({
@@ -359,6 +401,7 @@ class Engine:
         # max-budget selection width, every layer
         padded_grid = int(bids.size)
         stats = {
+            "epoch": self.epoch,
             "bucket": bucket,
             "real_items": real,
             "grid_items": grid,
@@ -378,6 +421,7 @@ class Engine:
         counts = (bids >= 0).sum(axis=-1).astype(np.float64)  # [L, B, Hkv]
         mean = counts.mean() if counts.size else 0.0
         return {
+            "epoch": self.epoch,
             "bucket": int(bids.shape[-1]),
             "real_items": real,
             "grid_items": grid,
@@ -428,19 +472,30 @@ class Engine:
         s["padded_grid_items"] += stats["padded_grid_items"]
         s["imbalance_sum"] += stats["imbalance"]
         s["last"] = stats
+        self._epoch_stats[self.epoch]["ticks"] += 1
 
     @property
     def decode_bubble_stats(self) -> dict:
         """Decode-grid bubble telemetry over the ticks so far: the share of
         executed grid items that were padding, the share the padded
         baseline would have paid, their grids' ratio, and the mean
-        imbalance of the shards' item counts (the reference's keys for the
-        features the port runs; one head axis, so the head imbalance is
-        the whole imbalance and the stripe imbalance 1)."""
+        imbalance of the shards' item counts, and the plan epochs': the live
+        epoch, the replans, the online estimator's realized recovery, the
+        latest drift reading and per-epoch aggregates (the reference's keys
+        for the features the port runs; one head axis, so the head
+        imbalance is the whole imbalance and the stripe imbalance 1)."""
         s = self.decode_stats
         grid, real, padded = (s["grid_items"], s["real_items"],
                               s["padded_grid_items"])
         mean_imb = s["imbalance_sum"] / s["ticks"] if s["ticks"] else 1.0
+        epochs = {e: {"ticks": es["ticks"],
+                      "telemetry_samples": es["telemetry_samples"],
+                      "realized_recovery": (es["recovery_sum"]
+                                            / es["recovery_ticks"]
+                                            if es["recovery_ticks"] else None),
+                      "drift": es["drift"]}
+                  for e, es in self._epoch_stats.items()}
+        tel = self.telemetry
         return {
             "ticks": s["ticks"],
             "padding_waste": 1.0 - real / grid if grid else 0.0,
@@ -454,7 +509,163 @@ class Engine:
             "plan_misses": s["plan_misses"],
             "plan_prefetches": s["plan_prefetches"],
             "last_tick": s["last"],
+            "epoch": self.epoch,
+            "replans": self.replans,
+            "realized_recovery": (tel.realized_recovery()
+                                  if tel is not None and tel.total_samples
+                                  else None),
+            "drift": self._last_drift[1] if self._last_drift else None,
+            "epochs": epochs,
         }
+
+    # -- plan epochs: telemetry, drift, replanning --------------------------
+    def _dispatch_telemetry(self, slots, tok_all, pos_all, bids, table=None):
+        """Queue the recovery probe (:func:`tfm.decode_telemetry`) over the
+        PRE-STEP resident cache with this tick's selections ``bids [L, B,
+        Hkv, nb]``; it runs before the decode step on the same stream, so
+        it reads the cache the step then writes.  Returns the pending
+        ``(rec, frac, fin, rows)``, folded after the step is queued."""
+        dev = self.device
+        pos = torch.from_numpy(pos_all).to(dev)
+        cache, scales = ((self.kv.pool, self.kv.scales) if self.paged
+                         else (self.cache, self.cache_scales))
+        rec, frac, fin = tfm.decode_telemetry(
+            self.params, cache, torch.from_numpy(tok_all).to(dev), pos,
+            self.cfg, block_ids=torch.from_numpy(bids).to(dev),
+            cache_len=pos, table=table, scales=scales, with_health=True)
+        return rec, frac, fin, list(slots)
+
+    def _fold_telemetry(self, pending) -> None:
+        """Fold a probe's samples of the rows whose estimator forward stayed
+        finite into the estimator, in ORIGINAL head order: the probe ran on
+        permuted weights, so its head h is slot h, original head
+        ``perm[h]`` of the layer's plan."""
+        rec, frac, fin, rows = pending
+        fin = fin.cpu().numpy()
+        rows = [r for r in rows if fin[r]]
+        if not rows:
+            return
+        rec = rec.cpu().numpy().astype(np.float64)[:, rows, :]
+        frac = frac.cpu().numpy().astype(np.float64)[:, rows, :]
+        if not (np.isfinite(rec).all() and np.isfinite(frac).all()):
+            rec = np.nan_to_num(rec, nan=0.0, posinf=1.0, neginf=0.0)
+            frac = np.nan_to_num(frac, nan=0.0, posinf=1.0, neginf=0.0)
+        rec_o, frac_o = np.empty_like(rec), np.empty_like(frac)
+        for l, lp in enumerate(self.plan.layers):
+            rec_o[l][:, lp.perm] = rec[l]
+            frac_o[l][:, lp.perm] = frac[l]
+        self.telemetry.update(rec_o, frac_o)
+        es = self._epoch_stats[self.epoch]
+        es["telemetry_samples"] += len(rows)
+        es["recovery_sum"] += float(rec.mean())
+        es["recovery_ticks"] += 1
+
+    def _maybe_replan(self, batcher=None) -> bool:
+        """The replan policy, once per scheduler tick (:meth:`serve` wires
+        it): only at a safe point, when ``replan_every`` ticks have passed
+        or the drift reading reaches ``drift_threshold``.  Returns True when
+        an epoch swap happened."""
+        ecfg = self.ecfg
+        if self.plan is None or (ecfg.replan_every is None
+                                 and ecfg.drift_threshold is None):
+            return False
+        batcher = batcher or self._batcher
+        if batcher is not None and not batcher.replan_safe:
+            return False
+        due = (ecfg.replan_every is not None
+               and self._ticks_since_replan >= ecfg.replan_every)
+        if (not due and ecfg.drift_threshold is not None
+                and self.telemetry.total_samples):
+            # drift moves only when samples were folded: memoized by the
+            # sample count and the epoch
+            n = (self.telemetry.total_samples, self.epoch)
+            if self._last_drift is None or self._last_drift[0] != n:
+                self._last_drift = (
+                    n, self.telemetry.drift_vs(self._plan_profile))
+            drift = self._last_drift[1]
+            self._epoch_stats[self.epoch]["drift"] = drift["drift"]
+            due = drift["drift"] >= ecfg.drift_threshold
+        if not due:
+            return False
+        return self.replan_now()
+
+    def replan_now(self, profile: HeadSparsityProfile | None = None, *,
+                   plan: HPLBPlan | None = None) -> bool:
+        """Re-derive budgets and head placement and swap the engine onto
+        the new plan epoch in flight.
+
+        ``profile``: plan on it; default the online estimator's curves,
+        falling back to the offline profile for heads not observed enough.
+        The allocator warm-starts from the live plan's budgets.  ``plan``
+        skips planning and swaps onto that plan (its geometry must be the
+        engine's).  A plan equal to the live one (placement and budgets)
+        changes nothing and returns False."""
+        if self.plan is None:
+            raise ValueError("replanning needs a sparse engine")
+        self._ticks_since_replan = 0
+        if plan is not None:
+            new_plan = dataclasses.replace(plan, epoch=self.epoch + 1)
+        else:
+            if profile is None:
+                profile = self.telemetry.to_profile(fallback=self.profile)
+            ecfg = self.ecfg
+            new_plan = make_plan(
+                profile, num_devices=ecfg.num_model_shards,
+                num_kv_heads=self.cfg.num_kv_heads, seq_len=ecfg.max_seq_len,
+                total_budget_per_head=ecfg.budget_per_head,
+                block=ecfg.block, floor=ecfg.floor,
+                allocator=ecfg.allocator, partitioner=ecfg.partitioner,
+                prev_plan=self.plan, epoch=self.epoch + 1)
+        if plans_equal(self.plan, new_plan):
+            return False
+        self._apply_epoch(new_plan)
+        if profile is not None:
+            self._plan_profile = profile
+        return True
+
+    def _apply_epoch(self, new_plan: HPLBPlan) -> None:
+        """Swap onto ``new_plan``: apply the plan delta to the attention
+        weights, gather the resident cache's kv-head axis once (codes and
+        scales together), bump the epoch and purge the memos of the dead
+        epoch.  The staging row of the contiguous layout holds no live
+        sequence at a safe point, so it is not gathered."""
+        delta = plan_delta(self.plan, new_plan)
+        if not delta.identity:
+            self.params = self._permute_params(self.params,
+                                               layer_plans=delta.layers)
+            kv_tbl = delta.kv_perm_table()
+            if not (kv_tbl == np.arange(kv_tbl.shape[1])).all():
+                self._permute_cache(kv_tbl)
+        self.plan = new_plan
+        self.epoch = new_plan.epoch
+        self.replans += 1
+        self._epoch_stats[self.epoch] = self._fresh_epoch_stats()
+        self._purge_plan_memos()
+
+    def _permute_cache(self, kv_tbl: np.ndarray) -> None:
+        """Gather the resident cache's kv-head axis by ``kv_tbl [L, Hkv]``
+        (new slot -> previous slot), its scales with it."""
+        if self.paged:
+            pool, scales = self.kv.pool, self.kv.scales
+            self.kv.replace_pool(
+                tfm.permute_cache_kv_heads(pool, kv_tbl),
+                None if scales is None
+                else tfm.permute_cache_scales(scales, kv_tbl))
+        else:
+            self.cache = tfm.permute_cache_kv_heads(self.cache, kv_tbl)
+            if self.cache_scales is not None:
+                self.cache_scales = tfm.permute_cache_scales(
+                    self.cache_scales, kv_tbl)
+
+    def _purge_plan_memos(self) -> None:
+        """Drop every host memo derived from a plan epoch's budgets (work
+        lists, chunk slices and caps, decode selections and their width,
+        packed decode plans): the live epoch rebuilds them on demand."""
+        for memo in (self._worklists_cache, self._prefill_items_cache,
+                     self._chunk_cap, self._chunk_wl_cache,
+                     self._decode_ids_by_nblocks, self._packed_plan_cache):
+            memo.clear()
+        self._nb_cap = None
 
     # -- chunked prefill ----------------------------------------------------
     def _prefill_bucket(self, seq_len: int) -> int:
@@ -631,6 +842,26 @@ class Engine:
         pos_all[list(slots)] = positions
         act_all[list(slots)] = True   # padding rows must not write KV
         dev = self.device
+        self._decode_ticks += 1
+        self._ticks_since_replan += 1
+        table = None
+        if self.paged:
+            # -1 rows for unbound slots route their writes into the trash
+            # block
+            tbl = np.full((ecfg.num_slots, self.kv.table_width), -1,
+                          np.int32)
+            for s in slots:
+                tbl[s] = self._table_for_slot(s)
+            table = torch.from_numpy(tbl).to(dev)
+        pending = None
+        if (self.sparse and ecfg.telemetry_every > 0
+                and self._decode_ticks % ecfg.telemetry_every == 0):
+            # the recovery probe over the pre-step cache, with this tick's
+            # position-aware selections
+            bids = np.stack([self._decode_ids_for_nblocks(n)
+                             for n in self._nb_sig(pos_all)], axis=1)
+            pending = self._dispatch_telemetry(slots, tok_all, pos_all, bids,
+                                               table)
         packed = self.sparse and ecfg.decode_worklist == "packed"
         stats = None
         if not self.sparse:
@@ -659,16 +890,9 @@ class Engine:
                               else self.cache_scales)
             work["kv_dtype"] = ecfg.kv_dtype
         if self.paged:
-            # -1 rows for unbound slots route their writes into the trash
-            # block
-            table = np.full((ecfg.num_slots, self.kv.table_width), -1,
-                            np.int32)
-            for s in slots:
-                table[s] = self._table_for_slot(s)
             logits = tfm.decode_step_paged(
-                self.params, self.kv.pool, *args,
-                torch.from_numpy(table).to(dev), self.cfg, active=act,
-                **work)
+                self.params, self.kv.pool, *args, table, self.cfg,
+                active=act, **work)
         else:
             logits = tfm.decode_step(self.params, self.cache, *args,
                                      self.cfg, active=act, **work)
@@ -680,6 +904,8 @@ class Engine:
             # the step's kernels are queued on the stream: plan the next
             # tick now, before sampling waits for them
             self._prefetch_next_plan()
+        if pending is not None:
+            self._fold_telemetry(pending)
         return sample(logits, sampling, self.rng).cpu().numpy()[list(slots)]
 
     def kv_bytes(self) -> int:
@@ -731,10 +957,12 @@ class Engine:
               sampling: SamplingParams = SamplingParams()) -> list[Request]:
         """Continuous-batching serve of a list of prompts.  Returns one
         Request per prompt in input order: completed requests carry their
-        generated tokens, over-length ones come back ``rejected``."""
+        generated tokens, over-length ones come back ``rejected``.  The
+        replan policy runs after every tick (:meth:`_maybe_replan`)."""
         batcher = self.make_batcher()
         for i, pr in enumerate(prompts):
             batcher.submit(Request(rid=i, prompt=np.asarray(pr, np.int32),
                                    sampling=sampling))
-        done = batcher.run(*self.step_fns(sampling))
+        done = batcher.run(*self.step_fns(sampling),
+                           on_tick=lambda: self._maybe_replan(batcher))
         return sorted(done, key=lambda r: r.rid)

@@ -198,6 +198,22 @@ class PagedKVCache:
         row[:len(t)] = t
         return row
 
+    def replace_pool(self, pool, scales=None) -> None:
+        """Adopt a new device pool (and, quantized, its scales) of the same
+        shape and dtype: a plan-epoch swap's gather of the kv-head axis
+        returns new tensors.  Codes and scales move together: a quantized
+        pool takes both, a full-precision one neither."""
+        if pool.shape != self.pool.shape or pool.dtype != self.pool.dtype:
+            raise ValueError(f"pool {tuple(pool.shape)} {pool.dtype} does not "
+                             f"replace {tuple(self.pool.shape)} "
+                             f"{self.pool.dtype}")
+        if (scales is None) != (self.scales is None) or (
+                scales is not None and scales.shape != self.scales.shape):
+            raise ValueError("a quantized pool's codes and scales are "
+                             "replaced together, of the same shapes")
+        self.pool = pool
+        self.scales = scales
+
     def audit(self, strict: bool = True) -> list[str]:
         """Allocator accounting plus the pool's block axis (usable blocks
         plus the trash block) and, for a quantized pool, scales whose shape

@@ -113,6 +113,15 @@ class ContinuousBatcher:
     def busy(self) -> bool:
         return bool(self._queue or self.active or self.prefilling)
 
+    @property
+    def replan_safe(self) -> bool:
+        """True at a plan-epoch swap safe point: no prefill chunk sequence
+        is in flight, so no prompt's chunks straddle two epochs (a
+        prompt's chunk work lists are slices of one epoch's lists; decode
+        selections are re-derived every tick, so resident decodes swap
+        cleanly)."""
+        return self.prefilling is None
+
     def preview_next_decode(self):
         """Best-effort ``(slots, positions)`` of the next tick's decode
         batch, so the engine can plan that tick while this one's step runs
@@ -259,11 +268,16 @@ class ContinuousBatcher:
                 finished.append(req)
         return finished
 
-    def run(self, prefill_chunk_fn, decode_fn, max_ticks: int = 100_000):
-        """Drain all requests; returns finished requests in finish order."""
+    def run(self, prefill_chunk_fn, decode_fn, max_ticks: int = 100_000,
+            on_tick: Callable[[], None] | None = None):
+        """Drain all requests; returns finished requests in finish order.
+        ``on_tick`` runs after every tick: the engine's replan policy (the
+        tick boundary is the plan-epoch swap point)."""
         done = []
         ticks = 0
         while self.busy and ticks < max_ticks:
             done.extend(self.tick(prefill_chunk_fn, decode_fn))
+            if on_tick is not None:
+                on_tick()
             ticks += 1
         return done

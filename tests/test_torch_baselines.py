@@ -9,7 +9,7 @@ prefill ids); the model functions (``prefill``, dense ``prefill_chunk*`` /
 ``decode_step*``, ``scatter_seq_cache_paged``) give the reference's logits
 and caches within 1e-4 (f32: the same operations, sums in another order);
 inside the port chunked == monolithic and pow2 == exact tokens bit for bit
-for sparse attention; dense attention on a sliding-window config raises.
+for sparse attention; dense attention serves a sliding-window config.
 """
 import dataclasses
 
@@ -156,21 +156,35 @@ def test_dense_layouts_agree_bit_for_bit(setup):
 
 
 def test_windowed_dense_raises():
-    """Gemma3-1B's LLLLLG windows: dense attention names the missing
-    windowed prefill form; sparse attention still serves."""
+    """Gemma3-1B's LLLLLG windows: dense attention no longer raises (the
+    windowed dense prefill is ported; its tokens are held to the JAX
+    engine's in ``test_torch_window_prefill.py``).  A dense engine serves,
+    monolithic and chunked prefill give equal tokens (#4's and #2's window
+    forms over the same keys), ``tfm.prefill`` windows its 'L' layers (a
+    prompt past the window gives other logits than the same weights with
+    every layer global), and sparse attention still serves."""
     cfg = dataclasses.replace(get_config("gemma3-1b", smoke=True),
                               dtype=torch.float32)
     params = tfm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="windowed forms"):
-        Engine(cfg, params, EngineConfig(**KW, attention="dense"), None,
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="windowed forms"):
-        tfm.prefill(params, torch.zeros((1, 8), dtype=torch.long), cfg)
+    prompt = [np.arange(200) % cfg.vocab_size]
+    tokens = {}
+    for mode in ("monolithic", "chunked"):
+        eng = Engine(cfg, params, EngineConfig(**KW, attention="dense",
+                                               prefill_mode=mode), None,
+                     device="cpu")
+        done = eng.serve(prompt, SamplingParams(max_tokens=2))
+        tokens[mode] = done[0].generated
+        assert len(tokens[mode]) == 2
+    assert tokens["monolithic"] == tokens["chunked"]
+    toks = torch.from_numpy(prompt[0][None])
+    win, _ = tfm.prefill(params, toks, cfg)
+    glob, _ = tfm.prefill(params, toks,
+                          dataclasses.replace(cfg, attn_pattern="G"))
+    assert torch.isfinite(win).all() and not torch.allclose(win, glob)
     eng = Engine(cfg, params, EngineConfig(**KW, prefill_mode="monolithic"),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device="cpu")
-    done = eng.serve([np.arange(200) % cfg.vocab_size],
-                     SamplingParams(max_tokens=2))
+    done = eng.serve(prompt, SamplingParams(max_tokens=2))
     assert len(done[0].generated) == 2
 
 

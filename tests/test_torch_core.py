@@ -1,7 +1,7 @@
 """The port's copied host planning (``repro_torch.core``, its static
 policies) against the reference's: the same inputs give EQUAL outputs —
 profiles, budgets, partitions, plans, prefill work lists and chunk slices,
-packed decode work lists."""
+packed decode work lists, the online sparsity estimator."""
 import numpy as np
 import pytest
 import torch
@@ -131,3 +131,46 @@ def test_permute_attention_params_on_torch_weights():
                                         b.layers[1], dh, 3)
     for x, y in zip(want, got):
         assert np.array_equal(x, y.numpy())
+
+
+def _telemetry_batches(seed, L=3, B=4, H=6, n=12):
+    rng = np.random.default_rng(seed)
+    for t in range(n):
+        rec = rng.uniform(0.2, 1.0, (L, B, H))
+        frac = rng.uniform(0.01, 0.6, (L, B, H)) * (1 + t % 3) / 3
+        rec[rng.random((L, B, H)) < 0.1] = np.nan      # empty rows
+        yield (rec, frac) if t % 4 else (rec[:, 0], frac[:, 0])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_online_estimator_equal(seed):
+    """The plan epochs' online estimator: EMAs, counts, realized recovery,
+    fitted betas, the live profile and the drift reading over seeded
+    batches ([L, B, H] and [L, H], with non-finite entries) are EQUAL; the
+    state (EMAs and counts) copied into a fresh estimator gives the same
+    profile and drift."""
+    L, H = 3, 6
+    ref = ref_sp.OnlineSparsityEstimator(L, H)
+    got = sp.OnlineSparsityEstimator(L, H)
+    offline = sp.synthetic_head_curves(L, H, seed=2)
+    ref_off = ref_sp.synthetic_head_curves(L, H, seed=2)
+    for rec, frac in _telemetry_batches(seed):
+        ref.update(rec, frac)
+        got.update(rec, frac)
+    for name in ("rec_ema", "frac_ema", "count"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    assert got.total_samples == ref.total_samples > 0
+    assert got.realized_recovery() == ref.realized_recovery()
+    np.testing.assert_array_equal(got.head_betas(), ref.head_betas())
+    np.testing.assert_array_equal(got.to_profile(fallback=offline).curves,
+                                  ref.to_profile(fallback=ref_off).curves)
+    assert got.drift_vs(offline) == ref.drift_vs(ref_off)
+    copy = sp.OnlineSparsityEstimator(L, H)
+    copy.rec_ema, copy.frac_ema = got.rec_ema.copy(), got.frac_ema.copy()
+    copy.count = got.count.copy()
+    np.testing.assert_array_equal(copy.to_profile(fallback=offline).curves,
+                                  got.to_profile(fallback=offline).curves)
+    assert copy.drift_vs(offline) == got.drift_vs(offline)
+    fresh = sp.OnlineSparsityEstimator(L, H)
+    assert np.isnan(fresh.realized_recovery())
+    assert fresh.drift_vs(offline)["drift"] == 0.0

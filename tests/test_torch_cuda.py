@@ -1325,3 +1325,75 @@ def test_cuda_sampling_on_the_card(cuda):
     assert one == _baseline_serve(cuda, sampling=sp)
     assert one != _baseline_serve(cuda, sampling=sp, seed=1)
     assert _baseline_serve(cuda) == _baseline_serve(cuda, seed=5)
+
+
+# -- the window forms of #2 and #4 (the sliding-window layers' dense prefill) -
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("window,q_offset,real", [
+    (100, 512, 200), (128, 256, 256), (300, 0, 256), (1000, 512, 44)])
+def test_cuda_window_dense_chunk_matches_plain(cuda, dtype, atol, window,
+                                               q_offset, real, D):
+    """#2's window form over a dense chunk list, paged and contiguous, each
+    against its plain version (windows shorter than a tile, one tile, more
+    than the chunk, and past every key), and the layouts bit for bit."""
+    q, kp, vp, items, table, _ = dense_chunk_case(
+        60 + window, H=4, Hkv=1, D=D, q_offset=q_offset, real=real)
+    kc = as_slot_cache(kp, table[None])[0]
+    vc = as_slot_cache(vp, table[None])[0]
+    q, kp, vp, kc, vc, items, table = (t.to(cuda) for t in as_torch(
+        q, kp, vp, kc, vc, items, table))
+    q, kp, vp, kc, vc = (t.to(dtype) for t in (q, kp, vp, kc, vc))
+    kw = dict(q_offset=q_offset, kv_len=q_offset + real, window=window)
+    paged = sparse_prefill_paged(q, kp, vp, items, table, **kw)
+    torch.testing.assert_close(
+        paged[:, :real].float(),
+        worklist_attention_paged(q, kp, vp, items, table, **kw)[
+            :, :real].float(), atol=atol, rtol=0)
+    contig = sparse_prefill_attention(q, kc, vc, items, **kw)
+    torch.testing.assert_close(
+        contig[:, :real].float(),
+        worklist_attention(q, kc, vc, items, **kw)[:, :real].float(),
+        atol=atol, rtol=0)
+    assert torch.equal(paged, contig)
+    assert sparse_prefill_paged.launches_by_dtype.get("window", 0) > 0
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_cuda_window_dense_chunk_over_codes(cuda, kind, D):
+    """#2 paged's code forms with a window (bf16 q, tolerance 2^-6)."""
+    q, kp, vp, items, table, (ks, vs) = dense_chunk_case(
+        70, H=4, Hkv=1, D=D, kind=kind)
+    kp, vp = code_tensor(kp, kind).to(cuda), code_tensor(vp, kind).to(cuda)
+    q, items, table, ks, vs = (t.to(cuda) for t in as_torch(
+        q, items, table, ks, vs))
+    q = q.to(torch.bfloat16)
+    kw = dict(q_offset=256, kv_len=456, k_scales=ks, v_scales=vs, window=150)
+    got = sparse_prefill_paged(q, kp, vp, items, table, **kw)
+    want = worklist_attention_paged(q, kp, vp, items, table, **kw)
+    torch.testing.assert_close(got[:, :200].float(), want[:, :200].float(),
+                               atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("causal,sq,skv,bq,bkv,window", [
+    (True, 1000, 1000, 128, 128, 100), (True, 513, 513, 128, 128, 512),
+    (True, 333, 517, 96, 80, 64), (False, 300, 700, 128, 128, 200)])
+def test_cuda_window_flash_attention_matches_plain(cuda, dtype, atol, causal,
+                                                   sq, skv, bq, bkv, window,
+                                                   D):
+    """#4's window form: ragged lengths, odd blocks, a window below one
+    tile and the non-causal mask."""
+    rng = np.random.default_rng(17 + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype)
+               for s in ((4, sq, D), (1, skv, D), (1, skv, D)))
+    kw = dict(causal=causal, block_q=bq, block_kv=bkv, window=window)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)

@@ -80,9 +80,11 @@ def test_engine_defaults_to_cuda():
             Engine(CFG, params, EngineConfig(**KW), prof)
 
 
+# the plan-epoch options (drift_threshold, replan_every) serve since they
+# were ported: tests/test_torch_replan.py::test_replan_options_serve
 @pytest.mark.parametrize("option", [
-    {"drift_threshold": 0.5}, {"num_model_shards": 3},
-    {"seq_shards": 2}, {"replan_every": 8}, {"preemption": True},
+    {"num_model_shards": 2}, {"num_model_shards": 3},
+    {"seq_shards": 2}, {"seq_shards": 4}, {"preemption": True},
     {"prefix_cache": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -49,11 +49,10 @@ MAX_TOKENS = 12
 GRIDS = [("paged", "packed"), ("paged", "padded"),
          ("contiguous", "packed"), ("contiguous", "padded")]
 # the reference's decode_bubble_stats keys of features the port does not
-# run yet (seq stripes' merges, plan epochs and replans, drift, swap,
-# faults, priority classes, the prefix cache): each comes with its feature
-UNPORTED_KEYS = {"merge_collectives", "epoch", "replans",
-                 "realized_recovery", "drift", "epochs", "swap", "faults",
-                 "injected_events", "per_class", "prefix"}
+# run yet (seq stripes' merges, swap, faults, priority classes, the prefix
+# cache): each comes with its feature
+UNPORTED_KEYS = {"merge_collectives", "swap", "faults", "injected_events",
+                 "per_class", "prefix"}
 
 
 class GlobalIdEngine(RefEngine):
@@ -150,18 +149,15 @@ def test_tokens_equal_global_id_reference(name, d, layout, worklist):
 @pytest.mark.parametrize("name,d", EVERY_D)
 def test_bubble_stats_equal_reference(name, d, worklist):
     """``decode_bubble_stats`` equals the reference's on every key both
-    hold (``last_tick`` on its own keys: the reference's adds its plan
-    epoch)."""
+    hold, the plan epochs' (epoch, replans, realized recovery, drift, the
+    per-epoch stats) and ``last_tick``'s epoch included."""
     _, want = ref_served(name, d, "paged", worklist)
     _, got = port_served(name, d, "paged", worklist)
     assert set(want) - set(got) == UNPORTED_KEYS
     assert set(got) <= set(want)
     for key, value in got.items():
-        if key == "last_tick":
-            assert set(want[key]) - set(value) == {"epoch"}
-            assert value == {k: want[key][k] for k in value}
-        else:
-            assert value == want[key], key
+        assert value == want[key], key
+    assert got["epoch"] == 0 and got["epochs"][0]["ticks"] == got["ticks"]
     assert got["ticks"] > 0 and 0 <= got["padding_waste"] < 1
     if worklist == "packed":
         # every tick after the first finds its plan built: by the previous
