@@ -34,9 +34,9 @@ Phases, in order; any failure exits non-zero:
    Every request completes, each serve's kernels launched, the block
    accounting audits clean, and all four give the same greedy tokens; then
    the same traffic with a quantized KV cache: int8 and fp8, paged and
-   contiguous (packed decode), each completing every request through the
-   quantized kernels, with the cache's resident bytes beside the bf16
-   engine's; then SMOKE-size float32 serves on the card, paged and
+   contiguous (packed decode; the model's first ``CUT_LAYERS`` layers),
+   each completing every request through the quantized kernels, with the
+   cache's resident bytes; then SMOKE-size float32 serves on the card, paged and
    contiguous, in bf16 and int8, must give the same greedy tokens as the
    same serves on the CPU (plain versions); int8 / fp8 ones replay the
    CPU's tokens and hold the logit differences' median and max, which two
@@ -67,7 +67,8 @@ Phases, in order; any failure exits non-zero:
    versions, paged == contiguous and launch == launch bit for bit, with
    the table's runs, pads between shards and CTAs printed; Yi-6B's widths
    at 2 layers in float32 at D = 4 (bf16 cache, both layouts: card tokens
-   == CPU tokens); full-width serves at D > 1 (``SHARDED_SERVES``: Yi-6B
+   == CPU tokens); full-width serves at D > 1 at the model's first
+   ``CUT_LAYERS`` layers (``SHARDED_SERVES``: Yi-6B
    at D = 4 paged packed, paged padded and contiguous packed, at D = 2
    paged packed; SmolLM-135M at D = 3 paged and contiguous packed), the
    serves of one D giving equal tokens.  Every serve prints its decode
@@ -104,9 +105,31 @@ Phases, in order; any failure exits non-zero:
     replanning serve gives the CPU's tokens and epochs on the card; and
     Yi-6B at D = 4 (``HEAD_MOVE``) moves its KV groups one shard on
     mid-serve: replaying the frozen serve's tokens, its logits stay within
-    ``HEAD_MOVE_ATOL`` of the frozen serve's, a free moved serve's tokens
-    are reported, and the swap's parts (weights, the 2.16 GB pool's
-    kv-head gather) are timed.
+    ``HEAD_MOVE_ATOL`` of the frozen serve's (the median over the live
+    requests' rows; the median over every row, finished slots' too, is
+    printed beside it), which a planted control (the pool gathered by a
+    wrong kv-head table) must fail, a free moved serve's tokens are
+    reported, and the swap's parts (weights, the 2.16 GB pool's kv-head
+    gather) are timed;
+11. the offline profiling stage and overload serving: SmolLM-135M's
+    profiling forward (``tfm.prefill(..., maps_out=)``, #4 once a layer)
+    over two seeded calibration prompts of 1024 tokens and
+    ``profile_model`` on the card, every curve non-decreasing, within [0,
+    1] and 1 at frac 1; each layer's heterogeneity and the plan's budget
+    spread printed, and the 8 prompts served from that profile; a SMOKE
+    float32 profile whose card curves lie within ``PROFILE_ATOL`` of the
+    CPU's; preempted serves (``PREEMPT_SERVES``: SmolLM-135M paged and
+    contiguous bf16, after its plan epochs; Yi-6B paged int8, after its
+    head move, at its first ``CUT_LAYERS`` layers): two batch requests and
+    a later interactive arrival that swaps one out to pinned host memory
+    and back, whose greedy tokens must equal the uninterrupted serve's,
+    with the swaps' card times, bytes and rates printed, both tiers
+    audited clean, and a planted control (the host copy rolled by one
+    block) that must change them; and Yi-6B at D = 4 (``STRADDLE``, the
+    same depth) with phase 10's head move forced while the victim is on
+    the host: one remap at swap-in, tokens equal to the serve whose
+    victim's copy stays on the card and moves with the cache, and a
+    control without the remap that must differ.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -126,6 +149,7 @@ line, then ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -199,6 +223,12 @@ SHARDED_SERVES = {
 # Yi-6B's degree whose layer-0 packed table holds #1 / #3 to their plain
 # versions, and that of its float32 parity
 SHARDED_CHECK = 4
+# the depth that keeps the whole script near half its time limit: the
+# head-parallel serves (phase 8), SmolLM-135M's quantized serves (phase 5)
+# and Yi-6B's overload serves (phase 11) run the model's first CUT_LAYERS
+# layers at full width (the default serves, the path of the kernels line's
+# bf16 launches, keep every layer)
+CUT_LAYERS = {"smollm-135m": 15, "yi-6b": 16}
 # the paper's baselines served at full width (phase 9), per model: (tag,
 # EngineConfig options).  Dense serves prefill monolithically, so the dense
 # flash attention (#4) runs on the prompt bucket; the first is the serve
@@ -248,6 +278,24 @@ REPLAN = dict(telemetry_every=4, replan_every=16)
 HEAD_MOVE = {"yi-6b": 4}
 HEAD_MOVE_TICK = 12
 HEAD_MOVE_ATOL = (0.1, 0.5)
+# the offline profiling stage and overload serving (phase 11): two seeded
+# calibration prompts of CALIB_TOKENS for SmolLM-135M's profile (curves
+# within PROFILE_ATOL of the CPU's in the SMOKE float32 parity); the
+# preempted serves (per model, (cache layout, KV dtype)): two batch prompts
+# and a later interactive one, PREEMPT_LENS, 32 tokens each, on a pool of
+# PREEMPT_BLOCKS that holds both batch requests (23 + 28 blocks) and not
+# the arrival too (12), or on two slots (contiguous); the model and degree
+# of the head move that straddles a victim's host residency, whose serves
+# take STRADDLE_TOKENS (24 + 28 + 13 blocks): the first batch request then
+# outlives the arrival's prefill, and the victim stays on the host past it
+CALIB_TOKENS = 1024
+PROFILE_ATOL = 1e-5
+PREEMPT_LENS = (2900, 3500, 1500)
+PREEMPT_BLOCKS = 56
+PREEMPT_SERVES = {"smollm-135m": (("paged", "bf16"), ("contiguous", "bf16")),
+                  "yi-6b": (("paged", "int8"),)}
+STRADDLE = {"yi-6b": 4}
+STRADDLE_TOKENS = 64
 # the prompt buckets #4 takes in those serves: exact (ragged) lengths of
 # SERVE_LENS and pow2 buckets
 FLASH_BUCKETS = (513, 1010, 3500, 1024, 4096)
@@ -1060,15 +1108,26 @@ def check_kernels(eng, gen, dev, results, sh: Shapes, dtypes):
     return launches
 
 
-def build_engine(cfg, params, dev, **kw):
+def build_engine(cfg, params, dev, profile=None, **kw):
     """A full-width engine: ``EngineConfig()`` with 8 slots of 4096 tokens
-    and the options ``kw``."""
+    and the options ``kw``, planned from ``profile`` (default the synthetic
+    curves)."""
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig
-    return Engine(cfg, params, EngineConfig(max_seq_len=SMAX, num_slots=B,
-                                            **kw),
-                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+    kw = {"max_seq_len": SMAX, "num_slots": B, **kw}
+    return Engine(cfg, params, EngineConfig(**kw),
+                  profile or synthetic_head_curves(cfg.num_layers,
+                                                   cfg.num_heads),
                   device=dev)
+
+
+def cut_depth(cfg, params, arch: str):
+    """The model cut to its first ``CUT_LAYERS[arch]`` layers: the config
+    and the params (the same tensors, not copied)."""
+    n = CUT_LAYERS[arch]
+    print(f"{cfg.name}: depth cut to {n} of {cfg.num_layers} layers")
+    return (dataclasses.replace(cfg, num_layers=n),
+            dict(params, layers=params["layers"][:n]))
 
 
 def serve_kernels(ecfg) -> tuple[str, str]:
@@ -1170,10 +1229,11 @@ def run_serves(cfg, params, dev):
             fail(f"{tag} tokens differ from the paged packed serve")
     # the quantized KV cache: tokens differ from bf16's by design (and
     # between the layouts: the paged pool quantizes each chunk as it lands,
-    # the contiguous one its staging row once)
+    # the contiguous one its staging row once); the first CUT_LAYERS layers
+    qcfg, qparams = cut_depth(cfg, params, cfg.name)
     for kind in QUANT_KINDS:
         for layout in ("paged", "contiguous"):
-            eng = build_engine(cfg, params, dev, cache_layout=layout,
+            eng = build_engine(qcfg, qparams, dev, cache_layout=layout,
                                kv_dtype=kind)
             _, got = run_serve(eng, prompts, f"{layout},packed,{kind}", SMOL)
             launches.update({n: c for n, c in got.items() if "." in n})
@@ -1261,13 +1321,15 @@ def check_sharded_decode(eng, gen, dev, sh: Shapes):
 
 def run_sharded_serves(cfg, params, dev, sh: Shapes):
     """The model's full-width serves at each head-parallel degree of
-    ``SHARDED_SERVES`` (bf16, 8 prompts, 32 greedy tokens): every request
+    ``SHARDED_SERVES`` (bf16, 8 prompts, 32 greedy tokens; the first
+    ``CUT_LAYERS`` layers): every request
     completes through the path's kernels, and the serves of one degree
     give equal tokens (a split is a position in its run, so the decode
     grid and the layout change no bit).  Each prints its bubble stats,
     beside the same model's D = 1 serve."""
     import torch
     prompts = serve_prompts(cfg)
+    cfg, params = cut_depth(cfg, params, sh.arch)
     for d, serves in SHARDED_SERVES[sh.arch]:
         tokens = {}
         for layout, worklist in serves:
@@ -1638,17 +1700,34 @@ def faulted_decode_call():
             setattr(ops, n, fn)
 
 
-def forced_logit_diff(card, cpu) -> tuple[float, float, int]:
+def forced_logit_diff(card, cpu, live=None) -> tuple[float, float, int]:
     """A teacher-forced serve's card-vs-CPU logit differences, each model
     call and row's largest: their median and maximum (NaN if any is NaN),
-    and the rows whose greedy argmax differs (near-ties within them)."""
+    and the rows whose greedy argmax differs (near-ties within them).
+    ``live``: per model call, the rows a live request samples (None: every
+    row), so the finished slots' rows of a decode call count nothing."""
     import torch
     if len(card) != len(cpu):
         fail(f"{len(card)} model calls on the card, {len(cpu)} on the CPU")
-    rows = torch.cat([(a - b).abs().amax(-1) for a, b in zip(card, cpu)])
-    flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum())
-                for a, b in zip(card, cpu))
+    live = live or [None] * len(card)
+    pairs = [(a, b) if r is None else (a[r], b[r])
+             for a, b, r in zip(card, cpu, live)]
+    rows = torch.cat([(a - b).abs().amax(-1) for a, b in pairs])
+    flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum()) for a, b in pairs)
     return rows.median().item(), rows.max().item(), flips
+
+
+def live_rows(eng, card: list) -> dict:
+    """Record, by the index its logits take in ``card`` (a
+    :func:`sampled_logits` record), each decode call's live rows: the
+    slots of its requests."""
+    rows, inner = {}, eng.decode_slots
+
+    def decode(slots, *args, **kw):
+        rows[len(card)] = list(slots)
+        return inner(slots, *args, **kw)
+    eng.decode_slots = decode
+    return rows
 
 
 def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
@@ -1920,8 +1999,12 @@ def run_head_move(cfg, params, dev, sh: Shapes):
     onto its plan with the KV groups rotated across the shards (weights
     permuted, the resident pool's kv heads gathered once).  Against the
     frozen serve: the moved serve replaying the frozen serve's tokens holds
-    its logits within ``HEAD_MOVE_ATOL`` (median, max), and a free moved
-    serve's tokens are reported.  Prints the swap's parts' times."""
+    its logits within ``HEAD_MOVE_ATOL`` (median over the live requests'
+    rows, max), and a free moved serve's tokens are reported; a planted
+    control, the replayed move with the pool gathered by a wrong kv-head
+    table (each layer's rolled by one slot), must fail the check.  Prints
+    the swap's parts' times."""
+    import numpy as np
     import torch
     d = HEAD_MOVE[sh.arch]
     prompts = serve_prompts(cfg)
@@ -1931,20 +2014,26 @@ def run_head_move(cfg, params, dev, sh: Shapes):
     pool_gb = eng.kv.pool_bytes() / 1e9
     del eng
     torch.cuda.empty_cache()
-    for replay in (True, False):
+    for replay, control in ((True, False), (False, False), (True, True)):
         eng = build_engine(cfg, params, dev, num_model_shards=d)
         swaps = timed_swap_parts(eng)
+        if control:
+            gather = eng._permute_cache
+            eng._permute_cache = lambda tbl, _g=gather: _g(
+                np.roll(tbl, 1, axis=1))
         card, moved_at = [], []
+        live = live_rows(eng, card)
 
         def policy(batcher=None, eng=eng, card=card, moved_at=moved_at):
             batcher = batcher or eng._batcher
             if (eng.replans or eng._decode_ticks < HEAD_MOVE_TICK
-                    or not batcher.replan_safe or batcher._queue):
+                    or not batcher.replan_safe or batcher.pending):
                 return False
             moved_at.append(len(card))      # the first moved model call
             return eng.replan_now(plan=rotate_shards(eng.plan))
         eng._maybe_replan = policy
-        tag = f"paged,packed,D={d},head move{',replayed' if replay else ''}"
+        tag = (f"paged,packed,D={d},head move{',replayed' if replay else ''}"
+               f"{',control: wrong kv-head table' if control else ''}")
         with sampled_logits(card, frozen if replay else None):
             got, _ = run_serve(eng, prompts, tag, sh)
         print(f"serve[{sh.arch}:{tag}]: epoch {eng.epoch} after "
@@ -1957,15 +2046,23 @@ def run_head_move(cfg, params, dev, sh: Shapes):
                  f"and gather the cache")
         if replay:
             at = moved_at[0]
-            med, worst, flips = forced_logit_diff(card[at:], frozen[at:])
+            old_med = forced_logit_diff(card[at:], frozen[at:])[0]
+            med, worst, flips = forced_logit_diff(
+                card[at:], frozen[at:],
+                [live.get(i) for i in range(at, len(card))])
             ok = med <= HEAD_MOVE_ATOL[0] and worst <= HEAD_MOVE_ATOL[1]
             print(f"serve[{sh.arch}:{tag}]: logits against the frozen "
                   f"serve's over the {len(card) - at} model calls after the "
-                  f"move (of {len(card)}): median "
-                  f"{med:.3e}, max {worst:.3e} (limits {HEAD_MOVE_ATOL}); "
-                  f"greedy argmax differs in {flips} rows: "
-                  f"{'held' if ok else 'NOT held'}")
-            if not ok:
+                  f"move (of {len(card)}), live rows: median "
+                  f"{med:.3e} (over every row, finished slots' too: "
+                  f"{old_med:.3e}), max {worst:.3e} (limits "
+                  f"{HEAD_MOVE_ATOL}); greedy argmax differs in {flips} "
+                  f"live rows: {'held' if ok else 'NOT held'}")
+            if control and ok:
+                fail(f"{sh.arch}: the head-move check passes its planted "
+                     f"control (the pool gathered by a wrong kv-head "
+                     f"table)")
+            if not control and not ok:
                 fail(f"{sh.arch}: the moved serve's logits leave the frozen "
                      f"serve's beyond the limit")
         else:
@@ -1978,6 +2075,343 @@ def run_head_move(cfg, params, dev, sh: Shapes):
                   f"first departure at token {first})")
         del eng
         torch.cuda.empty_cache()
+
+
+def calibration_prompts(cfg, n: int = 2):
+    """The profiling stage's seeded calibration prompts."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, cfg.vocab_size, size=CALIB_TOKENS)
+            for _ in range(n)]
+
+
+def check_curves(tag, prof) -> None:
+    """A measured profile's curves are non-decreasing on the grid, within
+    [0, 1], and reach 1 at frac 1 (within 1e-6)."""
+    import numpy as np
+    c = prof.curves
+    steps = np.diff(c, axis=-1).min()
+    at_one = np.abs(c[..., -1] - 1.0).max()
+    print(f"{tag}: {c.shape[0]} layers x {c.shape[1]} heads x {c.shape[2]} "
+          f"grid points over {prof.num_samples} query rows; smallest step "
+          f"{steps:.3e}, range [{c.min():.6f}, {c.max():.6f}], largest "
+          f"|recovery(1) - 1| {at_one:.3e}")
+    if steps < 0 or c.min() < 0 or c.max() > 1 + 1e-6 or at_one > 1e-6:
+        fail(f"{tag}: a recovery curve decreases, leaves [0, 1] or misses "
+             f"1 at frac 1")
+
+
+def run_profile(cfg, params, dev):
+    """Phase 11's offline profiling stage at full width: the profiling
+    forward (``tfm.prefill(..., maps_out=)``, whose attention launches #4)
+    of two seeded calibration prompts, ``profile_model`` on the card, the
+    curves checked; each layer's heterogeneity and the plan's budget spread
+    printed; then the 8 serve prompts served from that profile."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparsity import profile_model
+    from repro_torch.models import transformer as tfm
+    calib = calibration_prompts(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    prof = profile_model(lambda t: tfm.attention_maps_of(params, t, cfg),
+                         calib)
+    torch.cuda.synchronize()
+    flash = read_counts(["flash_attention"])["flash_attention"]
+    tag = f"profile[{cfg.name}]"
+    print(f"{tag}: {len(calib)} calibration prompts of {CALIB_TOKENS} "
+          f"tokens in {time.time() - t0:.2f} s, #4 launched {flash} times")
+    if flash != len(calib) * cfg.num_layers:
+        fail(f"{tag}: the profiling forward did not launch #4 once a layer")
+    check_curves(tag, prof)
+    het = [prof.heterogeneity(l) for l in range(cfg.num_layers)]
+    print(f"{tag}: heterogeneity (max / min budget at recovery 0.9) by "
+          f"layer: {[round(h, 2) for h in het]}")
+    eng = build_engine(cfg, params, dev, profile=prof)
+    budgets = np.stack([lp.budgets for lp in eng.plan.layers])
+    spread = budgets.max(axis=1) / budgets.min(axis=1)
+    print(f"{tag}: plan budgets {budgets.min()}-{budgets.max()} tokens a "
+          f"head (median {np.median(budgets):.0f}); max / min in a layer "
+          f"{spread.min():.2f}-{spread.max():.2f} (mean {spread.mean():.2f})")
+    run_serve(eng, serve_prompts(cfg), "paged,packed,measured profile",
+              SMOL)
+
+
+def profile_smoke_parity(dev):
+    """Phase 11's float32 pair: SMOKE profiles of the same seeded weights
+    and calibration tokens on the card and on the CPU: curves within
+    ``PROFILE_ATOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import profile_model
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    params = tfm.init_params(cfg, seed=5, device=dev)
+    calib = calibration_prompts(cfg)
+    got, want = (profile_model(
+        lambda t, p=p: tfm.attention_maps_of(p, t, cfg), calib)
+        for p in (params, to_device(params, "cpu")))
+    diff = float(np.abs(got.curves - want.curves).max())
+    print(f"smoke profile f32: card curves against the CPU's, largest "
+          f"difference {diff:.3e} (tolerance {PROFILE_ATOL:g})")
+    if not diff <= PROFILE_ATOL:
+        fail("the SMOKE f32 profile: card and CPU curves differ")
+
+
+def preempt_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, cfg.vocab_size, size=n) for n in PREEMPT_LENS]
+
+
+def drive_interrupt(eng, prompts, sp, on_tick=None):
+    """Two batch-class requests run until both decode; then the
+    interactive one arrives and the batcher drains (``on_tick`` after each
+    tick from the arrival on).  Returns the tokens in rid order and the
+    batcher."""
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+    b = eng.make_batcher()
+    pf, df = eng.step_fns(sp)
+    for i in range(2):
+        b.submit(Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
+                         sampling=sp, priority="batch"))
+    done = []
+    while b.busy and not (b.prefilling is None and len(b.active) == 2):
+        done.extend(b.tick(pf, df))
+    done.extend(b.tick(pf, df))
+    b.submit(Request(rid=2, prompt=np.asarray(prompts[2], np.int32),
+                     sampling=sp, priority="interactive"))
+    while b.busy:
+        done.extend(b.tick(pf, df))
+        if on_tick is not None:
+            on_tick(b)
+    return [r.generated for r in sorted(done, key=lambda r: r.rid)], b
+
+
+def timed_swaps(eng) -> list:
+    """Time each swap hook on the card between CUDA events (the gather or
+    scatter and the pinned copy; a swap-out also waits for its pinned host
+    buffer, which the first swap of a size in the process allocates and
+    later ones take from torch's cache), host clock beside it:
+    ``(direction, ms, host ms, bytes)`` per call."""
+    import torch
+    out = []
+    for way, attr in (("out", "_swap_out_seq"), ("in", "_swap_in_seq")):
+        def timed(*args, _inner=getattr(eng, attr), _way=way, **kw):
+            key = f"bytes_{_way}"
+            n0 = eng.swap_stats[key]
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            _inner(*args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            out.append((_way, start.elapsed_time(end),
+                        1e3 * (time.perf_counter() - t0),
+                        eng.swap_stats[key] - n0))
+        setattr(eng, attr, timed)
+    return out
+
+
+def rolled_host_copy(eng) -> None:
+    """The preemption check's planted control: at swap-in the host copy is
+    rolled by one block along its block axis (each block restored one block
+    off), codes and scales alike."""
+    import torch
+    inner = eng._swap_in_seq
+
+    def swap_in(rid, slot, resident):
+        data, scales = eng.host_copy(rid)
+        axis, shift = (2, 1) if eng.paged else (4, eng.ecfg.block)
+        data.copy_(torch.roll(data, shift, axis))
+        if scales is not None:
+            scales.copy_(torch.roll(scales, 1, axis))
+        return inner(rid, slot, resident)
+    eng._swap_in_seq = swap_in
+
+
+def run_preempted(cfg, params, dev, sh: Shapes, layout: str, kind: str):
+    """Phase 11's preempted serve of one setting at full width, three
+    times: uninterrupted (the default pool, or, contiguous, the same two
+    slots, without preemption), preempted (the tight pool; the interactive
+    arrival swaps a decoding batch request's KV to the pinned host tier and
+    back), and the planted control (the host copy rolled by one block at
+    swap-in).  The preempted tokens must equal the uninterrupted ones for
+    every request, with a swap out and back of equal blocks and a clean
+    audit of both tiers, and the path's kernels launched; the control's
+    must not.  Prints the swaps' card times, bytes and bytes per second."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_tokens=32)
+    prompts = preempt_prompts(cfg)
+    geom = (dict(num_kv_blocks=PREEMPT_BLOCKS) if layout == "paged"
+            else dict(num_slots=2))
+    tag = f"{sh.arch}:{layout},{kind},preempted"
+    runs = {}
+    for name, kw in (("uninterrupted", dict(
+            num_kv_blocks=None) if layout == "paged" else geom),
+            ("preempted", dict(geom, preemption=True)),
+            ("control", dict(geom, preemption=True))):
+        eng = build_engine(cfg, params, dev, cache_layout=layout,
+                           kv_dtype=kind, **kw)
+        swaps = timed_swaps(eng)
+        if name == "control":
+            rolled_host_copy(eng)
+        names = [n + sh.tag for n in serve_kernels(eng.ecfg)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        toks, b = drive_interrupt(eng, prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts(names)
+        fails = (eng.kv.audit(strict=False) if eng.paged
+                 else b.alloc.audit(False))
+        st = eng.swap_stats
+        pool = (f"pool of {eng.kv.num_blocks} blocks" if eng.paged
+                else f"{eng.ecfg.num_slots} slots")
+        print(f"serve[{tag}] {name}: {pool}, {wall:.2f} s; preempted "
+              f"{b.stats.preempted}, resumed {b.stats.resumed}; swap "
+              f"{st['swapped_out']} out / {st['swapped_in']} in, blocks "
+              f"{st['blocks_out']} / {st['blocks_in']}, epoch remaps "
+              f"{st['epoch_remaps']}; launches {launches}; audit "
+              f"{'clean' if not fails else fails}, {b.alloc.allocated_blocks} "
+              f"blocks mapped, {b.alloc.host_allocated_blocks} on the host")
+        for way, ms, host_ms, nbytes in swaps:
+            print(f"serve[{tag}] {name}: swap-{way} {nbytes} bytes, card "
+                  f"{ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s), host "
+                  f"{host_ms:.3f} ms")
+        if (not all(len(t) == 32 for t in toks) or not all(launches.values())
+                or fails or b.alloc.allocated_blocks
+                or b.alloc.host_allocated_blocks or eng._host_swaps):
+            fail(f"{tag} {name}: a request did not complete, a kernel of "
+                 f"the path never launched, or the tiers did not audit "
+                 f"clean")
+        if name != "uninterrupted" and (
+                st["swapped_out"] < 1
+                or st["blocks_in"] != st["blocks_out"]):
+            fail(f"{tag} {name}: no swap out and back of equal blocks")
+        runs[name] = toks
+        # the batcher's swap hooks refer back to the engine: collect the
+        # cycle, so its pool and pinned buffers return to torch's caches
+        del eng, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = runs["uninterrupted"]
+    same = [a == b for a, b in zip(runs["preempted"], want)]
+    moved = [a == b for a, b in zip(runs["control"], want)]
+    print(f"serve[{tag}]: preempted tokens == uninterrupted for requests "
+          f"{same}; control (host copy rolled by one block): {moved}")
+    if not all(same):
+        fail(f"{tag}: the preempted serve's tokens differ from the "
+             f"uninterrupted serve's")
+    if all(moved):
+        fail(f"{tag}: the planted control (host copy rolled by one block) "
+             f"kept the tokens")
+
+
+def parked_on_device(eng) -> None:
+    """The straddle check's reference path: a victim's copy stays on the
+    card (``_to_host`` a device clone) and every epoch swap gathers it with
+    the resident cache by the swap's own kv table, so swap-in finds it in
+    the live arrangement and remaps nothing."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    eng._to_host = lambda t: t.clone()
+    gather = eng._permute_cache
+
+    def permute(kv_tbl):
+        gather(kv_tbl)
+        for rec in eng._host_swaps.values():
+            rec["data"] = tfm.permute_cache_kv_heads(rec["data"], kv_tbl)
+            if rec["scales"] is not None:
+                rec["scales"] = tfm.permute_cache_scales(rec["scales"],
+                                                         kv_tbl)
+            rec["arrange"] = np.take_along_axis(
+                rec["arrange"], np.asarray(kv_tbl), axis=1)
+    eng._permute_cache = permute
+
+
+def skipped_remap(eng) -> None:
+    """The straddle check's planted control: swap-in restores the host copy
+    as it was taken (its arrangement overwritten by the live one)."""
+    inner = eng._swap_in_seq
+
+    def swap_in(rid, slot, resident):
+        eng._host_swaps[rid]["arrange"] = eng._kv_arrange.copy()
+        return inner(rid, slot, resident)
+    eng._swap_in_seq = swap_in
+
+
+def run_straddle(cfg, params, dev, sh: Shapes):
+    """Phase 11's epoch straddle at full width (``STRADDLE``: Yi-6B paged
+    at D = 4): the preempted serve of :func:`run_preempted`, with phase
+    10's head move (:func:`rotate_shards`) forced at the first safe point
+    while the victim is on the host.  Its tokens must equal those of the
+    same serve whose victim's copy stays on the card and moves with the
+    resident cache (:func:`parked_on_device`), with exactly one remap at
+    swap-in; a control restoring the copy unmapped must differ."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    d = STRADDLE[sh.arch]
+    sp = SamplingParams(max_tokens=STRADDLE_TOKENS)
+    prompts = preempt_prompts(cfg)
+    tag = f"{sh.arch}:paged,bf16,D={d},preempted,head move"
+    runs = {}
+    for name, plant in (("host tier", None), ("parked on the card",
+                                              parked_on_device),
+                        ("control: no remap", skipped_remap)):
+        eng = build_engine(cfg, params, dev, num_model_shards=d,
+                           preemption=True, num_kv_blocks=PREEMPT_BLOCKS)
+        if plant is not None:
+            plant(eng)
+        swaps = timed_swap_parts(eng)
+        moved = []
+
+        def on_tick(b, eng=eng, moved=moved):
+            if (not moved and eng.swap_stats["swapped_out"]
+                    and not eng.swap_stats["swapped_in"] and b.replan_safe):
+                moved.append(eng._decode_ticks)
+                eng.replan_now(plan=rotate_shards(eng.plan))
+        t0 = time.time()
+        toks, b = drive_interrupt(eng, prompts, sp, on_tick)
+        torch.cuda.synchronize()
+        st = eng.swap_stats
+        fails = eng.kv.audit(strict=False)
+        print(f"serve[{tag}] {name}: {time.time() - t0:.2f} s; head move at "
+              f"decode tick {moved}, epoch {eng.epoch}; swap "
+              f"{st['swapped_out']} out / {st['swapped_in']} in, epoch "
+              f"remaps {st['epoch_remaps']}; swap parts: weights "
+              f"{1e3 * sum(swaps['params']):.2f} ms, cache gather "
+              f"{1e3 * sum(swaps['cache']):.2f} ms; audit "
+              f"{'clean' if not fails else fails}")
+        want_remaps = 1 if plant is None else 0
+        if (not moved or eng.epoch != 1 or fails
+                or st["epoch_remaps"] != want_remaps
+                or not all(len(t) == STRADDLE_TOKENS for t in toks)):
+            fail(f"{tag} {name}: no head move during the host residency, "
+                 f"{st['epoch_remaps']} remaps (want {want_remaps}), or an "
+                 f"unclean audit")
+        runs[name] = toks
+        del eng, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = runs["parked on the card"]
+    same = [a == b for a, b in zip(runs["host tier"], want)]
+    ctrl = [a == b for a, b in zip(runs["control: no remap"], want)]
+    print(f"serve[{tag}]: host-tier tokens == parked-on-the-card tokens for "
+          f"requests {same}; control (no remap): {ctrl}")
+    if not all(same):
+        fail(f"{tag}: the epoch-straddling swap's tokens differ")
+    if all(ctrl):
+        fail(f"{tag}: the planted control (no remap) kept the tokens")
 
 
 def dense_f32_parity(dev, params, sh: Shapes):
@@ -2129,6 +2563,15 @@ def model_phases(dev, gen, results, sh: Shapes):
         t0 = time.time()
         run_head_move(cfg, params, dev, sh)
         print(f"plan-epoch phases ({cfg.name}): {time.time() - t0:.1f} s")
+    if sh.arch in PREEMPT_SERVES or sh.arch in STRADDLE:
+        t0 = time.time()
+        ocfg, oparams = cut_depth(cfg, params, sh.arch)
+        for layout, kind in PREEMPT_SERVES.get(sh.arch, ()):
+            run_preempted(ocfg, oparams, dev, sh, layout, kind)
+        if sh.arch in STRADDLE:
+            run_straddle(ocfg, oparams, dev, sh)
+        del oparams
+        print(f"overload phases ({cfg.name}): {time.time() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2201,6 +2644,13 @@ def main() -> int:
     run_replan_serve(cfg, params, dev, SMOL)
     replan_smoke_parity(dev)
     print(f"plan-epoch phases ({cfg.name}): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    run_profile(cfg, params, dev)
+    profile_smoke_parity(dev)
+    for layout, kind in PREEMPT_SERVES[cfg.name]:
+        run_preempted(cfg, params, dev, SMOL, layout, kind)
+    print(f"profiling and overload phases ({cfg.name}): "
+          f"{time.time() - t0:.1f} s")
     del params
 
     for sh in (YI, GEMMA):

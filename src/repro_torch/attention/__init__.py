@@ -1,1 +1,2 @@
-"""Attention helpers around the kernels: RoPE and static block policies."""
+"""Attention helpers around the kernels: RoPE, static block policies and
+the profiling stage's softmax maps."""

@@ -27,8 +27,10 @@ def _streaming_cached(head, nb, nq, nkv, sink_blocks):
 
 def streaming_policy(head: int, nb: int, nq: int, nkv: int,
                      sink_blocks: int = 1) -> list[np.ndarray]:
-    return _streaming_cached(int(head), int(nb), int(nq), int(nkv),
-                             int(sink_blocks))
+    # a new list each call: a caller that replaces an entry must not
+    # change what the memo hands the next caller
+    return list(_streaming_cached(int(head), int(nb), int(nq), int(nkv),
+                                  int(sink_blocks)))
 
 
 def _streaming_impl(head: int, nb: int, nq: int, nkv: int,
@@ -54,8 +56,8 @@ def _strided_cached(head, nb, nq, nkv, sink_blocks, local_blocks):
 def strided_policy(head: int, nb: int, nq: int, nkv: int,
                    sink_blocks: int = 1, local_blocks: int = 2
                    ) -> list[np.ndarray]:
-    return _strided_cached(int(head), int(nb), int(nq), int(nkv),
-                           int(sink_blocks), int(local_blocks))
+    return list(_strided_cached(int(head), int(nb), int(nq), int(nkv),
+                                int(sink_blocks), int(local_blocks)))
 
 
 def _strided_impl(head: int, nb: int, nq: int, nkv: int,

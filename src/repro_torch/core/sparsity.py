@@ -1,10 +1,16 @@
-"""Per-head sparsity profiles (paper §2.4): the offline profile type, the
-online estimator and the synthetic generator, copied from the reference
-package's ``core/sparsity.py``.
+"""Per-head sparsity profiles (paper §2.4): the offline profiling stage, the
+profile type, the online estimator and the synthetic generator, copied from
+the reference package's ``core/sparsity.py``.
 
 A :class:`HeadSparsityProfile` holds, per (layer, head), the recovery ratio
 of the top-``frac`` tokens on a normalized budget grid — the input of the
-budget allocator.  :class:`OnlineSparsityEstimator` folds the serving
+budget allocator.  The offline stage measures it from a model's softmax
+maps (:func:`profile_model` over calibration batches, the maps from
+``tfm.prefill(..., maps_out=)``): :func:`recovery_curve` is the reference's
+numpy function; a map given as a torch tensor takes
+:func:`recovery_curves_torch`, the same function computed on the map's
+device in float64 (at full width a numpy sort of every head's ``[Q, K]``
+map is the slow part).  :class:`OnlineSparsityEstimator` folds the serving
 path's realized recovery into per-head EMAs and fits them back into a
 profile (plan epochs, §2.9).  :func:`synthetic_head_curves` draws
 structured per-head power-law curves (the profile the serving engine plans
@@ -14,7 +20,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Callable, Sequence
+
 import numpy as np
+import torch
 
 # On-disk profile schema.  v1 files predate the field (load() treats a
 # missing entry as v1); v2 adds the version itself plus epoch-snapshot
@@ -37,6 +46,65 @@ DEFAULT_BUDGET_GRID: np.ndarray = np.unique(
     )
 )
 
+
+def recovery_curve(attn_weights: np.ndarray, grid: np.ndarray | None = None) -> np.ndarray:
+    """Cumulative recovery ratio of top-``k`` tokens for one head.
+
+    Parameters
+    ----------
+    attn_weights:
+        ``[num_queries, num_keys]`` post-softmax attention probabilities for a
+        single head (rows sum to 1 over the *valid* causal prefix; invalid
+        entries must be 0).
+    grid:
+        normalized budget fractions in [0, 1]; default
+        :data:`DEFAULT_BUDGET_GRID`.
+
+    Returns
+    -------
+    ``[len(grid)]`` mean (over queries) recovery ratio: for each query row,
+    sort weights descending, take the top ``ceil(frac * valid_len)`` entries,
+    and sum.  This is exactly the paper's "recovery ratio" (§2.4) averaged
+    over queries, with the budget normalized by each query's own causal
+    prefix length.
+    """
+    if grid is None:
+        grid = DEFAULT_BUDGET_GRID
+    w = np.asarray(attn_weights, dtype=np.float64)
+    nq, nk = w.shape
+    # Sort each row descending and prefix-sum.
+    sorted_w = -np.sort(-w, axis=-1)
+    csum = np.cumsum(sorted_w, axis=-1)  # [nq, nk]
+    row_tot = np.maximum(csum[:, -1], 1e-12)
+    valid_len = np.maximum((w > 0).sum(axis=-1), 1)  # causal prefix length per row
+    out = np.empty((len(grid),), dtype=np.float64)
+    for gi, frac in enumerate(grid):
+        k = np.ceil(frac * valid_len).astype(np.int64)
+        k = np.clip(k, 0, nk)
+        # recovery of top-k for each row; k==0 -> 0
+        vals = np.where(k > 0, csum[np.arange(nq), np.maximum(k - 1, 0)], 0.0)
+        out[gi] = float(np.mean(vals / row_tot))
+    return out
+
+
+def recovery_curves_torch(attn: torch.Tensor,
+                          grid: np.ndarray | None = None) -> np.ndarray:
+    """:func:`recovery_curve` of every head of ``attn [..., Q, K]`` at once,
+    on ``attn``'s device in float64 (sort descending, prefix sum, index at
+    ``ceil(frac * valid_len)``): ``[..., len(grid)]`` numpy."""
+    if grid is None:
+        grid = DEFAULT_BUDGET_GRID
+    w = attn.to(torch.float64)
+    nk = w.shape[-1]
+    csum = torch.sort(w, dim=-1, descending=True).values.cumsum_(dim=-1)
+    row_tot = csum[..., -1:].clamp_min(1e-12)                 # [..., Q, 1]
+    valid_len = (w > 0).sum(dim=-1, keepdim=True).clamp_min(1)
+    del w
+    frac = torch.as_tensor(np.asarray(grid, np.float64), device=attn.device)
+    k = torch.ceil(frac * valid_len).long().clamp(0, nk)      # [..., Q, G]
+    vals = torch.gather(csum, -1, (k - 1).clamp_min(0))
+    vals = torch.where(k > 0, vals, torch.zeros_like(vals))
+    return (vals / row_tot).mean(dim=-2).cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -164,6 +232,56 @@ class HeadSparsityProfile:
         return HeadSparsityProfile(
             z["curves"], z["grid"], int(z["num_samples"]), meta
         )
+
+
+def profile_attention_weights(
+    attn, grid: np.ndarray | None = None, meta: dict | None = None
+) -> HeadSparsityProfile:
+    """Profile from raw attention maps ``[L, H, Q, K]`` (or ``[H, Q, K]``):
+    numpy maps through :func:`recovery_curve`, a torch tensor through
+    :func:`recovery_curves_torch` on its device, one layer at a time."""
+    if grid is None:
+        grid = DEFAULT_BUDGET_GRID
+    if isinstance(attn, torch.Tensor):
+        a = attn if attn.dim() == 4 else attn[None]
+        curves = np.stack([recovery_curves_torch(a[l], grid)
+                           for l in range(a.shape[0])])
+        return HeadSparsityProfile(curves, grid, num_samples=a.shape[2],
+                                   meta=meta or {})
+    a = np.asarray(attn)
+    if a.ndim == 3:
+        a = a[None]
+    L, H = a.shape[:2]
+    curves = np.empty((L, H, len(grid)))
+    for l in range(L):
+        for h in range(H):
+            curves[l, h] = recovery_curve(a[l, h], grid)
+    return HeadSparsityProfile(curves, grid, num_samples=a.shape[2], meta=meta or {})
+
+
+def profile_model(
+    attn_map_fn: Callable,
+    calibration_batches: Sequence[np.ndarray],
+    grid: np.ndarray | None = None,
+    meta: dict | None = None,
+) -> HeadSparsityProfile:
+    """Profile a model over calibration data.
+
+    ``attn_map_fn(tokens) -> [L, H, Q, K]`` attention probabilities (the model
+    forward instrumented to return the softmax maps; see
+    :func:`repro_torch.models.transformer.attention_maps_of`), numpy or a
+    torch tensor on any device.  Batches are averaged with sample weighting
+    — this is the paper's offline profiling stage.
+    """
+    prof: HeadSparsityProfile | None = None
+    for tokens in calibration_batches:
+        maps = attn_map_fn(tokens)
+        if not isinstance(maps, torch.Tensor):
+            maps = np.asarray(maps)
+        p = profile_attention_weights(maps, grid, meta)
+        prof = p if prof is None else prof.merge(p)
+    assert prof is not None, "need at least one calibration batch"
+    return prof
 
 
 

@@ -7,7 +7,8 @@
         [--attention sparse|dense] [--prefill-mode chunked|monolithic] \
         [--prefill-buckets pow2|exact] [--temperature 0.8 --top-k 50 \
         --top-p 0.95 --sample-seed 0] [--telemetry-every 4 \
-        --replan-every 16 --drift-threshold 0.5] [--profile]
+        --replan-every 16 --drift-threshold 0.5] [--admission fifo|slo \
+        --preemption --host-blocks N --kv-blocks N] [--profile]
 
 Weights and prompts are random, drawn from ``--seed``; the sparsity profile
 is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
@@ -20,11 +21,16 @@ or bf16) default to ``EngineConfig()``'s.  Sampling is greedy unless
 come from the engine's generator, seeded by ``--sample-seed``).  Plan epochs:
 ``--telemetry-every N`` probes the realized recovery every N decode ticks,
 ``--replan-every N`` replans every N decode ticks and ``--drift-threshold``
-when the online profile drifts that far (it needs telemetry).  The default
-device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
+when the online profile drifts that far (it needs telemetry).  Overload:
+prompts take the priority classes interactive, standard, batch in turn;
+``--admission slo`` admits by class with cost-model deferral and deadline
+shedding, ``--preemption`` lets a higher class preempt lower-class work
+(decodes swap their KV to a pinned host tier of ``--host-blocks`` blocks,
+unbounded by default), and ``--kv-blocks`` sizes the paged pool.  The
+default device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
 After the serve it prints the plan's imbalance (sparse) and the decode
 grid's bubble stats (``Engine.decode_bubble_stats``: with the plan's epoch,
-its replans and the realized recovery).
+its replans and the realized recovery), and with preemption the swaps.
 ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
@@ -82,6 +88,21 @@ def main(argv=None) -> list:
     ap.add_argument("--drift-threshold", type=float, default=None,
                     help="replan when the online-vs-offline profile drift "
                          "reaches this value (needs --telemetry-every)")
+    ap.add_argument("--admission", default=defaults.admission,
+                    choices=("fifo", "slo"),
+                    help="class-blind arrival order (fifo) or SLO-aware "
+                         "class scheduling with cost-model deferral and "
+                         "deadline shedding (slo)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="allow preempting strictly-lower-priority work "
+                         "(decodes swap their KV blocks to a pinned host "
+                         "tier and resume with the same tokens)")
+    ap.add_argument("--host-blocks", type=int, default=None,
+                    help="host swap-tier capacity in KV blocks (default: "
+                         "unbounded)")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="paged KV pool size in blocks (default: slots * "
+                         "max_seq / block)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -112,7 +133,11 @@ def main(argv=None) -> list:
                               seed=args.sample_seed,
                               telemetry_every=args.telemetry_every,
                               replan_every=args.replan_every,
-                              drift_threshold=args.drift_threshold),
+                              drift_threshold=args.drift_threshold,
+                              admission=args.admission,
+                              preemption=args.preemption,
+                              host_swap_blocks=args.host_blocks,
+                              num_kv_blocks=args.kv_blocks),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)
@@ -120,6 +145,8 @@ def main(argv=None) -> list:
             if args.prompt_lens else
             [int(n) for n in rng.integers(32, 128, size=args.requests)])
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,)) for n in lens]
+    classes = ("interactive", "standard", "batch")
+    priorities = [classes[i % len(classes)] for i in range(len(prompts))]
     # on the card only the CUDA activity: the report reads kernel events
     # alone, and host-side op events of a full serve take the profiler
     # minutes to post-process
@@ -131,7 +158,7 @@ def main(argv=None) -> list:
         t0 = time.perf_counter()
         done = eng.serve(prompts, SamplingParams(
             max_tokens=args.max_tokens, temperature=args.temperature,
-            top_k=args.top_k, top_p=args.top_p))
+            top_k=args.top_k, top_p=args.top_p), priorities=priorities)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -147,7 +174,13 @@ def main(argv=None) -> list:
           f"{eng.decode_stats['real_items']}/{eng.decode_stats['grid_items']}"
           f" real/padded items; KV cache {args.kv_dtype}, "
           f"{eng.kv_bytes() / 2**20:.1f} MiB resident")
-    print(bubble_line(eng.decode_bubble_stats))
+    bs = eng.decode_bubble_stats
+    print(bubble_line(bs))
+    if bs["swap"]["swapped_out"] or args.preemption:
+        sw = bs["swap"]
+        print(f"preemption: {sw['swapped_out']} swapped out / "
+              f"{sw['swapped_in']} back in ({sw['blocks_out']} blocks, "
+              f"{sw['bytes_out'] / 1024:.1f} KiB to host)")
     if args.profile:
         _print_profile(prof, dt)
     return done

@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.attention.dense import attention_maps
 from repro_torch.attention.rope import apply_rope
 from repro_torch.configs import TransformerConfig
 from repro_torch.core import quant
@@ -305,7 +306,7 @@ def scatter_seq_cache_paged(pool, seq_cache, table, *, scales=None,
 
 def prefill(params, tokens, cfg: TransformerConfig, *,
             cache_len: int | None = None, sparse_items=None,
-            last_index: int | None = None):
+            last_index: int | None = None, maps_out: list | None = None):
     """Monolithic prefill: ``tokens [B, S]`` (the prompt bucket) -> (logits
     ``[B, V]`` float32 at ``last_index``, default the last row; the
     sequence cache ``[L, 2, B, Hkv, cache_len, Dh]`` in the model's dtype,
@@ -315,7 +316,13 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
     prompt bucket (S-HPLB sparse prefill over the sequence's own K/V, the
     contiguous sparse prefill kernel at ``q_offset`` 0), or None for dense
     causal attention (the flash attention kernel, windowed on 'L' layers).
-    The cache holds the full K/V either way."""
+    The cache holds the full K/V either way.
+
+    ``maps_out``: the profiling forward (the reference's ``forward(...,
+    maps_out=)``).  Each layer appends :func:`attention_maps` ``[B, H, S,
+    S]`` float32 of the same post-RoPE q and k its attention takes; the
+    attention itself still runs through the kernels.  As in the reference
+    the maps are causal but unwindowed, also on an 'L' layer."""
     B, S = tokens.shape
     max_len = S if cache_len is None else cache_len
     if max_len < S:
@@ -333,6 +340,8 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
         q, k, v = _prefill_qkv(x, lp, cfg, positions)
         cache[l, 0, :, :, :S] = k[:, :, :S]
         cache[l, 1, :, :, :S] = v[:, :, :S]
+        if maps_out is not None:
+            maps_out.append(attention_maps(q[:, :, :S], k[:, :, :S]))
         for b in range(B):
             qb = q[b, :, :S].contiguous()
             kb, vb = k[b, :, :S].contiguous(), v[b, :, :S].contiguous()
@@ -347,6 +356,20 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
         x = _prefill_out(x, o, lp, cfg)
     last = S - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0], cache
+
+
+def attention_maps_of(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
+    """The profiling forward of one prompt: ``tokens [S]`` (or ``[1, S]``)
+    -> ``[L, H, S, S]`` float32 softmax maps (:func:`prefill` with
+    ``maps_out``, dense attention through the flash attention kernel), on
+    the params' device: the ``attn_map_fn`` of
+    :func:`repro_torch.core.sparsity.profile_model`."""
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(1, -1),
+                           device=dev)
+    maps: list = []
+    prefill(params, toks, cfg, maps_out=maps)
+    return torch.stack([m[0] for m in maps])
 
 
 def prefill_chunk(params, cache, tokens, slot: int, q_offset: int,

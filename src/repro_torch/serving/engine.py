@@ -41,8 +41,15 @@ online profile against the plan's basis past ``drift_threshold`` triggers,
 a replan at a scheduler safe point (no prefill in flight).  A swap applies
 the plan delta to the attention weights and gathers the resident cache's
 kv-head axis once, bumps ``epoch`` and purges the plan-dependent memos.
-The options that ``EngineConfig.check_supported`` lists as not ported raise
-``NotImplementedError``.
+
+Under overload (§2.10) requests carry priority classes; ``admission="slo"``
+defers and sheds by class, and ``preemption`` swaps a decoding victim's KV
+(its pool blocks, paged; its slot rows, contiguous; codes and scales
+together) to a pinned host tier and back (:meth:`Engine._swap_out_seq` /
+:meth:`Engine._swap_in_seq`).  A host copy taken under an earlier plan
+epoch is re-arranged once at swap-in against the cumulative kv-head
+arrangement.  The options that ``EngineConfig.check_supported`` lists as
+not ported raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,7 +73,8 @@ from repro_torch.core.worklist import (
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.sampler import SamplingParams, sample
-from repro_torch.serving.scheduler import ContinuousBatcher, Request
+from repro_torch.serving.scheduler import (
+    DEFAULT_CLASSES, ContinuousBatcher, Request)
 
 
 @dataclasses.dataclass
@@ -103,9 +111,18 @@ class EngineConfig:
     telemetry_every: int = 0
     replan_every: int | None = None
     drift_threshold: float | None = None
+    # admission policy: "fifo" (class-blind arrival order — the baseline)
+    # or "slo" (class-level order + cost-model deferral + deadline shed).
+    admission: str = "fifo"
+    # allow preemption of strictly-lower-priority work when a request
+    # cannot be placed: decoding victims swap their mapped KV blocks to a
+    # pinned-host tier and resume later bitwise-identically; mid-prefill
+    # victims are discarded back to their queue head.
+    preemption: bool = False
+    # host swap-tier capacity in blocks (None = unbounded).
+    host_swap_blocks: int | None = None
     # reference options whose non-default values are not ported yet
     seq_shards: int = 1
-    preemption: bool = False
     prefix_cache: bool = False
 
     def check_supported(self) -> None:
@@ -118,7 +135,8 @@ class EngineConfig:
                   "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
                   "seq_shards": (1,),
-                  "preemption": (False,), "prefix_cache": (False,)}
+                  "admission": ("fifo", "slo"),
+                  "preemption": (False, True), "prefix_cache": (False,)}
         for name, values in ported.items():
             got = getattr(self, name)
             if got not in values:
@@ -206,7 +224,8 @@ class Engine:
                 table_width=ecfg.max_seq_len // ecfg.block,
                 make_scales_fn=((lambda n: tfm.init_paged_scales(
                     cfg, n, device=self.device)) if self.quantized
-                    else None))
+                    else None),
+                host_blocks=ecfg.host_swap_blocks)
         else:
             # every slot reserves a max_seq_len row; chunks build in a
             # one-sequence staging cache (the scheduler prefills one
@@ -261,6 +280,21 @@ class Engine:
         self._epoch_stats: dict[int, dict] = {0: self._fresh_epoch_stats()}
         self._last_drift: tuple | None = None
         self.replans = 0
+        # the preemption swap tier (§2.10): host copies of swapped-out
+        # sequences' KV, keyed by rid, and the transfers whose pinned
+        # buffers must outlive their copies.  _kv_arrange is the CUMULATIVE
+        # kv-head arrangement of the resident cache across plan epochs
+        # (arrange[l, h] = original kv head living in slot h), so a host
+        # copy taken under one epoch is re-arranged EXACTLY ONCE at
+        # swap-in, however many epoch swaps passed
+        self._host_swaps: dict[int, dict] = {}
+        self._swap_in_flight: list[tuple] = []
+        self._kv_arrange = np.tile(np.arange(cfg.num_kv_heads),
+                                   (cfg.num_layers, 1))
+        self.swap_stats = {"swapped_out": 0, "swapped_in": 0,
+                           "blocks_out": 0, "blocks_in": 0,
+                           "bytes_out": 0, "bytes_in": 0,
+                           "epoch_remaps": 0}
 
     # -- offline artifacts -------------------------------------------------
     @staticmethod
@@ -481,9 +515,10 @@ class Engine:
         baseline would have paid, their grids' ratio, and the mean
         imbalance of the shards' item counts, and the plan epochs': the live
         epoch, the replans, the online estimator's realized recovery, the
-        latest drift reading and per-epoch aggregates (the reference's keys
-        for the features the port runs; one head axis, so the head
-        imbalance is the whole imbalance and the stripe imbalance 1)."""
+        latest drift reading and per-epoch aggregates; the swap tier's
+        volume and the per-class counters (the reference's keys for the
+        features the port runs; one head axis, so the head imbalance is the
+        whole imbalance and the stripe imbalance 1)."""
         s = self.decode_stats
         grid, real, padded = (s["grid_items"], s["real_items"],
                               s["padded_grid_items"])
@@ -516,6 +551,12 @@ class Engine:
                                   else None),
             "drift": self._last_drift[1] if self._last_drift else None,
             "epochs": epochs,
+            # overload (§2.10): host-tier swap volume and the scheduler's
+            # per-class admission / preemption counters
+            "swap": dict(self.swap_stats),
+            "per_class": ({k: dict(v) for k, v in
+                           self._batcher.stats.per_class.items()}
+                          if self._batcher is not None else {}),
         }
 
     # -- plan epochs: telemetry, drift, replanning --------------------------
@@ -626,9 +667,10 @@ class Engine:
     def _apply_epoch(self, new_plan: HPLBPlan) -> None:
         """Swap onto ``new_plan``: apply the plan delta to the attention
         weights, gather the resident cache's kv-head axis once (codes and
-        scales together), bump the epoch and purge the memos of the dead
-        epoch.  The staging row of the contiguous layout holds no live
-        sequence at a safe point, so it is not gathered."""
+        scales together) and compose it into ``_kv_arrange``, bump the
+        epoch and purge the memos of the dead epoch.  The staging row of
+        the contiguous layout holds no live sequence at a safe point, so it
+        is not gathered."""
         delta = plan_delta(self.plan, new_plan)
         if not delta.identity:
             self.params = self._permute_params(self.params,
@@ -636,6 +678,12 @@ class Engine:
             kv_tbl = delta.kv_perm_table()
             if not (kv_tbl == np.arange(kv_tbl.shape[1])).all():
                 self._permute_cache(kv_tbl)
+                # fold the gather into the cumulative arrangement: slot h
+                # now holds what slot kv_tbl[l, h] held.  Host copies of
+                # swapped-out sequences are not touched here; swap-in
+                # re-arranges them against this record exactly once
+                self._kv_arrange = np.take_along_axis(
+                    self._kv_arrange, np.asarray(kv_tbl), axis=1)
         self.plan = new_plan
         self.epoch = new_plan.epoch
         self.replans += 1
@@ -742,6 +790,139 @@ class Engine:
         """``[T]`` int32 pool block ids (-1 pad) of the sequence in
         ``slot``."""
         return self.kv.table_row(self._batcher.rid_of_slot(slot))
+
+    # -- preemption: KV swap to pinned host memory (§2.10) -----------------
+    # A preempted decode's KV is gathered on the device (its mapped pool
+    # blocks by id, paged; its slot rows, contiguous; codes and scales by
+    # the same ids) and copied into pinned host buffers by non-blocking
+    # copies on the current stream, each transfer followed by a recorded
+    # event; then the allocator recycles the ids.  Swap-in copies the host
+    # buffers back into the freshly mapped blocks (other ids: identity is
+    # the block table) or the newly claimed slot.  Exact block counts: the
+    # reference's pow2 swap buckets only bound its compiled programs.
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t``: a pinned buffer filled by a non-blocking
+        copy on the current stream (CUDA), or a clone on the CPU."""
+        if self.device.type != "cuda":
+            return t.clone()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def _transfer_event(self):
+        """An event recorded after the transfers just queued on the current
+        stream (None on the CPU, whose copies are done when queued)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _reap_transfers(self, wait: bool = False) -> None:
+        """Release the pinned buffers of swap-ins whose copies have
+        completed (all of them, waiting, with ``wait``)."""
+        live = []
+        for ev, rec in self._swap_in_flight:
+            if wait:
+                ev.synchronize()
+            elif not ev.query():
+                live.append((ev, rec))
+        self._swap_in_flight = live
+
+    def host_copy(self, rid: int):
+        """The host copy ``(data, scales)`` of swapped-out ``rid``, once its
+        transfer has completed (codes as int8 bits; scales None for a
+        full-precision cache).  The host reads a copy only through this."""
+        rec = self._host_swaps[rid]
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        return rec["data"], rec["scales"]
+
+    def _swap_out_seq(self, rid: int, slot: int, resident: int) -> None:
+        """Batcher swap-out hook: copy the sequence's resident KV state to
+        the host BEFORE the allocator recycles its blocks.  Paged: gather
+        its mapped pool blocks; contiguous: slice its slot rows (whole
+        blocks: the tokens past ``resident`` ride along, masked by
+        position)."""
+        self._reap_transfers()
+        blk = self.ecfg.block
+        sdata = None
+        if self.paged:
+            _, private = self.kv.alloc.swap_split(rid)
+            nblk = len(private)
+            ids = torch.tensor(private, dtype=torch.long, device=self.device)
+            data = self._to_host(_bits(self.kv.pool).index_select(2, ids))
+            if self.quantized:
+                sdata = self._to_host(self.kv.scales.index_select(2, ids))
+        else:
+            nblk = -(-resident // blk)
+            rows = slice(slot, slot + 1)
+            data = self._to_host(
+                _bits(self.cache)[:, :, rows, :, :nblk * blk])
+            if self.quantized:
+                sdata = self._to_host(self.cache_scales[:, :, rows, :, :nblk])
+        # the gather is queued before any later write on this stream, so
+        # the ids the allocator releases after this hook (and a new tenant
+        # may map at once) are not overwritten before it has read them
+        self._host_swaps[rid] = {"data": data, "scales": sdata,
+                                 "tokens": resident,
+                                 "arrange": self._kv_arrange.copy(),
+                                 "event": self._transfer_event()}
+        st = self.swap_stats
+        st["swapped_out"] += 1
+        st["blocks_out"] += nblk
+        st["bytes_out"] += _nbytes(data) + _nbytes(sdata)
+
+    def _swap_in_seq(self, rid: int, slot: int, resident: int) -> None:
+        """Batcher swap-in hook: restore the host copy into the freshly
+        mapped blocks (paged) or the newly claimed slot (contiguous).  If
+        plan epochs gathered the resident cache's kv heads while the
+        sequence was out, the copy is re-arranged here on the device:
+        exactly once, against the cumulative arrangement, codes and scales
+        alike."""
+        self._reap_transfers()
+        rec = self._host_swaps.pop(rid)
+        if rec["tokens"] != resident:
+            raise ValueError(f"swap-in length mismatch: {rec['tokens']} != "
+                             f"{resident}")
+        data = rec["data"].to(self.device, non_blocking=True)
+        sdata = (None if rec["scales"] is None
+                 else rec["scales"].to(self.device, non_blocking=True))
+        # the pinned buffers must outlive their copies: held until the
+        # event recorded after them has completed
+        ev = self._transfer_event()
+        if ev is not None:
+            self._swap_in_flight.append((ev, rec))
+        if not np.array_equal(rec["arrange"], self._kv_arrange):
+            # rel[l, h] = where (in the host copy) the kv head now wanted
+            # at slot h was stored when the copy was taken
+            inv = np.argsort(rec["arrange"], axis=1)
+            rel = np.take_along_axis(inv, self._kv_arrange, axis=1)
+            data = tfm.permute_cache_kv_heads(data, rel)
+            if sdata is not None:
+                sdata = tfm.permute_cache_scales(sdata, rel)
+            self.swap_stats["epoch_remaps"] += 1
+        if self.paged:
+            ids = self.kv.alloc.table(rid)
+            nblk = len(ids)
+            if nblk != data.shape[2]:
+                raise ValueError(f"swap-in block mismatch: {nblk} != "
+                                 f"{data.shape[2]}")
+            idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+            _bits(self.kv.pool)[:, :, idx] = data
+            if sdata is not None:
+                self.kv.scales[:, :, idx] = sdata
+        else:
+            nblk = -(-resident // self.ecfg.block)
+            rows = slice(slot, slot + 1)
+            _bits(self.cache)[:, :, rows, :, :data.shape[4]] = data
+            if sdata is not None:
+                self.cache_scales[:, :, rows, :, :nblk] = sdata
+        st = self.swap_stats
+        st["swapped_in"] += 1
+        st["blocks_in"] += nblk
+        st["bytes_in"] += _nbytes(data) + _nbytes(sdata)
 
     # -- device steps ---------------------------------------------------------
     def prefill_into_slot(self, tokens: np.ndarray, slot: int,
@@ -920,12 +1101,15 @@ class Engine:
         return sum(t.numel() * t.element_size() for t in parts)
 
     # -- serving loop ---------------------------------------------------------
-    def make_batcher(self) -> ContinuousBatcher:
+    def make_batcher(self, classes=None) -> ContinuousBatcher:
         """A ContinuousBatcher for this engine.  Paged: it shares the pool's
         allocator, so admission and the device pool count the same blocks.
         Contiguous: its allocator is private accounting over
         ``num_slots * max_seq_len / block`` blocks.  Monolithic prefill
-        takes no chunk budget (whole prompts at admission)."""
+        takes no chunk budget (whole prompts at admission).  ``classes``
+        overrides :data:`~repro_torch.serving.scheduler.DEFAULT_CLASSES`;
+        the admission policy, preemption, the host tier's capacity and the
+        swap hooks come from the engine's config."""
         ecfg = self.ecfg
         self._batcher = ContinuousBatcher(
             num_slots=ecfg.num_slots,
@@ -934,7 +1118,12 @@ class Engine:
             max_seq_len=ecfg.max_seq_len, block=ecfg.block,
             token_budget=(ecfg.prefill_chunk_tokens
                           if ecfg.prefill_mode == "chunked" else None),
-            allocator=self.kv.alloc if self.paged else None)
+            allocator=self.kv.alloc if self.paged else None,
+            classes=DEFAULT_CLASSES if classes is None else classes,
+            admission=ecfg.admission, preemption=ecfg.preemption,
+            host_blocks=ecfg.host_swap_blocks,
+            swap_out_fn=self._swap_out_seq if ecfg.preemption else None,
+            swap_in_fn=self._swap_in_seq if ecfg.preemption else None)
         return self._batcher
 
     def step_fns(self, sampling: SamplingParams = SamplingParams()):
@@ -954,15 +1143,31 @@ class Engine:
         return prefill_chunk, decode
 
     def serve(self, prompts: list[np.ndarray],
-              sampling: SamplingParams = SamplingParams()) -> list[Request]:
+              sampling: SamplingParams = SamplingParams(),
+              priorities: list[str] | None = None) -> list[Request]:
         """Continuous-batching serve of a list of prompts.  Returns one
         Request per prompt in input order: completed requests carry their
-        generated tokens, over-length ones come back ``rejected``.  The
-        replan policy runs after every tick (:meth:`_maybe_replan`)."""
+        generated tokens, over-length (or, under SLO admission, shed) ones
+        come back ``rejected``.  ``priorities`` names each prompt's
+        :class:`~repro_torch.serving.scheduler.PriorityClass` (default
+        "standard").  The replan policy runs after every tick
+        (:meth:`_maybe_replan`)."""
         batcher = self.make_batcher()
         for i, pr in enumerate(prompts):
-            batcher.submit(Request(rid=i, prompt=np.asarray(pr, np.int32),
-                                   sampling=sampling))
+            batcher.submit(Request(
+                rid=i, prompt=np.asarray(pr, np.int32), sampling=sampling,
+                priority=priorities[i] if priorities else "standard"))
         done = batcher.run(*self.step_fns(sampling),
                            on_tick=lambda: self._maybe_replan(batcher))
+        self._reap_transfers(wait=True)
         return sorted(done, key=lambda r: r.rid)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its int8 view for one-byte codes (gathers and scatters of
+    int8 and fp8 codes move the same bits)."""
+    return quant.code_bits(t) if t.element_size() == 1 else t
+
+
+def _nbytes(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.numel() * t.element_size()

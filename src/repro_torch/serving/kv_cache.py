@@ -9,8 +9,17 @@ The main-path subset of the reference's ``serving/kv_cache.py``:
   at admission, decode blocks one at a time in :meth:`append_token`.
   Conservation invariant (:meth:`audit`): every block is free or mapped by
   exactly one table, and every live sequence maps ``ceil(len/block)``
-  blocks.  Ownership is exclusive here (no prefix sharing, no stripes, no
-  host swap tier yet).
+  blocks.  Ownership is exclusive here (no prefix sharing, no stripes).
+
+  The host swap tier (overload preemption, §2.10): :meth:`swap_out`
+  releases a sequence's device blocks and its unmapped reservation back to
+  the pool and moves its token accounting to the host tier (``host_blocks``
+  caps it; None = unbounded); :meth:`swap_in` re-admits it later with a
+  fresh reservation and freshly mapped blocks (ids generally differ: the
+  engine restores the device copy by scatter).  A sequence is never
+  accounted on both tiers, and the audit extends to the host tier.  Without
+  prefix sharing every block is private, so :meth:`swap_split` keeps
+  nothing resident.
 - :class:`PagedKVCache` — the device pool ``[L, 2, num_blocks+1, Hkv,
   block, Dh]`` whose last block is the trash block, addressed through the
   allocator's tables (one block-id namespace down to the kernels).  A
@@ -36,12 +45,15 @@ class IntegrityError(RuntimeError):
 class BlockAllocator:
     num_blocks: int
     block: int = 128
+    host_blocks: int | None = None   # swap-tier capacity (None = unbounded)
 
     def __post_init__(self):
         self._free: list[int] = list(range(self.num_blocks))
         self._tables: dict[int, list[int]] = {}
         self._lens: dict[int, int] = {}       # cache-resident tokens
         self._reserved: dict[int, int] = {}   # worst-case blocks per seq
+        self._host_lens: dict[int, int] = {}  # swapped-out resident tokens
+        self._host_nblk: dict[int, int] = {}  # host blocks held per seq
 
     # -- accounting views ---------------------------------------------------
     @property
@@ -68,7 +80,112 @@ class BlockAllocator:
         return -(-num_tokens // self.block)
 
     def seq_tokens(self, seq_id: int) -> int:
+        """Cache-resident tokens accounted to ``seq_id``."""
         return self._lens.get(seq_id, 0)
+
+    def release_estimate(self, seq_id: int) -> int:
+        """Exact ``available_blocks`` gain if ``seq_id`` were freed: its
+        whole reservation (every mapped block is its own)."""
+        return self._reserved.get(seq_id, 0)
+
+    def swap_release_estimate(self, seq_id: int) -> int:
+        """Exact ``available_blocks`` gain if ``seq_id`` were swapped out:
+        the full reservation minus the blocks that stay resident
+        (:meth:`swap_split`; none without prefix sharing)."""
+        retained, _ = self.swap_split(seq_id)
+        return self._reserved.get(seq_id, 0) - len(retained)
+
+    # -- host swap tier -----------------------------------------------------
+    @property
+    def swapped_seqs(self) -> tuple[int, ...]:
+        return tuple(self._host_lens)
+
+    @property
+    def host_allocated_blocks(self) -> int:
+        return sum(self._host_nblk.values())
+
+    @property
+    def host_free_blocks(self) -> int | None:
+        """Remaining swap-tier capacity (None = unbounded)."""
+        if self.host_blocks is None:
+            return None
+        return self.host_blocks - self.host_allocated_blocks
+
+    def host_tokens(self, seq_id: int) -> int:
+        """Resident tokens held on the host tier for ``seq_id``."""
+        return self._host_lens.get(seq_id, 0)
+
+    def swap_split(self, seq_id: int) -> tuple[list[int], list[int]]:
+        """Partition ``seq_id``'s table into ``(retained, private)``: the
+        blocks that stay resident on swap-out and those that transfer.
+        Without prefix sharing every block is private, so ``retained`` is
+        empty (the reference's signature, which the prefix cache fills)."""
+        return [], list(self._tables.get(seq_id, []))
+
+    def can_swap_out(self, seq_id: int) -> bool:
+        if seq_id not in self._lens:
+            return False
+        if self.host_blocks is None:
+            return True
+        _, private = self.swap_split(seq_id)
+        return self.host_allocated_blocks + len(private) <= self.host_blocks
+
+    def swap_out(self, seq_id: int) -> int:
+        """Move ``seq_id`` from the device tier to the host tier: its mapped
+        blocks return to the free pool, its unmapped reservation is
+        dropped, and the token accounting migrates.  Returns the number of
+        device blocks released (= host blocks now held).  The caller must
+        copy the payloads to the host BEFORE calling this: those ids are
+        reusable the moment this returns."""
+        if seq_id in self._host_lens:
+            raise ValueError(f"seq {seq_id} already swapped out")
+        if not self.can_swap_out(seq_id):
+            raise MemoryError(
+                f"host swap tier exhausted: seq {seq_id} needs "
+                f"{len(self.swap_split(seq_id)[1])}, "
+                f"free {self.host_free_blocks}")
+        _, private = self.swap_split(seq_id)
+        self._tables.pop(seq_id)
+        self._free.extend(private)
+        self._host_lens[seq_id] = self._lens.pop(seq_id)
+        self._host_nblk[seq_id] = len(private)
+        self._reserved.pop(seq_id)
+        return len(private)
+
+    def can_swap_in(self, seq_id: int, max_new_tokens: int = 0) -> bool:
+        if seq_id not in self._host_lens:
+            return False
+        total = self.blocks_needed(self._host_lens[seq_id] + max_new_tokens)
+        return total <= self.available_blocks
+
+    def swap_in(self, seq_id: int, max_new_tokens: int = 0) -> list[int]:
+        """Re-admit ``seq_id`` from the host tier: take a fresh worst-case
+        reservation (resident + remaining new tokens) and map fresh device
+        blocks for the resident tokens.  Returns the fresh block ids, which
+        the engine scatters the host copy into.  A refused mapping leaves
+        the sequence cleanly swapped out."""
+        if seq_id not in self._host_lens:
+            raise ValueError(f"seq {seq_id} not swapped out")
+        resident = self._host_lens[seq_id]
+        total = self.blocks_needed(resident + max_new_tokens)
+        if total > self.available_blocks:
+            raise MemoryError(
+                f"KV pool exhausted: swap-in needs {total}, available "
+                f"{self.available_blocks}")
+        self._reserved[seq_id] = total
+        self._tables[seq_id] = []
+        self._lens[seq_id] = 0
+        try:
+            self._grow(seq_id, self.blocks_needed(resident))
+        except MemoryError:
+            self._free.extend(self._tables.pop(seq_id))
+            self._lens.pop(seq_id, None)
+            self._reserved.pop(seq_id, None)
+            raise
+        self._lens[seq_id] = resident
+        del self._host_lens[seq_id]
+        del self._host_nblk[seq_id]
+        return list(self._tables[seq_id])
 
     # -- lifecycle ----------------------------------------------------------
     def admit(self, seq_id: int, prompt_tokens: int,
@@ -115,16 +232,21 @@ class BlockAllocator:
         return self._tables.get(seq_id, [])
 
     def free(self, seq_id: int) -> None:
-        """Release everything ``seq_id`` holds."""
+        """Release everything ``seq_id`` holds, on whichever tier."""
         self._free.extend(self._tables.pop(seq_id, []))
         self._lens.pop(seq_id, None)
         self._reserved.pop(seq_id, None)
+        self._host_lens.pop(seq_id, None)
+        self._host_nblk.pop(seq_id, None)
 
     def audit(self, strict: bool = True) -> list[str]:
-        """Conservation audit: free and mapped blocks partition the pool, no
-        block is mapped twice, and every sequence maps ``ceil(len/block)``
-        blocks within its reservation.  Returns the violations; ``strict``
-        raises :class:`IntegrityError` on any."""
+        """Conservation audit of both tiers: free and mapped blocks
+        partition the pool, no block is mapped twice, every sequence maps
+        ``ceil(len/block)`` blocks within its reservation, every swapped
+        sequence holds ``ceil(len/block)`` host blocks, no sequence is on
+        both tiers, and the host tier stays within ``host_blocks``.
+        Returns the violations; ``strict`` raises :class:`IntegrityError`
+        on any."""
         fails: list[str] = []
         mapped = [b for t in self._tables.values() for b in t]
         if len(mapped) != len(set(mapped)):
@@ -158,6 +280,19 @@ class BlockAllocator:
         for sid in self._tables:
             if sid not in self._lens:
                 fails.append(f"seq {sid}: has a table but no length")
+        for sid, n in self._host_lens.items():
+            if self._host_nblk.get(sid) != self.blocks_needed(n):
+                fails.append(f"host conservation: seq {sid} holds "
+                             f"{self._host_nblk.get(sid)} host blocks != "
+                             f"ceil({n}/{self.block})")
+        dual = set(self._lens) & set(self._host_lens)
+        if dual:
+            fails.append(f"dual accounting: seqs {sorted(dual)} on both "
+                         "tiers")
+        if (self.host_blocks is not None
+                and self.host_allocated_blocks > self.host_blocks):
+            fails.append(f"host cap: {self.host_allocated_blocks} blocks "
+                         f"held > capacity {self.host_blocks}")
         if strict and fails:
             raise IntegrityError(fails)
         return fails
@@ -178,11 +313,13 @@ class PagedKVCache:
     """
 
     def __init__(self, make_pool_fn, *, num_blocks: int, block: int,
-                 table_width: int, make_scales_fn=None):
+                 table_width: int, make_scales_fn=None,
+                 host_blocks: int | None = None):
         self.pool = make_pool_fn(num_blocks + 1)
         self.scales = (None if make_scales_fn is None
                        else make_scales_fn(num_blocks + 1))
-        self.alloc = BlockAllocator(num_blocks, block)
+        self.alloc = BlockAllocator(num_blocks, block,
+                                    host_blocks=host_blocks)
         self.block = block
         self.trash_block = num_blocks
         self.table_width = table_width

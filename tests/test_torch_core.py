@@ -174,3 +174,57 @@ def test_online_estimator_equal(seed):
     fresh = sp.OnlineSparsityEstimator(L, H)
     assert np.isnan(fresh.realized_recovery())
     assert fresh.drift_vs(offline)["drift"] == 0.0
+
+
+def _causal_maps(seed, L=2, H=3, S=40, zeros=True):
+    """Seeded softmax maps ``[L, H, S, S]``, causal (zeros above the
+    diagonal) and, with ``zeros``, some underflowed entries inside the
+    prefix (a row's valid length counts only positive weights)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((L, H, S, S)) * rng.uniform(0.5, 8.0,
+                                                             (L, H, 1, 1))
+    logits = np.where(np.tril(np.ones((S, S), bool)), logits, -np.inf)
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    if zeros:
+        w[rng.random(w.shape) < 0.05] = 0.0
+    w[..., 0] += (w.sum(-1) == 0)              # no all-zero row
+    return (w / w.sum(-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_recovery_curve_and_profiles_equal(seed):
+    """The offline profiling stage's numpy copies: ``recovery_curve`` on a
+    default and a custom grid, ``profile_attention_weights`` of ``[L, H,
+    Q, K]`` and ``[H, Q, K]`` maps and ``profile_model``'s sample-weighted
+    merge over two batches equal the reference's bit for bit."""
+    maps = _causal_maps(seed)
+    grid = np.linspace(0.0, 1.0, 11)
+    for g in (None, grid):
+        np.testing.assert_array_equal(sp.recovery_curve(maps[0, 1], g),
+                                      ref_sp.recovery_curve(maps[0, 1], g))
+    for a in (maps, maps[1]):
+        got = sp.profile_attention_weights(a, meta={"m": 1})
+        want = ref_sp.profile_attention_weights(a, meta={"m": 1})
+        np.testing.assert_array_equal(got.curves, want.curves)
+        assert (got.num_samples, got.meta) == (want.num_samples, want.meta)
+    batches = [_causal_maps(seed + 10, S=24), _causal_maps(seed + 20, S=40)]
+    fn = {id(b): b for b in batches}
+    got = sp.profile_model(lambda t: fn[id(t)], batches)
+    want = ref_sp.profile_model(lambda t: fn[id(t)], batches)
+    np.testing.assert_array_equal(got.curves, want.curves)
+    assert got.num_samples == want.num_samples == 64
+
+
+@pytest.mark.parametrize("policy", ["strided", "streaming"])
+def test_policy_memo_hands_out_fresh_lists(policy):
+    """The memoized static policies return a new list each call: a caller
+    that replaces an entry (a test baring a tile) leaves the next caller's
+    selection, and so a later engine's work lists, as they were."""
+    fn = pol.policy_by_name(policy)
+    first = fn(3, 2, 4, 4)
+    want = [a.copy() for a in first]
+    first[1] = np.array([], np.int64)
+    again = fn(3, 2, 4, 4)
+    assert again is not first
+    for a, b in zip(again, want):
+        assert np.array_equal(a, b)

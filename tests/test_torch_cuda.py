@@ -1397,3 +1397,166 @@ def test_cuda_window_flash_attention_matches_plain(cuda, dtype, atol, causal,
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_reference(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# -- the offline profiling stage and the preemption swap tier -----------------
+
+@pytest.mark.parametrize("S", [57, 1024])
+def test_cuda_device_curve_equals_numpy(cuda, S):
+    """``recovery_curves_torch`` on the card (float64 sort and prefix sum)
+    against the numpy ``recovery_curve`` of each head, within 1e-9, over
+    causal maps with underflowed entries inside the prefix."""
+    from repro_torch.core.sparsity import recovery_curve, recovery_curves_torch
+    rng = np.random.default_rng(S)
+    logits = rng.standard_normal((3, S, S)) * rng.uniform(0.5, 8.0, (3, 1, 1))
+    logits = np.where(np.tril(np.ones((S, S), bool)), logits, -np.inf)
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    w[rng.random(w.shape) < 0.05] = 0.0
+    w[..., 0] += (w.sum(-1) == 0)
+    maps = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    got = recovery_curves_torch(torch.from_numpy(maps).to(cuda))
+    want = np.stack([recovery_curve(maps[h]) for h in range(3)])
+    np.testing.assert_allclose(got, want, atol=1e-9, rtol=0)
+
+
+def test_cuda_profile_matches_cpu(cuda):
+    """SMOKE float32 profiling forward (the flash attention kernel runs the
+    attention, the maps are plain ops) and ``profile_model`` on the card:
+    curves within 1e-5 of the CPU's from the same weights and tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import profile_model
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    params = tfm.init_params(cfg, seed=2, device="cpu")
+    dev_params = tfm.init_params(cfg, seed=2, device=cuda)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, cfg.vocab_size, size=n) for n in (300, 170)]
+    before = flash_attention.launches
+    got = profile_model(lambda t: tfm.attention_maps_of(dev_params, t, cfg),
+                        batches)
+    assert flash_attention.launches > before
+    want = profile_model(lambda t: tfm.attention_maps_of(params, t, cfg),
+                         batches)
+    np.testing.assert_allclose(got.curves, want.curves, atol=1e-5, rtol=0)
+
+
+def _swap_engine(dev, layout, kv, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    kw.setdefault("preemption", True)
+    return Engine(cfg, init_params(cfg, seed=4, device=dev),
+                  EngineConfig(max_seq_len=1024, budget_per_head=256,
+                               cache_layout=layout, kv_dtype=kv, **kw),
+                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                  device=dev)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_cuda_pinned_swap_roundtrip_bit_for_bit(cuda, layout, kv):
+    """The swap hooks on the card: the host copy lands in pinned buffers
+    and equals the device state it was taken from; after the ids (slot) are
+    overwritten by another tenant, swap-in restores the sequence's codes and
+    scales bit for bit into freshly mapped blocks (another slot)."""
+    from repro_torch.core.quant import code_bits
+    eng = _swap_engine(cuda, layout, kv, num_slots=2)
+    b = eng.make_batcher()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def scribble():
+        for t in ((eng.kv.pool, eng.kv.scales) if eng.paged
+                  else (eng.cache, eng.cache_scales)):
+            if t is not None:
+                bits = code_bits(t) if t.element_size() == 1 else t
+                bits.copy_(torch.randint(-100, 100, bits.shape,
+                                         generator=gen, device=cuda)
+                           .to(bits.dtype))
+
+    def state(rid, slot, n):
+        blk = eng.ecfg.block
+        if eng.paged:
+            ids = torch.tensor(eng.kv.alloc.table(rid), device=cuda)
+            parts = (eng.kv.pool.index_select(2, ids),
+                     None if eng.kv.scales is None
+                     else eng.kv.scales.index_select(2, ids))
+        else:
+            nb = -(-n // blk)
+            parts = (eng.cache[:, :, slot, :, :nb * blk],
+                     None if eng.cache_scales is None
+                     else eng.cache_scales[:, :, slot, :, :nb])
+        return [None if p is None else
+                (code_bits(p) if p.element_size() == 1 else p).clone()
+                for p in parts]
+
+    scribble()
+    n = 300
+    b.alloc.admit(7, n, 20)
+    want = state(7, 1, n)
+    eng._swap_out_seq(7, 1, n)
+    data, scales = eng.host_copy(7)
+    assert data.is_pinned() and (scales is None or scales.is_pinned())
+    assert torch.equal(data.to(cuda).reshape(want[0].shape), want[0])
+    b.alloc.swap_out(7)
+    b.alloc.admit(8, 500, 0)              # another tenant takes the ids
+    scribble()
+    b.alloc.swap_in(7, 20)
+    eng._swap_in_seq(7, 0, n)
+    got = state(7, 0, n)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w)
+    st = eng.swap_stats
+    assert st["blocks_in"] == st["blocks_out"] == 3
+    assert st["bytes_in"] == st["bytes_out"] > 0
+    eng._reap_transfers(wait=True)
+    assert eng._swap_in_flight == [] and eng._host_swaps == {}
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_cuda_preempted_serve_matches_cpu(cuda, layout, kv):
+    """A SMOKE float32 serve whose decoding batch request is swapped out
+    for a later interactive arrival and swapped back: the card's tokens
+    equal the card's uninterrupted serve and the CPU's preempted serve;
+    the decode and prefill kernels launched."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n) for n in (300, 250, 200)]
+    tight = (dict(num_slots=4, num_kv_blocks=6) if layout == "paged"
+             else dict(num_slots=2))
+
+    def drive(dev, **kw):
+        eng = _swap_engine(dev, layout, kv, **kw)
+        sp = SamplingParams(max_tokens=12)
+        b = eng.make_batcher()
+        pf, df = eng.step_fns(sp)
+        for i in range(2):
+            b.submit(Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
+                             sampling=sp, priority="batch"))
+        done = []
+        while b.busy and not (b.prefilling is None and len(b.active) == 2):
+            done.extend(b.tick(pf, df))
+        done.extend(b.tick(pf, df))
+        b.submit(Request(rid=2, prompt=np.asarray(prompts[2], np.int32),
+                         sampling=sp, priority="interactive"))
+        done.extend(b.run(pf, df))
+        return {r.rid: r.generated for r in done}, eng
+
+    dec = flash_decode_paged_kernel if layout == "paged" else \
+        flash_decode_kernel
+    before = dec.launches
+    got, eng = drive(cuda, **tight)
+    assert dec.launches > before
+    assert eng.swap_stats["swapped_out"] >= 1
+    assert eng.swap_stats["blocks_in"] == eng.swap_stats["blocks_out"]
+    assert got == drive(cuda, **tight, preemption=False)[0]
+    assert got == drive(torch.device("cpu"), **tight)[0]

@@ -81,10 +81,12 @@ def test_engine_defaults_to_cuda():
 
 
 # the plan-epoch options (drift_threshold, replan_every) serve since they
-# were ported: tests/test_torch_replan.py::test_replan_options_serve
+# were ported: tests/test_torch_replan.py::test_replan_options_serve; so do
+# preemption and SLO admission: tests/test_torch_preemption.py (an
+# admission policy neither package has stands in their place)
 @pytest.mark.parametrize("option", [
     {"num_model_shards": 2}, {"num_model_shards": 3},
-    {"seq_shards": 2}, {"seq_shards": 4}, {"preemption": True},
+    {"seq_shards": 2}, {"seq_shards": 4}, {"admission": "edf"},
     {"prefix_cache": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -49,10 +49,9 @@ MAX_TOKENS = 12
 GRIDS = [("paged", "packed"), ("paged", "padded"),
          ("contiguous", "packed"), ("contiguous", "padded")]
 # the reference's decode_bubble_stats keys of features the port does not
-# run yet (seq stripes' merges, swap, faults, priority classes, the prefix
-# cache): each comes with its feature
-UNPORTED_KEYS = {"merge_collectives", "swap", "faults", "injected_events",
-                 "per_class", "prefix"}
+# run yet (seq stripes' merges, faults, the prefix cache): each comes with
+# its feature (swap and per_class came with preemption)
+UNPORTED_KEYS = {"merge_collectives", "faults", "injected_events", "prefix"}
 
 
 class GlobalIdEngine(RefEngine):
