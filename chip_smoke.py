@@ -129,7 +129,33 @@ Phases, in order; any failure exits non-zero:
     same depth) with phase 10's head move forced while the victim is on
     the host: one remap at swap-in, tokens equal to the serve whose
     victim's copy stays on the card and moves with the cache, and a
-    control without the remap that must differ.
+    control without the remap that must differ;
+12. sequence stripes and the prefix cache (``STRIPE_SERVES``,
+    ``PREFIX_SERVES``; at full depth but SmolLM-135M S = 4 padded and int8
+    prefix and Yi-6B D = 4 x S = 2, at ``CUT_LAYERS``): striped serves
+    (SmolLM-135M S = 2 packed and S = 4 padded, Yi-6B D = 4 x S = 2,
+    Gemma3-1B dense S = 2) replay their
+    unstriped twin's greedy tokens and hold ``STRIPE_ATOL`` on each live
+    row and model call's largest logit difference, which a planted control
+    (one stripe's partial left out of the merge) must fail; each prints the
+    greedy tokens that agree, the per-axis imbalances and merges, and #1's
+    launches, which must be S a layer and decode tick.  Prefix serves
+    (SmolLM-135M bf16 chunked, int8 chunked, bf16 sparse monolithic, bf16
+    chunked at S = 2; Yi-6B bf16 chunked): a shared prompt of 2048 seeded
+    tokens warms the tree in a first ``serve`` call, then 8 requests
+    continue it; the cache-on tokens must equal the cache-off engine's bit
+    for bit (at S = 2, where the stripe merge rounds by where the blocks
+    sit, each request's stripes are printed on and off: those placed alike
+    must give equal tokens, and with every block placed by its logical
+    index all must), every request must hit, and the hits must save
+    prefill chunks and #2 launches (printed with the tree's counters and
+    the hit requests' TTFT on and off).  A preempted hit victim
+    (SmolLM-135M) must keep its
+    cached blocks resident, swap exactly its private tail's bytes and give
+    the cache-off tokens, while two planted controls (its host copy zeroed;
+    the hit ids mapped rotated) must change them.  SMOKE
+    float32 parity on the card against the CPU with S = 2 and with the
+    cache (bf16 and int8, whose controls run).
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -223,11 +249,13 @@ SHARDED_SERVES = {
 # Yi-6B's degree whose layer-0 packed table holds #1 / #3 to their plain
 # versions, and that of its float32 parity
 SHARDED_CHECK = 4
-# the depth that keeps the whole script near half its time limit: the
-# head-parallel serves (phase 8), SmolLM-135M's quantized serves (phase 5)
-# and Yi-6B's overload serves (phase 11) run the model's first CUT_LAYERS
-# layers at full width (the default serves, the path of the kernels line's
-# bf16 launches, keep every layer)
+# the depth that keeps the whole script near its share of the time limit:
+# the head-parallel serves (phase 8), SmolLM-135M's quantized serves (phase
+# 5), Yi-6B's overload serves (phase 11) and phase 12's secondary serves
+# (SmolLM-135M S = 4 padded and int8 prefix, Yi-6B D = 4 x S = 2) run the
+# model's first CUT_LAYERS layers at full width (the default serves, the
+# path of the kernels line's bf16 launches, and the first serve of each
+# feature keep every layer)
 CUT_LAYERS = {"smollm-135m": 15, "yi-6b": 16}
 # the paper's baselines served at full width (phase 9), per model: (tag,
 # EngineConfig options).  Dense serves prefill monolithically, so the dense
@@ -299,6 +327,41 @@ STRADDLE_TOKENS = 64
 # the prompt buckets #4 takes in those serves: exact (ragged) lengths of
 # SERVE_LENS and pow2 buckets
 FLASH_BUCKETS = (513, 1010, 3500, 1024, 4096)
+# sequence stripes (phase 12): per model, (tag, cut to CUT_LAYERS, the
+# striped serve's EngineConfig options, its unstriped twin's, with the
+# planted control).  The striped serve replays its twin's greedy tokens;
+# each model call and live row's largest logit difference must hold
+# STRIPE_ATOL (median, max), set above the sound readings and far below
+# the control's (one stripe's partial left out of the merge) (PERF.md §6)
+STRIPE_SERVES = {
+    "smollm-135m": (("S=2,packed", False, dict(seq_shards=2), {}, False),
+                    ("S=4,padded", True, dict(seq_shards=4,
+                                              decode_worklist="padded"),
+                     dict(decode_worklist="padded"), True)),
+    "yi-6b": (("D=4,S=2", True, dict(num_model_shards=4, seq_shards=2),
+               dict(num_model_shards=4), False),),
+    "gemma3-1b": (("dense,S=2", False, dict(attention="dense", seq_shards=2),
+                   dict(attention="dense"), False),)}
+STRIPE_ATOL = (0.1, 0.25)
+# the default serve's sampled logits by (model, depth) (phase 5), which
+# phase 12's first striped serve replays instead of serving its twin again
+DEFAULT_LOGITS: dict = {}
+# the prefix cache (phase 12): a shared prompt of PREFIX_SHARED seeded
+# tokens (16 blocks), then PREFIX_TAILS tails of 64-700 tokens, 32 greedy
+# tokens each; per model, (tag, cut to CUT_LAYERS, EngineConfig options of
+# both the cache-on and the cache-off engine).  Cache on must give the
+# cache-off tokens bit for bit; striped (the stripe merge rounds by where
+# the blocks sit), every request whose blocks sit on the same stripes on
+# and off must, and every request must with blocks placed by logical index
+PREFIX_SHARED = 2048
+PREFIX_TAILS = 8
+PREFIX_SERVES = {
+    "smollm-135m": (("bf16,chunked", False, {}),
+                    ("int8,chunked", True, dict(kv_dtype="int8")),
+                    ("bf16,monolithic", False,
+                     dict(prefill_mode="monolithic")),
+                    ("bf16,chunked,S=2", False, dict(seq_shards=2))),
+    "yi-6b": (("bf16,chunked", False, {}),)}
 # the stochastic serve (phase 9): temperature, top-k, top-p
 STOCHASTIC = dict(temperature=0.8, top_k=50, top_p=0.95)
 # the kernels each serve must launch (the first two are also the
@@ -1209,14 +1272,20 @@ def serve_prompts(cfg):
 def run_serves(cfg, params, dev):
     """SmolLM-135M's four full-width serves (all must give the default's
     tokens), then its quantized serves.  Returns the launches and the
-    tokens of the bf16 serves by (layout, worklist) tag."""
+    tokens of the bf16 serves by (layout, worklist) tag.  The default
+    serve's sampled logits are kept in ``DEFAULT_LOGITS``: the unstriped
+    twin of phase 12's first striped serve."""
     prompts = serve_prompts(cfg)
     tokens, launches = {}, {}
     for layout, worklist in SERVES:
         tag = f"{layout},{worklist}"
         eng = build_engine(cfg, params, dev, cache_layout=layout,
                            decode_worklist=worklist)
-        tokens[tag], got = run_serve(eng, prompts, tag, SMOL)
+        record = (sampled_logits(DEFAULT_LOGITS.setdefault(
+            (cfg.name, cfg.num_layers), []))
+                  if tag == "paged,packed" else contextlib.nullcontext())
+        with record:
+            tokens[tag], got = run_serve(eng, prompts, tag, SMOL)
         if worklist == "packed":
             launches.update(got)          # the packed serves' counts
         del eng
@@ -1731,7 +1800,7 @@ def live_rows(eng, card: list) -> dict:
 
 
 def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
-                 shards=1, **options):
+                 shards=1, layouts=("paged", "contiguous"), **options):
     """float32 serves of ``cfg`` on the card and on the CPU (plain
     versions), paged and contiguous, at each KV dtype of ``kinds``, with
     the card's weights ``params`` (copied to the CPU).  bf16 cache: the
@@ -1745,7 +1814,8 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
     and one decode call's output shifted by 1.0
     (:func:`faulted_decode_call`, a fault on a few rows, which the max
     must refuse).  ``shards``: the engines' head-parallel degree;
-    ``options``: further ``EngineConfig`` options of every serve."""
+    ``layouts``: the cache layouts served; ``options``: further
+    ``EngineConfig`` options of every serve."""
     import torch
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
@@ -1780,7 +1850,7 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
 
     records = {}
     for kind in kinds:
-        for layout in ("paged", "contiguous"):
+        for layout in layouts:
             sub = f"{tag} f32 serve[{layout},{kind}]"
             want, rec = records[layout, kind] = serve(cpu, layout, kind)
             if kind == "bf16":
@@ -2500,6 +2570,422 @@ def sharded_parity(dev, params, sh: Shapes):
         fail(f"{tag}: a kernel form never launched: {launches}")
 
 
+@contextlib.contextmanager
+def dropped_stripe():
+    """The stripe check's planted control: while the block runs, the
+    striped decode's merge leaves out the last stripe's partial (the blocks
+    that stripe holds are never attended)."""
+    from repro_torch.models import transformer as tfm
+    merge = tfm._merge_stripe_partials
+    tfm._merge_stripe_partials = lambda parts, *a: merge(parts[:-1], *a)
+    try:
+        yield
+    finally:
+        tfm._merge_stripe_partials = merge
+
+
+def run_striped(cfg, params, dev, sh: Shapes, tag: str, kw: dict,
+                twin_kw: dict, control: bool):
+    """Phase 12's striped serve of one setting: the unstriped twin (its
+    logits recorded), then the striped serve replaying the twin's greedy
+    tokens, whose largest logit difference a live row and model call must
+    hold ``STRIPE_ATOL`` (median, max) (an unstriped default twin at full
+    depth is the recorded serve of phase 5); prints the greedy tokens that
+    agree (the rows whose own argmax is the twin's token), the per-axis
+    imbalances and merges, and #1's launches, which must be S a layer and
+    decode tick.  With ``control`` the replay runs again with one stripe's
+    partial left out of the merge, which must fail the limits."""
+    import torch
+    prompts = serve_prompts(cfg)
+    S = kw["seq_shards"]
+    ref = (DEFAULT_LOGITS.get((cfg.name, cfg.num_layers)) if not twin_kw
+           else None)
+    if ref:
+        print(f"serve[{sh.arch}:{tag}]: the twin is the default paged "
+              f"packed serve of phase 5 (its logits recorded there)")
+    else:
+        twin = build_engine(cfg, params, dev, **twin_kw)
+        with sampled_logits([]) as ref:
+            run_serve(twin, prompts, f"{tag},twin S=1", sh)
+        del twin
+        torch.cuda.empty_cache()
+    runs = (("sound", contextlib.nullcontext),) + (
+        (("control: a stripe left out of the merge", dropped_stripe),)
+        if control else ())
+    for name, ctx in runs:
+        eng = build_engine(cfg, params, dev, **kw)
+        card = []
+        live = live_rows(eng, card)
+        with sampled_logits(card, ref), ctx():
+            _, launches = run_serve(eng, prompts, f"{tag},{name}", sh)
+        rows = [live.get(i) for i in range(len(card))]
+        med, worst, flips = forced_logit_diff(card, ref, rows)
+        total = sum(c.shape[0] if r is None else len(r)
+                    for c, r in zip(card, rows))
+        ok = med <= STRIPE_ATOL[0] and worst <= STRIPE_ATOL[1]
+        bs = eng.decode_bubble_stats
+        n1 = launches["flash_decode_paged" + sh.tag]
+        want = S * cfg.num_layers * eng._batcher.stats.decode_steps
+        print(f"serve[{sh.arch}:{tag},{name}]: replaying the S=1 twin's "
+              f"tokens over {len(card)} model calls: greedy tokens agree "
+              f"in {total - flips} of {total} live rows; logit difference "
+              f"median {med:.3e}, max {worst:.3e} (limits {STRIPE_ATOL}): "
+              f"{'held' if ok else 'NOT held'}; mean head imbalance "
+              f"{bs['mean_head_imbalance']:.4f}, mean stripe imbalance "
+              f"{bs['mean_stripe_imbalance']:.4f}, merge collectives "
+              f"{bs['merge_collectives']}; #1 launches {n1} (S x layers x "
+              f"decode ticks = {want})")
+        if n1 != want or bs["merge_collectives"] != (
+                cfg.num_layers * eng._batcher.stats.decode_steps):
+            fail(f"{sh.arch}:{tag}: #1 did not launch once a stripe, layer "
+                 f"and tick")
+        if name == "sound" and not ok:
+            fail(f"{sh.arch}:{tag}: the striped serve's logits leave the "
+                 f"unstriped twin's beyond the limits")
+        if name != "sound" and ok:
+            fail(f"{sh.arch}:{tag}: the stripe check passes its planted "
+                 f"control")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def prefix_traffic(cfg):
+    """Phase 12's prefix traffic: the warming request and the
+    ``PREFIX_TAILS`` requests, each the shared seeded prompt of
+    ``PREFIX_SHARED`` tokens and a seeded tail of 64-700 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(27)
+    shared = rng.integers(0, cfg.vocab_size, size=PREFIX_SHARED)
+    tails = [int(n) for n in rng.integers(64, 701, size=PREFIX_TAILS + 1)]
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in tails]
+    return prompts[:1], prompts[1:]
+
+
+def prefix_serve(eng, calls, tag: str, sh: Shapes):
+    """The two ``serve`` calls of ``calls`` on one engine (32 greedy
+    tokens each): completion, the tokens of each call, the second call's
+    TTFTs (host clock), prefill chunks and #1 / #2 launches, each
+    request's block placement (the stripe of each block of its table when
+    it frees, which holds every block its decode ticks read), and a clean
+    block audit (cached blocks stay mapped as evictable)."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_tokens=32)
+    alloc = eng.kv.alloc
+    free = alloc.free
+    out = []
+    for prompts in calls:
+        placed = {}
+
+        def spy(rid, _placed=placed):
+            _placed[rid] = "".join(str(alloc.stripe_of(b))
+                                   for b in alloc.table(rid))
+            return free(rid)
+        alloc.free = spy
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        done = eng.serve(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts([
+            form("flash_decode_paged", None, sh),
+            form("sparse_prefill_paged", None, sh),
+            form("sparse_prefill_contig", None, sh),
+            *(form(n, eng.ecfg.kv_dtype, sh) for n in (
+                "flash_decode_paged", "sparse_prefill_paged")
+              if eng.quantized)])
+        if not all(r.done and not r.rejected and len(r.generated) == 32
+                   for r in done):
+            fail(f"{tag}: not every request completed")
+        out.append(([r.generated for r in done], [r.ttft for r in done],
+                    eng._batcher.stats.prefill_chunks, launches, wall,
+                    [placed[r.rid] for r in done]))
+    alloc.free = free
+    fails = eng.kv.audit(strict=False)
+    if fails or alloc.allocated_blocks != alloc.evictable_blocks:
+        fail(f"{tag}: block audit failed: {fails}")
+    return out
+
+
+@contextlib.contextmanager
+def logical_placement():
+    """The striped prefix check's witness: while the block runs, a block
+    appended to a table comes from stripe (its logical index mod S) (the
+    most free stripe if that one is empty), so a hit's shared blocks and a
+    cache-off serve's own blocks sit on the same stripes."""
+    from repro_torch.serving.kv_cache import BlockAllocator
+    routed = BlockAllocator._growth_stripe
+
+    def logical(self, table):
+        s = len(table) % self.stripes
+        return s if self._free[s] else routed(self, table)
+    BlockAllocator._growth_stripe = logical
+    try:
+        yield
+    finally:
+        BlockAllocator._growth_stripe = routed
+
+
+def run_prefix(cfg, params, dev, sh: Shapes, tag: str, kw: dict):
+    """Phase 12's prefix serve of one setting: the warming call (one
+    request) then the ``PREFIX_TAILS`` requests, on a cache-on engine and
+    on a cache-off engine of the same options.  Every request of the second
+    call must hit, the hits must save prefill work, and #1 and #2 must
+    launch; prints the tree's counters, prefill chunks and #2 launches on
+    and off, and the hit requests' TTFT on and off.  Tokens must be equal
+    bit for bit in both calls, but striped: there a hit's shared blocks sit
+    on the stripes its first holder's growth chose and the cache-off
+    serve's on others, and the stripe merge rounds by placement
+    (``ROADMAP.md`` §3).  So a striped setting prints each request's
+    placement on and off, and every request whose placement is the same on
+    and off must give the same tokens; then both engines serve again with
+    every block placed by its logical index (:func:`logical_placement`),
+    where all placements agree and every request's tokens must."""
+    import numpy as np
+    import torch
+    calls = prefix_traffic(cfg)
+    striped = kw.get("seq_shards", 1) > 1
+    got = {}
+    for rule in ("routed", "logical") if striped else ("routed",):
+        for on in (False, True):
+            eng = build_engine(cfg, params, dev, prefix_cache=on, **kw)
+            with (logical_placement() if rule == "logical"
+                  else contextlib.nullcontext()):
+                got[rule, on] = prefix_serve(eng, calls,
+                                             f"{sh.arch}:{tag}", sh)
+            if on and rule == "routed":
+                pf = eng.decode_bubble_stats["prefix"]
+                hits = eng._batcher.stats.prefix_hits
+            del eng
+            torch.cuda.empty_cache()
+    on, off = got["routed", True], got["routed", False]
+    same = [a[0] == b[0] for a, b in zip(on, off)]
+    (_, ttft_on, chunks_on, l_on, wall_on, _) = on[1]
+    (_, ttft_off, chunks_off, l_off, wall_off, _) = off[1]
+    print(f"prefix[{sh.arch}:{tag}]: tree hits {pf['hits']} of "
+          f"{pf['lookups']} lookups, {pf['hit_tokens']} hit tokens, "
+          f"{pf['nodes']} nodes ({pf['evictable']} evictable); second call: "
+          f"{hits} of {PREFIX_TAILS} requests hit, prefill chunks "
+          f"{chunks_on} on / {chunks_off} off, launches on {l_on}, off "
+          f"{l_off}; hit requests' TTFT mean {np.mean(ttft_on):.3f} s on / "
+          f"{np.mean(ttft_off):.3f} s off, max {np.max(ttft_on):.3f} / "
+          f"{np.max(ttft_off):.3f} s (host clock, queueing included); wall "
+          f"{wall_on:.2f} / {wall_off:.2f} s; tokens on == off in the two "
+          f"calls: {same}")
+    for rule in ("routed", "logical") if striped else ():
+        parted = []
+        for c, (a, b) in enumerate(zip(got[rule, True], got[rule, False])):
+            for rid, (ta, tb, pa, pb) in enumerate(zip(a[0], b[0], a[5],
+                                                       b[5])):
+                k = PREFIX_SHARED // BLK
+                print(f"prefix[{sh.arch}:{tag}] {rule} placement, call {c} "
+                      f"request {rid}: stripes on {pa[:k]}|{pa[k:]}, off "
+                      f"{pb[:k]}|{pb[k:]}: placement "
+                      f"{'same' if pa == pb else 'differs'}, tokens "
+                      f"{'equal' if ta == tb else 'PART'}")
+                if ta != tb:
+                    parted.append((c, rid, pa == pb))
+        print(f"prefix[{sh.arch}:{tag}] {rule} placement: requests whose "
+              f"tokens part on / off (call, request, same placement): "
+              f"{parted}")
+        if any(p for *_, p in parted):
+            fail(f"{sh.arch}:{tag}: a request whose blocks sit on the same "
+                 f"stripes on and off gave other tokens")
+        if rule == "logical" and (parted or any(
+                pa != pb for a, b in zip(got[rule, True], got[rule, False])
+                for pa, pb in zip(a[5], b[5]))):
+            fail(f"{sh.arch}:{tag}: placed by logical index, a request's "
+                 f"placement or tokens differ on and off")
+    if not striped and not all(same):
+        fail(f"{sh.arch}:{tag}: the prefix cache changed greedy tokens")
+    n1, n2, n2c = (form(n, None, sh) for n in (
+        "flash_decode_paged", "sparse_prefill_paged", "sparse_prefill_contig"))
+    if hits != PREFIX_TAILS or not l_on[n1]:
+        fail(f"{sh.arch}:{tag}: a request missed the warm tree, or #1 never "
+             f"launched")
+    # monolithic: a hit's tail runs as one chunk through #2 paged, a miss
+    # through the contiguous prefill; chunked: fewer chunks, fewer #2
+    saved = ((l_on[n2] > 0 and l_on[n2c] == 0 and l_off[n2c] > 0)
+             if kw.get("prefill_mode") == "monolithic"
+             else (0 < l_on[n2] < l_off[n2] and chunks_on < chunks_off))
+    if not saved:
+        fail(f"{sh.arch}:{tag}: the hits did not save prefill work")
+
+
+def zeroed_host_copy(eng) -> None:
+    """The prefix preemption's planted control: at swap-in the host copy
+    (a hit victim's private tail, often one block, which a roll by one
+    block would leave as it is) is zeros, as if its transfer never
+    landed."""
+    inner = eng._swap_in_seq
+
+    def swap_in(rid, slot, resident):
+        eng.host_copy(rid)[0].zero_()
+        return inner(rid, slot, resident)
+    eng._swap_in_seq = swap_in
+
+
+@contextlib.contextmanager
+def rotated_hit_ids():
+    """The prefix check's planted control: while the block runs, the
+    tree's matched block ids are mapped in a rotated order (each hit block
+    read one position off)."""
+    from repro_torch.serving.prefix_tree import RadixPrefixCache
+    match = RadixPrefixCache.match
+
+    def rotated(self, prompt):
+        ids, hit = match(self, prompt)
+        return ids[1:] + ids[:1], hit
+    RadixPrefixCache.match = rotated
+    try:
+        yield
+    finally:
+        RadixPrefixCache.match = match
+
+
+def run_prefix_preempted(cfg, params, dev, sh: Shapes):
+    """Phase 12's preempted hit victim: two batch requests continuing the
+    shared prompt (the second hits the first's blocks), then an
+    interactive arrival, in a pool one block short of holding all three,
+    where the hit's swap makes room.  The victim keeps its shared prefix
+    resident: the bytes swapped out must be its private tail's blocks times
+    a block's bytes, and every request's tokens must equal the
+    uninterrupted cache-off serve's.  Two planted controls must change the
+    victim's: the host copy zeroed, and the hit ids mapped in a rotated
+    order."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_tokens=32)
+    import numpy as np
+    rng = np.random.default_rng(28)
+    shared = prefix_traffic(cfg)[0][0][:PREFIX_SHARED]
+    # the hit's private tail spans several blocks, so a copy rolled by one
+    # block moves its contents
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (400, 600)]
+    prompts.append(rng.integers(0, cfg.vocab_size, size=1500))
+    need = [-(-(len(p) + 32) // BLK) for p in prompts]
+    # the residents (the hit maps only its private blocks) and the
+    # arrival overfill the pool by one block
+    pool = need[0] + need[1] - PREFIX_SHARED // BLK + need[2] - 1
+    tag = f"{sh.arch}:bf16,prefix,preempted"
+    runs = {}
+    for name, kw, ctx in (
+            ("uninterrupted, cache off", dict(prefix_cache=False),
+             contextlib.nullcontext),
+            ("preempted", dict(prefix_cache=True, preemption=True,
+                               num_kv_blocks=pool),
+             contextlib.nullcontext),
+            ("control: host copy zeroed", dict(
+                prefix_cache=True, preemption=True,
+                num_kv_blocks=pool), contextlib.nullcontext),
+            ("control: hit ids rotated", dict(
+                prefix_cache=True, preemption=True,
+                num_kv_blocks=pool), rotated_hit_ids)):
+        eng = build_engine(cfg, params, dev, **kw)
+        victims = []
+        inner = eng._swap_out_seq
+
+        def spy(rid, slot, resident, _eng=eng, _inner=inner):
+            victims.append((rid, _eng.kv.alloc.swap_split(rid)))
+            return _inner(rid, slot, resident)
+        eng._swap_out_seq = spy
+        if name == "control: host copy zeroed":
+            zeroed_host_copy(eng)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with ctx():
+            toks, b = drive_interrupt(eng, prompts, sp)
+        torch.cuda.synchronize()
+        st = eng.swap_stats
+        block_bytes = (eng.kv.pool[:, :, :1].numel()
+                       * eng.kv.pool.element_size())
+        hits = b.stats.prefix_hits
+        print(f"serve[{tag}] {name}: {time.time() - t0:.2f} s; hits {hits}, "
+              f"preempted {b.stats.preempted}, resumed {b.stats.resumed}; "
+              f"victims (rid, retained, private blocks) "
+              f"{[(r, len(a), len(p)) for r, (a, p) in victims]}; swapped "
+              f"{st['blocks_out']} blocks / {st['bytes_out']} bytes out "
+              f"({block_bytes} bytes a block), {st['blocks_in']} in")
+        if not all(len(t) == 32 for t in toks) or eng.kv.audit(strict=False):
+            fail(f"{tag} {name}: a request did not complete or the pool did "
+                 f"not audit clean")
+        if kw.get("preemption"):
+            if not victims or b.stats.resumed < 1 or hits < 1:
+                fail(f"{tag} {name}: no hit, no swap out or no resume")
+            rid, (retained, private) = victims[0]
+            if name == "preempted" and (
+                    rid != 1 or not retained or st["bytes_out"]
+                    != len(private) * block_bytes
+                    or st["blocks_in"] != st["blocks_out"]):
+                fail(f"{tag}: the hit victim did not swap exactly its "
+                     f"private tail")
+        runs[name] = toks
+        del eng, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = runs["uninterrupted, cache off"]
+    verdicts = {n: [a == b for a, b in zip(t, want)] for n, t in runs.items()}
+    print(f"serve[{tag}]: tokens == the uninterrupted cache-off serve's, by "
+          f"request: {verdicts}")
+    if not all(verdicts["preempted"]):
+        fail(f"{tag}: the preempted hit victim's tokens changed")
+    for n in ("control: host copy zeroed", "control: hit ids rotated"):
+        if verdicts[n][1]:
+            fail(f"{tag}: the planted control ({n}) kept the victim's "
+                 f"tokens")
+
+
+def seq_prefix_parity(dev):
+    """SMOKE float32, paged: a serve with two seq stripes (bf16 cache), and
+    serves of shared-prefix traffic with the prefix cache (bf16 and int8
+    caches, whose planted controls run): the card's tokens == the CPU's
+    plain versions' (int8: replayed, logits within the limits)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 520, 129)]
+    smoke_parity(cfg, dev, prompts, ("bf16",), params, 12, "smoke S=2",
+                 layouts=("paged",), seq_shards=2)
+    shared = rng.integers(0, cfg.vocab_size, size=256)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (40, 300, 129)] + prompts[1:2]
+    smoke_parity(cfg, dev, prompts, ("bf16", "int8"), params, 12,
+                 "smoke prefix cache", layouts=("paged",), prefix_cache=True)
+
+
+def seq_prefix_phases(cfg, params, dev, sh: Shapes):
+    """Phase 12 for one model: its ``STRIPE_SERVES`` and
+    ``PREFIX_SERVES`` (secondary ones at ``CUT_LAYERS``), and for
+    SmolLM-135M the preempted hit victim and the float32 parity."""
+    t0 = time.time()
+    cut = None
+    for tag, short, kw, twin_kw, control in STRIPE_SERVES.get(sh.arch, ()):
+        if short:
+            cut = cut or cut_depth(cfg, params, sh.arch)
+        run_striped(*(cut if short else (cfg, params)), dev, sh, tag, kw,
+                    twin_kw, control)
+    for tag, short, kw in PREFIX_SERVES.get(sh.arch, ()):
+        if short:
+            cut = cut or cut_depth(cfg, params, sh.arch)
+        run_prefix(*(cut if short else (cfg, params)), dev, sh, tag, kw)
+    if sh.arch == "smollm-135m":
+        run_prefix_preempted(cfg, params, dev, sh)
+        seq_prefix_parity(dev)
+    print(f"stripe and prefix phases ({cfg.name}): {time.time() - t0:.1f} s")
+
+
 def model_phases(dev, gen, results, sh: Shapes):
     """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
     f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
@@ -2572,6 +3058,8 @@ def model_phases(dev, gen, results, sh: Shapes):
             run_straddle(ocfg, oparams, dev, sh)
         del oparams
         print(f"overload phases ({cfg.name}): {time.time() - t0:.1f} s")
+    if sh.arch in STRIPE_SERVES or sh.arch in PREFIX_SERVES:
+        seq_prefix_phases(cfg, params, dev, sh)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2651,6 +3139,7 @@ def main() -> int:
         run_preempted(cfg, params, dev, SMOL, layout, kind)
     print(f"profiling and overload phases ({cfg.name}): "
           f"{time.time() - t0:.1f} s")
+    seq_prefix_phases(cfg, params, dev, SMOL)
     del params
 
     for sh in (YI, GEMMA):

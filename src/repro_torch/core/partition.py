@@ -1,6 +1,6 @@
 """Head -> device assignment: multiway number partitioning (paper §3.3).
-A copy of the reference package's ``core/partition.py`` (the 1D
-partitioners).
+A copy of the reference package's ``core/partition.py``: the 1D
+partitioners and the 2D (model shard x seq stripe) packer of §2.11.
 
 The objective is the load-imbalance ratio ``I = max_d L_d / mean_d L_d``;
 :func:`best_partition` runs LPT (the paper's greedy) and Karmarkar–Karp,
@@ -292,6 +292,175 @@ def lpt_bound(weights: Sequence[int], num_devices: int) -> float:
     return float(w.sum()) / D + (1.0 - 1.0 / D) * float(w.max())
 
 
+# ---------------------------------------------------------------------------
+# 2D head x sequence packing (DESIGN.md §2.11)
+# ---------------------------------------------------------------------------
+#
+# Sequence-parallel long context adds a second mesh axis: each item (a
+# (slot, kv_head) decode run) carries a WEIGHT VECTOR over the `seq`
+# stripes — W[i, s] = how many of item i's selected kv blocks live on
+# stripe s.  The stripe coordinate of the work is FIXED by data placement
+# (a block is computed where it resides); the packer only chooses the
+# item's model shard.  The objective generalizes to the max CELL load
+#
+#     min max_{(d, s)} L_{d,s},   L_{d,s} = sum_{i: dev(i)=d} W[i, s]
+#
+# because under SPMD every (model, seq) device executes its cell's padded
+# grid — the 2D makespan is the grid length everyone pays.
+
+
+@dataclasses.dataclass
+class Assignment2D:
+    """Result of a 2D (model x seq) partitioning.
+
+    device_of: ``[N]`` model-shard index per item (the free axis).
+    loads:     ``[Dm, Ds]`` per-cell load (stripe axis fixed by the data).
+    method:    provenance string.
+    """
+
+    device_of: np.ndarray
+    loads: np.ndarray
+    method: str = ""
+
+    @property
+    def num_devices(self) -> int:
+        return self.loads.shape[0]
+
+    @property
+    def num_stripes(self) -> int:
+        return self.loads.shape[1]
+
+    @property
+    def makespan(self) -> int:
+        """max cell load — the padded 2D grid length under SPMD."""
+        return int(self.loads.max())
+
+    @property
+    def imbalance(self) -> float:
+        """max cell / mean cell (>= 1) — the 2D analogue of the paper's I."""
+        mean = float(self.loads.mean())
+        return float(self.loads.max() / mean) if mean > 0 else 1.0
+
+    @property
+    def model_loads(self) -> np.ndarray:
+        """``[Dm]`` per-model-shard totals (summed over stripes)."""
+        return self.loads.sum(axis=1)
+
+    @property
+    def stripe_loads(self) -> np.ndarray:
+        """``[Ds]`` per-stripe totals (summed over model shards)."""
+        return self.loads.sum(axis=0)
+
+    @property
+    def model_imbalance(self) -> float:
+        m = self.model_loads.astype(np.float64)
+        mean = float(m.mean())
+        return float(m.max() / mean) if mean > 0 else 1.0
+
+    @property
+    def stripe_imbalance(self) -> float:
+        s = self.stripe_loads.astype(np.float64)
+        mean = float(s.mean())
+        return float(s.max() / mean) if mean > 0 else 1.0
+
+
+def _loads_2d(W: np.ndarray, device_of: np.ndarray, Dm: int) -> np.ndarray:
+    loads = np.zeros((Dm, W.shape[1]), dtype=np.int64)
+    np.add.at(loads, device_of, W)
+    return loads
+
+
+def lpt_bound_2d(weights_2d: np.ndarray, num_devices: int) -> float:
+    """2D packer contract: ``max cell load <= lpt_bound(row totals, Dm)``.
+
+    Any cell's load is bounded by its model shard's TOTAL (the sum of the
+    shard's cells), and placing items by their row totals with LPT keeps
+    every shard total within Graham's bound — so seeding from LPT-on-totals
+    and only accepting refinement steps that strictly reduce the max cell
+    preserves the 1D contract verbatim on the harder 2D objective.  The
+    property tests (the reference's tests/test_core_partition.py) hold every 2D packer
+    output to this bound.
+    """
+    W = np.asarray(weights_2d, dtype=np.int64)
+    if W.size == 0:
+        return 0.0
+    return lpt_bound(W.sum(axis=1), num_devices)
+
+
+def refine_partition_2d(weights_2d: np.ndarray, assignment: Assignment2D,
+                        max_rounds: int = 50) -> Assignment2D:
+    """Local search on the 2D objective: move single items off the model
+    shard holding the max cell, accepting only strict max-cell reductions
+    (so :func:`lpt_bound_2d` is preserved by construction)."""
+    W = np.asarray(weights_2d, dtype=np.int64)
+    device_of = assignment.device_of.copy()
+    Dm = assignment.num_devices
+    loads = _loads_2d(W, device_of, Dm)
+
+    for _ in range(max_rounds):
+        cur = int(loads.max())
+        row_max = loads.max(axis=1)
+        dmax = int(np.argmax(row_max))
+        moved = False
+        # one accepted move per round: the max cell may migrate to another
+        # shard, so the candidate item set must be re-derived from scratch
+        for i in sorted(np.where(device_of == dmax)[0],
+                        key=lambda i: -int(W[i].sum())):
+            best = None  # (new_global_max, target shard)
+            for d in range(Dm):
+                if d == dmax:
+                    continue
+                na = int((loads[dmax] - W[i]).max())
+                nb = int((loads[d] + W[i]).max())
+                rest = max((int(row_max[r]) for r in range(Dm)
+                            if r not in (dmax, d)), default=0)
+                tot = max(na, nb, rest)
+                if tot < cur and (best is None or tot < best[0]):
+                    best = (tot, d)
+            if best is not None:
+                _, d = best
+                loads[dmax] -= W[i]
+                loads[d] += W[i]
+                device_of[i] = d
+                moved = True
+                break
+        if not moved:
+            break
+    return Assignment2D(device_of, loads, assignment.method + "+refine2d")
+
+
+def best_partition_2d(weights_2d: np.ndarray,
+                      num_devices: int) -> Assignment2D:
+    """Production 2D entry point: LPT and KK on the items' ROW TOTALS
+    (each within Graham's bound on the totals, hence on every cell), then
+    max-cell local search; keep the best by (makespan, imbalance).
+
+    ``weights_2d [N, Ds]``: per-item per-stripe weights.  Degenerates
+    EXACTLY to :func:`best_partition` at ``Ds == 1`` (same device_of),
+    which is the seq==1 compatibility contract the property tests pin.
+    """
+    W = np.asarray(weights_2d, dtype=np.int64)
+    if W.ndim != 2:
+        raise ValueError(f"weights_2d must be [N, Ds], got {W.shape}")
+    N, Ds = W.shape
+    Dm = num_devices
+    if Ds == 1:
+        a = best_partition(W[:, 0], Dm)
+        return Assignment2D(a.device_of, a.loads[:, None],
+                            a.method + "@seq1")
+    totals = W.sum(axis=1)
+    seeds = [lpt_partition(totals, Dm)]
+    if N <= 1024:
+        seeds.append(kk_partition(totals, Dm))
+    cands = []
+    for s in seeds:
+        a2 = Assignment2D(s.device_of.copy(), _loads_2d(W, s.device_of, Dm),
+                          s.method + "@2d")
+        cands.append(refine_partition_2d(W, a2) if N <= 1024 else a2)
+    best = min(cands, key=lambda a: (a.makespan, a.imbalance))
+    # the LPT seed is always among the candidates and refinement never
+    # raises the max cell, so the winner inherits lpt_bound_2d
+    return best
 
 # ---------------------------------------------------------------------------
 # Production entry point

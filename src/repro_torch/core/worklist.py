@@ -480,6 +480,211 @@ def pack_decode_items(
     return PackedDecodeWorkList(items=items, lengths=lengths, block=block)
 
 
+@dataclasses.dataclass
+class PackedDecodeWorkList2D:
+    """Per-(model shard, seq stripe) cost-packed decode lists for one layer
+    (DESIGN.md §2.11).
+
+    items:   ``[Dm, S, L_pad, DEC_FIELDS]`` int32 — cell (d, s) holds the
+             runs assigned to model shard d whose kv blocks live on stripe
+             s (kv blocks stay LOGICAL; the executor resolves them through
+             the per-slot table, and stripe membership is a property of
+             the PHYSICAL id, so a cell's items never reference another
+             stripe's blocks).
+    lengths: ``[Dm, S]`` true (unpadded) item counts per cell.
+    """
+
+    items: np.ndarray
+    lengths: np.ndarray
+    block: int
+
+    @property
+    def num_shards(self) -> int:
+        return self.items.shape[0]
+
+    @property
+    def num_stripes(self) -> int:
+        return self.items.shape[1]
+
+    @property
+    def padded_length(self) -> int:
+        return self.items.shape[2]
+
+    @property
+    def total_real_items(self) -> int:
+        return int(self.lengths.sum())
+
+    @property
+    def padded_total(self) -> int:
+        return self.padded_length * self.num_shards * self.num_stripes
+
+    @property
+    def padding_waste(self) -> float:
+        tot = self.padded_total
+        return 1.0 - self.total_real_items / tot if tot else 0.0
+
+    @property
+    def imbalance(self) -> float:
+        """max cell / mean cell — the 2D SPMD bubble."""
+        mean = float(self.lengths.mean())
+        return float(self.lengths.max() / mean) if mean > 0 else 1.0
+
+    @property
+    def model_imbalance(self) -> float:
+        """Head-axis imbalance: per-model-shard totals (over stripes)."""
+        m = self.lengths.sum(axis=1).astype(np.float64)
+        mean = float(m.mean())
+        return float(m.max() / mean) if mean > 0 else 1.0
+
+    @property
+    def stripe_imbalance(self) -> float:
+        """Seq-axis imbalance: per-stripe totals (over model shards)."""
+        s = self.lengths.sum(axis=0).astype(np.float64)
+        mean = float(s.mean())
+        return float(s.max() / mean) if mean > 0 else 1.0
+
+    def stripe_items(self) -> np.ndarray:
+        """``[S, Dm * L_pad, DEC_FIELDS]`` — the single-host execution
+        layout: per stripe, all model shards' lists concatenated (the 1D
+        :meth:`PackedDecodeWorkList.flat` applied within each stripe).
+        The engine runs one partial pass per stripe and merges the
+        ``(out, m, l)`` partials."""
+        return np.swapaxes(self.items, 0, 1).reshape(
+            self.num_stripes, -1, DEC_FIELDS)
+
+
+def pack_decode_items_2d(
+    block_ids: np.ndarray,
+    stripe_of_block: np.ndarray,
+    *,
+    num_stripes: int,
+    num_shards: int = 1,
+    block: int = 128,
+    bucket: int | None = None,
+    pad_multiple: int = 8,
+    shard_of_kvhead: np.ndarray | None = None,
+    kvhead_local: bool = False,
+    bytes_per_block: float | None = None,
+    phys_of_block: np.ndarray | None = None,
+) -> PackedDecodeWorkList2D:
+    """2D (model x seq) twin of :func:`pack_decode_items`.
+
+    ``block_ids [B, Hkv, nb]``: LOGICAL selected kv blocks per (batch row,
+    kv head), -1 trailing padding.  ``stripe_of_block [B, T]``: owning seq
+    stripe of each LOGICAL block position of each row (-1 for unmapped) —
+    derived from the stripe-aware allocator's tables
+    (``BlockAllocator.stripe_of``), since a block computes on the shard
+    that physically holds it.  Each (row, head) run splits into per-stripe
+    sub-runs; the run's per-stripe block counts form its weight VECTOR and
+    :func:`repro_torch.core.partition.best_partition_2d` picks its model shard
+    to minimize the max (shard, stripe) CELL — the padded 2D grid.
+    ``shard_of_kvhead`` pins runs to head-owning shards (islands);
+    ``kvhead_local`` remaps kv-head ids shard-local, as in the 1D packer.
+    Selections pointing at unmapped blocks (stripe -1) are dropped — the
+    1D executor would mask them via the table's -1 anyway.
+    """
+    from repro_torch.core.partition import best_partition_2d
+
+    ids = np.asarray(block_ids)
+    assert ids.ndim == 3, f"block_ids must be [B, Hkv, nb], got {ids.shape}"
+    B, hkv, nb = ids.shape
+    sob = np.asarray(stripe_of_block)
+    assert sob.ndim == 2 and sob.shape[0] == B, \
+        f"stripe_of_block must be [B, T], got {sob.shape}"
+    # per-run, per-stripe sorted logical block lists
+    runs: list[tuple[int, int, list[np.ndarray]]] = []   # (b, h, per-stripe)
+    for b in range(B):
+        for h in range(hkv):
+            sel = ids[b, h][ids[b, h] >= 0].astype(np.int64)
+            if not len(sel):
+                continue
+            stripes_of_sel = sob[b, sel]
+            per_stripe = [np.sort(sel[stripes_of_sel == s])
+                          for s in range(num_stripes)]
+            if sum(len(p) for p in per_stripe):
+                runs.append((b, h, per_stripe))
+    W = np.array([[len(p) for p in per_stripe]
+                  for _, _, per_stripe in runs],
+                 dtype=np.int64).reshape(len(runs), num_stripes)
+    if phys_of_block is not None:
+        # charge-once (§2.14), per (kv head, stripe) cell: a shared
+        # physical block streams once per head per stripe regardless of
+        # how many rows reference it.  The stripe key is exact (stripe
+        # is a property of the physical id); the head key carries the
+        # same free-packing approximation as pack_decode_items — exact
+        # only when shard_of_kvhead pins each head's runs to one shard
+        pob = np.asarray(phys_of_block)
+        seen2: dict[tuple[int, int], set[int]] = {}
+        for ridx, (b, h, per_stripe) in enumerate(runs):
+            for s, sel in enumerate(per_stripe):
+                if not len(sel):
+                    continue
+                held = seen2.setdefault((h, s), set())
+                fresh = 0
+                for p in pob[b, np.asarray(sel, np.int64)].tolist():
+                    if p >= 0 and p not in held:
+                        held.add(p)
+                        fresh += 1
+                W[ridx, s] = max(1, fresh)
+    if bytes_per_block is not None:
+        # byte-true cell weights (§2.12) — see pack_decode_items
+        W = np.maximum((W > 0).astype(np.int64),
+                       np.round(W * float(bytes_per_block)).astype(np.int64))
+    if shard_of_kvhead is None:
+        asg = best_partition_2d(W, num_shards).device_of
+    else:
+        shard_of_kvhead = np.asarray(shard_of_kvhead)
+        asg = np.array([int(shard_of_kvhead[h]) for _, h, _ in runs],
+                       dtype=np.int64)
+    per_cell: list[list[list[np.ndarray]]] = [
+        [[] for _ in range(num_stripes)] for _ in range(num_shards)]
+    kv_local_map: list[dict[int, int]] = [dict() for _ in range(num_shards)]
+    for (b, h, per_stripe), d in zip(runs, asg):
+        d = int(d)
+        if kvhead_local:
+            if h not in kv_local_map[d]:
+                kv_local_map[d][h] = len(kv_local_map[d])
+            h_idx = kv_local_map[d][h]
+        else:
+            h_idx = h
+        for s, sel in enumerate(per_stripe):
+            n = len(sel)
+            if n == 0:
+                continue
+            it = np.zeros((n, DEC_FIELDS), dtype=np.int32)
+            it[:, D_BATCH] = b
+            it[:, D_KVHEAD] = h_idx
+            it[:, D_KVBLK] = sel
+            it[0, D_FIRST] = 1
+            it[-1, D_LAST] = 1
+            it[:, D_VALID] = 1
+            per_cell[d][s].append(it)
+    cell_items = [[np.concatenate(g, axis=0) if g
+                   else np.zeros((0, DEC_FIELDS), np.int32)
+                   for g in row] for row in per_cell]
+    lengths = np.array([[len(x) for x in row] for row in cell_items],
+                       dtype=np.int64).reshape(num_shards, num_stripes)
+    L_pad = int(lengths.max()) if lengths.size else 0
+    L_pad = max(pad_multiple, -(-L_pad // pad_multiple) * pad_multiple)
+    if bucket is not None:
+        assert bucket >= L_pad, (
+            f"bucket {bucket} < packed cell length {L_pad}")
+        L_pad = int(bucket)
+    items = np.zeros((num_shards, num_stripes, L_pad, DEC_FIELDS),
+                     dtype=np.int32)
+    for d in range(num_shards):
+        for s in range(num_stripes):
+            x = cell_items[d][s]
+            items[d, s, : len(x)] = x
+            if len(x):
+                pad_row = x[-1].copy()
+                pad_row[D_FIRST] = 0
+                pad_row[D_LAST] = 0
+                pad_row[D_VALID] = 0
+                items[d, s, len(x):] = pad_row
+    return PackedDecodeWorkList2D(items=items, lengths=lengths, block=block)
+
+
 def extend_packed_items(items: np.ndarray, width: int) -> np.ndarray:
     """Pad per-shard item lists ``[D, L, DEC_FIELDS]`` out to ``[D, width,
     DEC_FIELDS]`` with the replicate-last valid=0 convention (flags zeroed

@@ -8,7 +8,8 @@
         [--prefill-buckets pow2|exact] [--temperature 0.8 --top-k 50 \
         --top-p 0.95 --sample-seed 0] [--telemetry-every 4 \
         --replan-every 16 --drift-threshold 0.5] [--admission fifo|slo \
-        --preemption --host-blocks N --kv-blocks N] [--profile]
+        --preemption --host-blocks N --kv-blocks N] [--seq-shards S] \
+        [--prefix-cache] [--profile]
 
 Weights and prompts are random, drawn from ``--seed``; the sparsity profile
 is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
@@ -26,11 +27,19 @@ prompts take the priority classes interactive, standard, batch in turn;
 ``--admission slo`` admits by class with cost-model deferral and deadline
 shedding, ``--preemption`` lets a higher class preempt lower-class work
 (decodes swap their KV to a pinned host tier of ``--host-blocks`` blocks,
-unbounded by default), and ``--kv-blocks`` sizes the paged pool.  The
+unbounded by default), and ``--kv-blocks`` sizes the paged pool.
+``--seq-shards S`` stripes the paged pool over S seq stripes (one decode
+pass a stripe, partials merged).  ``--prefix-cache`` shares the KV blocks of
+cached prompt prefixes by refcount, and the traffic becomes the
+reference's agent pattern: four requests in five continue one shared
+256-token prompt with a tail of 16-47 tokens, the fifth is a unique prompt
+of 32-127 tokens (``--requests`` of them; not with ``--prompt-lens``).  The
 default device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
 After the serve it prints the plan's imbalance (sparse) and the decode
 grid's bubble stats (``Engine.decode_bubble_stats``: with the plan's epoch,
-its replans and the realized recovery), and with preemption the swaps.
+its replans and the realized recovery), and with preemption the swaps;
+with stripes the per-axis imbalance and the merges, with the prefix cache
+its hits.
 ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device busy share of the wall time and
 the device time by kernel.
@@ -103,6 +112,13 @@ def main(argv=None) -> list:
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="paged KV pool size in blocks (default: slots * "
                          "max_seq / block)")
+    ap.add_argument("--seq-shards", type=int, default=defaults.seq_shards,
+                    help="stripe the paged KV pool over N seq stripes (1 = "
+                         "unstriped); greedy tokens are the same at any N")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share cached prompt-prefix KV blocks by refcount "
+                         "(paged); the traffic continues one shared prompt "
+                         "in 80%% of requests")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -115,6 +131,10 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
     if args.drift_threshold is not None and args.telemetry_every <= 0:
         ap.error("--drift-threshold needs --telemetry-every > 0")
+    if args.seq_shards < 1:
+        ap.error("--seq-shards must be >= 1")
+    if args.prefix_cache and args.prompt_lens:
+        ap.error("--prefix-cache draws its own traffic; drop --prompt-lens")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to run the "
@@ -137,7 +157,9 @@ def main(argv=None) -> list:
                               admission=args.admission,
                               preemption=args.preemption,
                               host_swap_blocks=args.host_blocks,
-                              num_kv_blocks=args.kv_blocks),
+                              num_kv_blocks=args.kv_blocks,
+                              seq_shards=args.seq_shards,
+                              prefix_cache=args.prefix_cache),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
                  device=device)
     rng = np.random.default_rng(args.seed)
@@ -145,6 +167,8 @@ def main(argv=None) -> list:
             if args.prompt_lens else
             [int(n) for n in rng.integers(32, 128, size=args.requests)])
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,)) for n in lens]
+    if args.prefix_cache:
+        prompts = agent_prompts(rng, cfg.vocab_size, args.requests)
     classes = ("interactive", "standard", "batch")
     priorities = [classes[i % len(classes)] for i in range(len(prompts))]
     # on the card only the CUDA activity: the report reads kernel events
@@ -181,9 +205,34 @@ def main(argv=None) -> list:
         print(f"preemption: {sw['swapped_out']} swapped out / "
               f"{sw['swapped_in']} back in ({sw['blocks_out']} blocks, "
               f"{sw['bytes_out'] / 1024:.1f} KiB to host)")
+    if args.seq_shards > 1:
+        print(f"2D decode: head imbalance {bs['mean_head_imbalance']:.4f}, "
+              f"stripe imbalance {bs['mean_stripe_imbalance']:.4f}, "
+              f"{bs['merge_collectives']} seq merges")
+    if bs["prefix"] is not None:
+        ps = bs["prefix"]
+        print(f"prefix cache: {ps['hits']}/{ps['lookups']} lookups hit "
+              f"({ps['hit_tokens']} tokens mapped for free), {ps['nodes']} "
+              f"blocks in tree, {ps['evicted_blocks']} evicted")
     if args.profile:
         _print_profile(prof, dt)
     return done
+
+
+def agent_prompts(rng, vocab: int, n: int, shared_tokens: int = 256):
+    """The reference launcher's prefix-cache traffic: request i continues
+    one shared ``shared_tokens``-token prompt with a tail of 16-47 tokens,
+    except every fifth (i % 5 == 0), a unique prompt of 32-127 tokens."""
+    shared = rng.integers(0, vocab, size=(shared_tokens,))
+    out = []
+    for i in range(n):
+        if i % 5:
+            tail = rng.integers(0, vocab, size=(int(rng.integers(16, 48)),))
+            out.append(np.concatenate([shared, tail]))
+        else:
+            out.append(rng.integers(0, vocab,
+                                    size=(int(rng.integers(32, 128)),)))
+    return out
 
 
 def bubble_line(bs: dict) -> str:

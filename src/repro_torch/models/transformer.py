@@ -28,6 +28,12 @@ slot cache.  The paged chunked prefill quantizes the chunk's blocks as it
 scatters them; each decode step requantizes the block its token lands in
 (:func:`repro_torch.core.quant.insert_token_requant`); the attention
 kernels take the scales beside the codes.
+
+Sequence stripes (§2.11): the paged decode step can run one partial pass of
+the paged decode kernel per seq stripe of the pool, each over only the
+blocks that stripe holds (its packed list, or a table masked to its
+blocks), and merge the ``(out, m, l)`` partials with the flash-decoding
+combine (:func:`_merge_stripe_partials`).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch.core.worklist import (
     F_FIRST, F_HEAD, F_KVBLK, F_KVHEAD, F_LAST, F_QBLK, F_VALID, ITEM_FIELDS,
     padded_decode_items)
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.flash_decode import merge_partials
 from repro_torch.models import common
 
 
@@ -260,19 +267,26 @@ def _chunk_lists(sparse_items, cfg: TransformerConfig, C: int, q_offset: int,
     return [dense] * cfg.num_layers
 
 
-def dense_decode_items(positions: np.ndarray, active: np.ndarray,
-                       num_kv_heads: int, block: int) -> np.ndarray:
-    """Dense decode's item table ``[B*Hkv*W, DEC_FIELDS]`` int32: the padded
-    table of per-slot block ids that cover every resident block, ``0 ..
-    positions[b] // block`` for each kv head of an active row (-1 pads to
-    the widest row's W; an inactive row selects nothing and its output is
-    zero) — the reference's dense decode under striping, with one stripe."""
+def dense_decode_ids(positions: np.ndarray, active: np.ndarray,
+                     num_kv_heads: int, block: int) -> np.ndarray:
+    """Dense decode's per-slot block ids ``[B, Hkv, W]`` int32: every
+    resident block, ``0 .. positions[b] // block``, for each kv head of an
+    active row (-1 pads to the widest row's W; an inactive row selects
+    nothing and its output is zero)."""
     nb = np.where(active, np.asarray(positions) // block + 1, 0)
     width = max(int(nb.max()), 1)
     j = np.arange(width)
     ids = np.where(j[None, :] < nb[:, None], j[None, :], -1).astype(np.int32)
+    return np.repeat(ids[:, None, :], num_kv_heads, axis=1)
+
+
+def dense_decode_items(positions: np.ndarray, active: np.ndarray,
+                       num_kv_heads: int, block: int) -> np.ndarray:
+    """Dense decode's item table ``[B*Hkv*W, DEC_FIELDS]`` int32: the padded
+    table of :func:`dense_decode_ids` — the reference's dense decode under
+    striping, with one stripe."""
     return padded_decode_items(
-        np.repeat(ids[:, None, :], num_kv_heads, axis=1))
+        dense_decode_ids(positions, active, num_kv_heads, block))
 
 
 def scatter_seq_cache_paged(pool, seq_cache, table, *, scales=None,
@@ -477,20 +491,43 @@ def prefill_chunk_paged(params, pool, tokens, table, q_offset: int,
     return (logits, pool, scales) if qz else logits
 
 
-def _decode_work(packed_items, block_ids, pos, active, cfg, block: int):
-    """The decode step's per-layer packed item tables: ``packed_items``;
-    None where ``block_ids`` is given (each layer's ids run as the padded
-    table); or, given neither, dense decode's table (the same for every
-    layer) from the rows' positions, read on the host."""
+def _decode_work(packed_items, block_ids, pos, active, cfg, block: int,
+                 as_ids: bool = False):
+    """The decode step's per-layer work as ``(packed_items, block_ids)``:
+    the given one and None; or, given neither, dense decode's (the same for
+    every layer, from the rows' positions read on the host): its padded
+    item table, or with ``as_ids`` its per-slot block ids ``[L, B, Hkv,
+    W]``."""
     if packed_items is not None and block_ids is not None:
         raise ValueError("pass at most one of packed_items and block_ids")
     if packed_items is not None or block_ids is not None:
-        return packed_items
+        return packed_items, block_ids
     act = (np.ones(pos.shape[0], bool) if active is None
            else active.cpu().numpy())
-    items = torch.from_numpy(dense_decode_items(
-        pos.cpu().numpy(), act, cfg.num_kv_heads, block)).to(pos.device)
-    return items.expand(cfg.num_layers, -1, -1)
+    ids = dense_decode_ids(pos.cpu().numpy(), act, cfg.num_kv_heads, block)
+    if as_ids:
+        ids = torch.from_numpy(ids).to(pos.device)
+        return None, ids.expand(cfg.num_layers, -1, -1, -1)
+    items = torch.from_numpy(padded_decode_items(ids)).to(pos.device)
+    return items.expand(cfg.num_layers, -1, -1), None
+
+
+def _merge_stripe_partials(parts, B: int, hkv: int, dh: int, dtype):
+    """Combine per-stripe decode partials: the reference's
+    ``models/transformer.py::_merge_stripe_partials``.
+
+    ``parts``: one ``(out [B, H, 1, dh] float32, m [B, Hkv, G], l [B, Hkv,
+    G])`` a stripe, as the decode wrappers return with ``partials``.  They
+    stack on a leading stripe axis and take the flash-decoding merge
+    (:func:`repro_torch.kernels.flash_decode.merge_partials`); a stripe
+    that holds none of a (row, head)'s blocks (``l`` 0) drops out, and a
+    pair held by one stripe keeps that stripe's output bitwise.  Returns
+    ``[B, H, 1, dh]`` in ``dtype``."""
+    outs = torch.stack([o.reshape(B, hkv, -1, dh) for o, _, _ in parts])
+    ms = torch.stack([m for _, m, _ in parts])
+    ls = torch.stack([l for _, _, l in parts])
+    merged = merge_partials(outs, ms, ls)[0]            # [B, Hkv, G, dh]
+    return merged.reshape(B, -1, 1, dh).to(dtype)
 
 
 def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
@@ -520,8 +557,8 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
     dev = token.device
     qz = scales is not None
     blk = cfg.block_kv
-    packed_items = _decode_work(packed_items, block_ids, pos, active, cfg,
-                                blk)
+    packed_items, block_ids = _decode_work(packed_items, block_ids, pos,
+                                           active, cfg, blk)
     if qz and cache.shape[4] % blk:
         raise ValueError("a quantized slot cache needs Smax % block_kv == 0")
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
@@ -571,7 +608,8 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
 
 def decode_step_paged(params, pool, token, pos, table,
                       cfg: TransformerConfig, *, packed_items=None,
-                      block_ids=None, active=None, scales=None,
+                      block_ids=None, active=None, seq_stripes: int = 1,
+                      stripe_size: int | None = None, scales=None,
                       kv_dtype: str = "bf16"):
     """One paged decode step over all rows; writes ``pool`` in place.
 
@@ -586,6 +624,15 @@ def decode_step_paged(params, pool, token, pos, table,
     ``(table[b, pos // block], pos % block)``; inactive or unmapped rows
     write the trash block.  Returns logits ``[B, V]`` float32.
 
+    Sequence stripes (§2.11): with ``seq_stripes`` S > 1 the pool's usable
+    blocks belong to S stripes of ``stripe_size`` ids each, and attention
+    runs one partial pass a stripe over only that stripe's blocks, merged
+    by :func:`_merge_stripe_partials`.  ``packed_items`` then holds the
+    stripes' lists ``[L, S, Lb, DEC_FIELDS]`` (each list names only its
+    stripe's blocks); ``block_ids`` and dense decode run every pass under
+    the table masked to the stripe's blocks.  The token write is the same:
+    the table routes it.
+
     Quantized pool: pass ``scales [L, 2, N+1, Hkv]`` float32 and the
     ``kv_dtype``.  The token write becomes a gather of the row's block tile
     and scale, :func:`quant.insert_token_requant` and a full-tile scatter
@@ -598,8 +645,19 @@ def decode_step_paged(params, pool, token, pos, table,
     block = pool.shape[4]
     trash = pool.shape[2] - 1
     dev = token.device
-    packed_items = _decode_work(packed_items, block_ids, pos, active, cfg,
-                                block)
+    striped = seq_stripes > 1
+    if striped and stripe_size is None:
+        raise ValueError("striped decode needs the allocator's stripe_size")
+    packed_items, block_ids = _decode_work(packed_items, block_ids, pos,
+                                           active, cfg, block,
+                                           as_ids=striped)
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim_
+    if striped and packed_items is None:
+        # each block is read by exactly the stripe that holds it: entries
+        # another stripe owns become -1 (masked)
+        stripe_tables = [torch.where((table >= 0)
+                                     & (table // stripe_size == s), table, -1)
+                         for s in range(seq_stripes)]
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active)
     phys = table.gather(1, (pos // block).long()[:, None])[:, 0]
@@ -626,14 +684,25 @@ def decode_step_paged(params, pool, token, pos, table,
         else:
             kc[gids, heads, offs] = k[:, :, 0, :].to(kc.dtype)
             vc[gids, heads, offs] = v[:, :, 0, :].to(vc.dtype)
-        if packed_items is not None:
+        kw = dict(block_kv=block, window=_window_of(cfg, l), k_scales=ks,
+                  v_scales=vs)
+        if striped:
+            # one partial pass a stripe, then the flash-decoding merge
+            if packed_items is not None:
+                parts = [kernel_ops.flash_decode_packed_paged(
+                    q, kc, vc, packed_items[l][s], table, pos,
+                    partials=True, **kw) for s in range(seq_stripes)]
+            else:
+                parts = [kernel_ops.flash_decode_paged(
+                    q, kc, vc, block_ids[l], stripe_tables[s], pos,
+                    partials=True, **kw) for s in range(seq_stripes)]
+            o = _merge_stripe_partials(parts, B, hkv, dh, q.dtype)
+        elif packed_items is not None:
             o = kernel_ops.flash_decode_packed_paged(
-                q, kc, vc, packed_items[l], table, pos, block_kv=block,
-                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
+                q, kc, vc, packed_items[l], table, pos, **kw)
         else:
             o = kernel_ops.flash_decode_paged(
-                q, kc, vc, block_ids[l], table, pos, block_kv=block,
-                window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
+                q, kc, vc, block_ids[l], table, pos, **kw)
         x = _block_out(x, o, lp)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, pool, scales) if qz else logits

@@ -48,8 +48,21 @@ defers and sheds by class, and ``preemption`` swaps a decoding victim's KV
 together) to a pinned host tier and back (:meth:`Engine._swap_out_seq` /
 :meth:`Engine._swap_in_seq`).  A host copy taken under an earlier plan
 epoch is re-arranged once at swap-in against the cumulative kv-head
-arrangement.  The options that ``EngineConfig.check_supported`` lists as
-not ported raise ``NotImplementedError``.
+arrangement.
+
+Sequence stripes (§2.11, ``seq_shards`` = S, paged only): the pool's
+blocks split into S stripes of contiguous ids, growth goes to the stripe
+with the most free blocks, and decode runs one partial pass of the paged
+decode kernel a stripe, merged by the flash-decoding combine: the packed
+grid packs each (slot, kv head) run's per-stripe sub-runs onto (shard,
+stripe) cells (:func:`~repro_torch.core.worklist.pack_decode_items_2d`),
+the padded grid and dense decode mask the table to each stripe's blocks.
+The radix prefix cache (§2.14, ``prefix_cache``, paged only) maps the
+longest cached whole-block prefix of an admitted prompt by refcount and
+starts its prefill at the first block that differs; the tree outlives a
+``serve`` call, drains under pool pressure before preemption, and is
+flushed at an epoch swap.  A swapped-out hit keeps its shared prefix
+resident and moves only its private tail.
 """
 from __future__ import annotations
 
@@ -68,10 +81,11 @@ from repro_torch.core.sparsity import (
     HeadSparsityProfile, OnlineSparsityEstimator)
 from repro_torch.core.worklist import (
     DEC_FIELDS, WorkList, blocks_for_budget, chunk_item_counts, chunk_items,
-    extend_packed_items, pack_decode_items, pow2_bucket,
-    worklist_from_budgets)
+    extend_packed_items, pack_decode_items, pack_decode_items_2d,
+    pow2_bucket, worklist_from_budgets)
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.prefix_tree import RadixPrefixCache
 from repro_torch.serving.sampler import SamplingParams, sample
 from repro_torch.serving.scheduler import (
     DEFAULT_CLASSES, ContinuousBatcher, Request)
@@ -121,28 +135,36 @@ class EngineConfig:
     preemption: bool = False
     # host swap-tier capacity in blocks (None = unbounded).
     host_swap_blocks: int | None = None
-    # reference options whose non-default values are not ported yet
+    # sequence stripes (paged only): the pool splits into seq_shards
+    # stripes of contiguous block ids; decode runs one partial pass a
+    # stripe and merges (out, m, l).  1 = the unstriped path
     seq_shards: int = 1
+    # radix prefix cache (paged only): admission maps the longest cached
+    # whole-block prefix by refcount and prefills from the divergence;
+    # unreferenced cached blocks evict (LRU) before preemption
     prefix_cache: bool = False
 
     def check_supported(self) -> None:
-        """Raise ``NotImplementedError`` for options the port does not run
-        yet."""
+        """Raise ``NotImplementedError`` for option values the port does
+        not run, ``ValueError`` for a ``seq_shards`` below 1."""
         ported = {"attention": ("sparse", "dense"),
                   "prefill_buckets": ("pow2", "exact"),
                   "prefill_mode": ("chunked", "monolithic"),
                   "cache_layout": ("paged", "contiguous"),
                   "kv_dtype": ("bf16", "int8", "fp8"),
                   "decode_worklist": ("packed", "padded"),
-                  "seq_shards": (1,),
                   "admission": ("fifo", "slo"),
-                  "preemption": (False, True), "prefix_cache": (False,)}
+                  "preemption": (False, True),
+                  "prefix_cache": (False, True)}
         for name, values in ported.items():
             got = getattr(self, name)
             if got not in values:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={got!r} is not ported yet "
                     f"(the port runs {name} in {values!r})")
+        if int(self.seq_shards) != self.seq_shards or self.seq_shards < 1:
+            raise ValueError(f"seq_shards must be an integer >= 1, got "
+                             f"{self.seq_shards!r}")
 
 
 class Engine:
@@ -208,6 +230,14 @@ class Engine:
                                                      cfg.num_heads)
         self.params = self._permute_params(params)
         self.paged = ecfg.cache_layout == "paged"
+        if not self.paged and (ecfg.seq_shards > 1 or ecfg.prefix_cache):
+            raise ValueError(
+                "seq_shards > 1 and prefix_cache need cache_layout='paged' "
+                "(stripes own ranges of the block pool; sharing aliases "
+                "pool blocks in block tables)")
+        # the radix prefix cache: built once by make_batcher (it outlives a
+        # serve call); None = sharing off
+        self.prefix: RadixPrefixCache | None = None
         # quantized KV: codes in kv_cache_dtype with per-(block, kv head)
         # scales beside them; "bf16" has no scales tensor at all
         self.quantized = quant.is_quantized(ecfg.kv_dtype)
@@ -216,6 +246,10 @@ class Engine:
         if self.paged:
             nblocks = (ecfg.num_kv_blocks
                        or ecfg.num_slots * (ecfg.max_seq_len // ecfg.block))
+            # stripes tile the pool exactly: round the usable block count
+            # UP to a seq_shards multiple (capacity is an admission
+            # guarantee, so never down)
+            nblocks = -(-nblocks // ecfg.seq_shards) * ecfg.seq_shards
             self.kv = PagedKVCache(
                 lambda n: tfm.init_paged_cache(cfg, n, ecfg.block,
                                                device=self.device,
@@ -225,7 +259,7 @@ class Engine:
                 make_scales_fn=((lambda n: tfm.init_paged_scales(
                     cfg, n, device=self.device)) if self.quantized
                     else None),
-                host_blocks=ecfg.host_swap_blocks)
+                host_blocks=ecfg.host_swap_blocks, stripes=ecfg.seq_shards)
         else:
             # every slot reserves a max_seq_len row; chunks build in a
             # one-sequence staging cache (the scheduler prefills one
@@ -257,7 +291,8 @@ class Engine:
         # purged at a swap, _purge_plan_memos): prompt-bucket work lists,
         # chunk slices and their item caps, decode selections per resident
         # block count, and an LRU of packed decode plans keyed by the
-        # per-slot block counts
+        # per-slot block counts and, with stripes or sharing, the block
+        # placement (_plan_key)
         self._worklists_cache: dict[int, list[WorkList]] = {}
         self._prefill_items_cache: dict[int, list[torch.Tensor]] = {}
         self._chunk_cap: dict[int, int] = {}
@@ -269,6 +304,8 @@ class Engine:
         # per-tick decode bubble telemetry, read by decode_bubble_stats
         self.decode_stats = {"ticks": 0, "real_items": 0, "grid_items": 0,
                              "padded_grid_items": 0, "imbalance_sum": 0.0,
+                             "head_imb_sum": 0.0, "stripe_imb_sum": 0.0,
+                             "merge_collectives": 0,
                              "plan_hits": 0, "plan_misses": 0,
                              "plan_prefetches": 0, "last": {}}
         # the stochastic sampler's generator (the reference's PRNGKey(0))
@@ -411,18 +448,23 @@ class Engine:
         cap = self.ecfg.num_slots * self.cfg.num_kv_heads * self._nb_cap
         return -(-cap // 8) * 8
 
-    def _build_packed_plan(self, nb_sig: tuple[int, ...]):
+    def _build_packed_plan(self, nb_sig: tuple[int, ...],
+                           phys_of_block: np.ndarray | None = None):
         """One tick's decode work: per layer, every slot's selection packed
         into (row, kv_head, kv_block) runs and best-partitioned across the
         model shards, all layers padded onto one pow2 item bucket a shard.
-        Returns ``(items [L, D*bucket, DEC_FIELDS] on device, stats)``:
-        the tick's bubble telemetry, as the reference computes it."""
+        ``phys_of_block`` (``[B, T]`` block tables, prefix sharing on)
+        charges a shared pool block once per kv head however many rows
+        alias it.  Returns ``(items [L, D*bucket, DEC_FIELDS] on device,
+        stats)``: the tick's bubble telemetry, as the reference computes
+        it."""
         cfg, ecfg = self.cfg, self.ecfg
         per_slot = [self._decode_ids_for_nblocks(nb) for nb in nb_sig]
         bids = np.stack(per_slot, axis=1)       # [L, B, Hkv, nb_cap]
         wls = [pack_decode_items(bids[l], num_shards=ecfg.num_model_shards,
                                  block=ecfg.block,
-                                 bytes_per_block=self._kv_block_bytes)
+                                 bytes_per_block=self._kv_block_bytes,
+                                 phys_of_block=phys_of_block)
                for l in range(cfg.num_layers)]
         bucket = pow2_bucket(max(wl.padded_length for wl in wls),
                              lo=8, hi=self._packed_item_cap())
@@ -447,6 +489,104 @@ class Engine:
         }
         return torch.from_numpy(items).to(self.device), stats
 
+    def _stripe_of_table(self, table: np.ndarray) -> np.ndarray:
+        """``[B, T]`` owning stripe of each LOGICAL block position (-1 for
+        unmapped): stripe membership is a property of the physical id."""
+        t = np.asarray(table)
+        return np.where(t >= 0, t // self.kv.stripe_size, -1).astype(np.int32)
+
+    def _build_packed_plan_2d(self, nb_sig: tuple[int, ...],
+                              stripe_of: np.ndarray,
+                              phys_of_block: np.ndarray | None = None):
+        """The striped twin of :meth:`_build_packed_plan`: each (slot, kv
+        head) run splits into per-stripe sub-runs (the stripe is fixed by
+        where the block lives), ``best_partition_2d`` picks model shards to
+        minimize the largest (shard, stripe) cell, and every cell pads onto
+        one pow2 bucket.  Returns ``(items [L, S, D*bucket, DEC_FIELDS] on
+        device, stats)``: axis 1 is the stripe axis the decode step runs
+        one pass over each of."""
+        cfg, ecfg = self.cfg, self.ecfg
+        S, Dm = ecfg.seq_shards, ecfg.num_model_shards
+        per_slot = [self._decode_ids_for_nblocks(nb) for nb in nb_sig]
+        bids = np.stack(per_slot, axis=1)       # [L, B, Hkv, nb_cap]
+        wls = [pack_decode_items_2d(bids[l], stripe_of, num_stripes=S,
+                                    num_shards=Dm, block=ecfg.block,
+                                    bytes_per_block=self._kv_block_bytes,
+                                    phys_of_block=phys_of_block)
+               for l in range(cfg.num_layers)]
+        bucket = pow2_bucket(max(wl.padded_length for wl in wls),
+                             lo=8, hi=self._packed_item_cap())
+
+        def flat(wl):
+            # [Dm, S, Lp, F] -> each cell padded to the bucket -> [S,
+            # Dm*bucket, F]: stripe s's pass runs its shards' lists end to
+            # end, as the unstriped grid does
+            ext = extend_packed_items(
+                wl.items.reshape(Dm * S, wl.padded_length, DEC_FIELDS),
+                bucket)
+            return np.swapaxes(ext.reshape(Dm, S, bucket, DEC_FIELDS),
+                               0, 1).reshape(S, Dm * bucket, DEC_FIELDS)
+
+        items = np.ascontiguousarray(np.stack([flat(wl) for wl in wls]))
+        real = sum(wl.total_real_items for wl in wls)
+        grid = cfg.num_layers * Dm * S * bucket
+        padded_grid = int(bids.size)
+        stats = {
+            "epoch": self.epoch,
+            "bucket": bucket,
+            "real_items": real,
+            "grid_items": grid,
+            "padded_grid_items": padded_grid,
+            "padding_waste": 1.0 - real / grid if grid else 0.0,
+            "padded_path_waste": (1.0 - real / padded_grid
+                                  if padded_grid else 0.0),
+            "imbalance": float(np.mean([wl.imbalance for wl in wls])),
+            "model_imbalance": float(np.mean(
+                [wl.model_imbalance for wl in wls])),
+            "stripe_imbalance": float(np.mean(
+                [wl.stripe_imbalance for wl in wls])),
+        }
+        return torch.from_numpy(items).to(self.device), stats
+
+    def _share_sig(self, table: np.ndarray | None):
+        """Sharing signature of a tick's block tables: per slot row, the
+        (logical index, physical id) pairs of blocks held more than once.
+        Only these change the packer's charge-once weights, so keying plans
+        on them (not the whole tables) keeps the memo hitting across id
+        churn.  None when sharing is off."""
+        if table is None or self.prefix is None:
+            return None
+        tab = np.asarray(table)
+        if self.kv.alloc.shared_block_count == 0:
+            # nothing is multiply held: every row's signature is empty
+            return ((),) * tab.shape[0]
+        rc = self.kv.alloc.refcount
+        return tuple(tuple((i, b) for i, b in enumerate(row)
+                           if b >= 0 and rc(b) >= 2)
+                     for row in tab.tolist())
+
+    def _plan_key(self, nb_sig: tuple[int, ...],
+                  stripe_of: np.ndarray | None, share_sig=None) -> tuple:
+        """The reference's plan memo key without its epoch (the memo is
+        purged at an epoch swap): (block counts[, stripe placement][,
+        sharing signature]).  A striped plan is valid only for the
+        placement it was packed against (a swap-in maps other ids), and the
+        sharing signature does the same for the charge-once weights."""
+        key = ((nb_sig,) if stripe_of is None
+               else (nb_sig, tuple(map(tuple, stripe_of.tolist()))))
+        if share_sig is not None:
+            key += (share_sig,)
+        return key
+
+    def _tick_table(self, slots) -> np.ndarray:
+        """``[num_slots, T]`` int32 block tables of ``slots``; -1 rows for
+        unbound slots, whose writes go to the trash block."""
+        tbl = np.full((self.ecfg.num_slots, self.kv.table_width), -1,
+                      np.int32)
+        for s in slots:
+            tbl[s] = self._table_for_slot(s)
+        return tbl
+
     def _padded_tick_stats(self, bids: np.ndarray) -> dict:
         """Bubble telemetry of a padded-path tick: real vs padded grid
         items, and the (slot, kv head) run imbalance the packing removes."""
@@ -465,20 +605,30 @@ class Engine:
             "imbalance": float(counts.max() / mean) if mean > 0 else 1.0,
         }
 
-    def _plan_for(self, nb_sig: tuple[int, ...], prefetch: bool = False):
-        """The LRU-memoized packed plan of a tick signature.  A prefetch
-        that builds a plan counts as a prefetch, not a miss, and one that
-        finds it counts nothing."""
-        got = self._packed_plan_cache.get(nb_sig)
+    def _plan_for(self, nb_sig: tuple[int, ...],
+                  stripe_of: np.ndarray | None = None,
+                  prefetch: bool = False, table: np.ndarray | None = None):
+        """The LRU-memoized packed plan of a tick (:meth:`_plan_key`):
+        unstriped, or striped on ``stripe_of``; ``table`` (prefix sharing
+        on) feeds the charge-once packing.  A prefetch that builds a plan
+        counts as a prefetch, not a miss, and one that finds it counts
+        nothing."""
+        share_sig = self._share_sig(table)
+        pob = table if share_sig is not None else None
+        key = self._plan_key(nb_sig, stripe_of, share_sig)
+        got = self._packed_plan_cache.get(key)
         if got is None:
-            got = self._build_packed_plan(nb_sig)
-            self._packed_plan_cache[nb_sig] = got
+            got = (self._build_packed_plan(nb_sig, phys_of_block=pob)
+                   if stripe_of is None
+                   else self._build_packed_plan_2d(nb_sig, stripe_of,
+                                                   phys_of_block=pob))
+            self._packed_plan_cache[key] = got
             if len(self._packed_plan_cache) > self._packed_plan_cap:
                 self._packed_plan_cache.popitem(last=False)
             self.decode_stats["plan_prefetches" if prefetch
                               else "plan_misses"] += 1
         else:
-            self._packed_plan_cache.move_to_end(nb_sig)
+            self._packed_plan_cache.move_to_end(key)
             if not prefetch:
                 self.decode_stats["plan_hits"] += 1
         return got
@@ -487,7 +637,9 @@ class Engine:
         """Build the next tick's packed plan while this tick's layers run
         on the card (the kernels are queued; the host blocks later, at
         sampling).  The scheduler's preview is best-effort: a wrong guess
-        only means the real signature is planned at the next tick."""
+        (or a slot that maps a new block first, which shifts the stripe or
+        sharing signature) only means the real key is planned at the next
+        tick."""
         if self._batcher is None:
             return
         preview = self._batcher.preview_next_decode()
@@ -496,7 +648,16 @@ class Engine:
         slots, positions = preview
         pos_all = np.zeros((self.ecfg.num_slots,), np.int32)
         pos_all[list(slots)] = positions
-        self._plan_for(self._nb_sig(pos_all), prefetch=True)
+        sig = self._nb_sig(pos_all)
+        stripe_of = table = None
+        if self.paged and (self.ecfg.seq_shards > 1
+                           or self.prefix is not None):
+            table = self._tick_table(slots)
+            if self.ecfg.seq_shards > 1:
+                stripe_of = self._stripe_of_table(table)
+        key = self._plan_key(sig, stripe_of, self._share_sig(table))
+        if key not in self._packed_plan_cache:
+            self._plan_for(sig, stripe_of, prefetch=True, table=table)
 
     def _record_tick(self, stats: dict) -> None:
         s = self.decode_stats
@@ -505,6 +666,10 @@ class Engine:
         s["grid_items"] += stats["grid_items"]
         s["padded_grid_items"] += stats["padded_grid_items"]
         s["imbalance_sum"] += stats["imbalance"]
+        # per-axis parts: an unstriped tick's imbalance is all head-axis;
+        # a striped packed tick records both marginals
+        s["head_imb_sum"] += stats.get("model_imbalance", stats["imbalance"])
+        s["stripe_imb_sum"] += stats.get("stripe_imbalance", 1.0)
         s["last"] = stats
         self._epoch_stats[self.epoch]["ticks"] += 1
 
@@ -513,16 +678,17 @@ class Engine:
         """Decode-grid bubble telemetry over the ticks so far: the share of
         executed grid items that were padding, the share the padded
         baseline would have paid, their grids' ratio, and the mean
-        imbalance of the shards' item counts, and the plan epochs': the live
-        epoch, the replans, the online estimator's realized recovery, the
-        latest drift reading and per-epoch aggregates; the swap tier's
-        volume and the per-class counters (the reference's keys for the
-        features the port runs; one head axis, so the head imbalance is the
-        whole imbalance and the stripe imbalance 1)."""
+        imbalance of the shards' item counts, with its head-axis and
+        stripe-axis marginals and the stripe merges run; the plan epochs':
+        the live epoch, the replans, the online estimator's realized
+        recovery, the latest drift reading and per-epoch aggregates; the
+        swap tier's volume, the per-class counters and the prefix tree's
+        counters (the reference's keys for the features the port runs)."""
         s = self.decode_stats
         grid, real, padded = (s["grid_items"], s["real_items"],
                               s["padded_grid_items"])
-        mean_imb = s["imbalance_sum"] / s["ticks"] if s["ticks"] else 1.0
+        ticks = s["ticks"]
+        mean = lambda k: s[k] / ticks if ticks else 1.0   # noqa: E731
         epochs = {e: {"ticks": es["ticks"],
                       "telemetry_samples": es["telemetry_samples"],
                       "realized_recovery": (es["recovery_sum"]
@@ -536,10 +702,11 @@ class Engine:
             "padding_waste": 1.0 - real / grid if grid else 0.0,
             "padded_path_waste": 1.0 - real / padded if padded else 0.0,
             "grid_vs_padded": grid / padded if padded else 1.0,
-            "mean_imbalance": mean_imb,
+            "mean_imbalance": mean("imbalance_sum"),
             "seq_shards": self.ecfg.seq_shards,
-            "mean_head_imbalance": mean_imb,
-            "mean_stripe_imbalance": 1.0,
+            "mean_head_imbalance": mean("head_imb_sum"),
+            "mean_stripe_imbalance": mean("stripe_imb_sum"),
+            "merge_collectives": s["merge_collectives"],
             "plan_hits": s["plan_hits"],
             "plan_misses": s["plan_misses"],
             "plan_prefetches": s["plan_prefetches"],
@@ -557,6 +724,11 @@ class Engine:
             "per_class": ({k: dict(v) for k, v in
                            self._batcher.stats.per_class.items()}
                           if self._batcher is not None else {}),
+            # the radix prefix cache: its counters, the live tree size and
+            # the evictable (cached, unreferenced) block count
+            "prefix": (dict(self.prefix.stats, nodes=self.prefix.num_blocks,
+                            evictable=self.kv.alloc.evictable_blocks)
+                       if self.prefix is not None else None),
         }
 
     # -- plan epochs: telemetry, drift, replanning --------------------------
@@ -668,9 +840,9 @@ class Engine:
         """Swap onto ``new_plan``: apply the plan delta to the attention
         weights, gather the resident cache's kv-head axis once (codes and
         scales together) and compose it into ``_kv_arrange``, bump the
-        epoch and purge the memos of the dead epoch.  The staging row of
-        the contiguous layout holds no live sequence at a safe point, so it
-        is not gathered."""
+        epoch, purge the memos of the dead epoch and flush the prefix tree.
+        The staging row of the contiguous layout holds no live sequence at a
+        safe point, so it is not gathered."""
         delta = plan_delta(self.plan, new_plan)
         if not delta.identity:
             self.params = self._permute_params(self.params,
@@ -689,6 +861,12 @@ class Engine:
         self.replans += 1
         self._epoch_stats[self.epoch] = self._fresh_epoch_stats()
         self._purge_plan_memos()
+        if self.prefix is not None:
+            # cached prefix KV was computed under the old epoch's budgets
+            # and head placement, which a new-epoch prefill would not
+            # reproduce: the tree drops everything (unreferenced blocks free
+            # now, shared ones as their holders finish)
+            self.prefix.flush()
 
     def _permute_cache(self, kv_tbl: np.ndarray) -> None:
         """Gather the resident cache's kv-head axis by ``kv_tbl [L, Hkv]``
@@ -842,19 +1020,31 @@ class Engine:
     def _swap_out_seq(self, rid: int, slot: int, resident: int) -> None:
         """Batcher swap-out hook: copy the sequence's resident KV state to
         the host BEFORE the allocator recycles its blocks.  Paged: gather
-        its mapped pool blocks; contiguous: slice its slot rows (whole
+        its private mapped pool blocks (the leading shared prefix,
+        :meth:`BlockAllocator.swap_split`, stays resident for its other
+        holders and is not copied); contiguous: slice its slot rows (whole
         blocks: the tokens past ``resident`` ride along, masked by
         position)."""
         self._reap_transfers()
         blk = self.ecfg.block
         sdata = None
+        shared_n = 0
         if self.paged:
-            _, private = self.kv.alloc.swap_split(rid)
+            retained, private = self.kv.alloc.swap_split(rid)
+            shared_n = len(retained)
             nblk = len(private)
             ids = torch.tensor(private, dtype=torch.long, device=self.device)
-            data = self._to_host(_bits(self.kv.pool).index_select(2, ids))
-            if self.quantized:
-                sdata = self._to_host(self.kv.scales.index_select(2, ids))
+            data = _bits(self.kv.pool).index_select(2, ids)
+            sdata = (self.kv.scales.index_select(2, ids) if self.quantized
+                     else None)
+            if nblk:
+                data = self._to_host(data)
+                sdata = None if sdata is None else self._to_host(sdata)
+            else:
+                # wholly shared: nothing moves; an empty payload keeps the
+                # swap-in bookkeeping uniform
+                data = data.cpu()
+                sdata = None if sdata is None else sdata.cpu()
         else:
             nblk = -(-resident // blk)
             rows = slice(slot, slot + 1)
@@ -867,6 +1057,7 @@ class Engine:
         # may map at once) are not overwritten before it has read them
         self._host_swaps[rid] = {"data": data, "scales": sdata,
                                  "tokens": resident,
+                                 "shared_blocks": shared_n,
                                  "arrange": self._kv_arrange.copy(),
                                  "event": self._transfer_event()}
         st = self.swap_stats
@@ -876,11 +1067,13 @@ class Engine:
 
     def _swap_in_seq(self, rid: int, slot: int, resident: int) -> None:
         """Batcher swap-in hook: restore the host copy into the freshly
-        mapped blocks (paged) or the newly claimed slot (contiguous).  If
-        plan epochs gathered the resident cache's kv heads while the
-        sequence was out, the copy is re-arranged here on the device:
-        exactly once, against the cumulative arrangement, codes and scales
-        alike."""
+        mapped blocks past the retained shared prefix (paged) or the newly
+        claimed slot (contiguous).  If plan epochs gathered the resident
+        cache's kv heads while the sequence was out, the copy is
+        re-arranged here on the device: exactly once, against the
+        cumulative arrangement, codes and scales alike (the retained
+        prefix never left the pool, so the epoch gather already moved
+        it)."""
         self._reap_transfers()
         rec = self._host_swaps.pop(rid)
         if rec["tokens"] != resident:
@@ -904,15 +1097,18 @@ class Engine:
                 sdata = tfm.permute_cache_scales(sdata, rel)
             self.swap_stats["epoch_remaps"] += 1
         if self.paged:
-            ids = self.kv.alloc.table(rid)
+            # the allocator re-linked the retained prefix by identity and
+            # mapped fresh ids for the private tail only
+            ids = self.kv.alloc.table(rid)[rec["shared_blocks"]:]
             nblk = len(ids)
             if nblk != data.shape[2]:
                 raise ValueError(f"swap-in block mismatch: {nblk} != "
                                  f"{data.shape[2]}")
-            idx = torch.tensor(ids, dtype=torch.long, device=self.device)
-            _bits(self.kv.pool)[:, :, idx] = data
-            if sdata is not None:
-                self.kv.scales[:, :, idx] = sdata
+            if nblk:
+                idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+                _bits(self.kv.pool)[:, :, idx] = data
+                if sdata is not None:
+                    self.kv.scales[:, :, idx] = sdata
         else:
             nblk = -(-resident // self.ecfg.block)
             rows = slice(slot, slot + 1)
@@ -1025,14 +1221,9 @@ class Engine:
         dev = self.device
         self._decode_ticks += 1
         self._ticks_since_replan += 1
-        table = None
+        table = tbl = None
         if self.paged:
-            # -1 rows for unbound slots route their writes into the trash
-            # block
-            tbl = np.full((ecfg.num_slots, self.kv.table_width), -1,
-                          np.int32)
-            for s in slots:
-                tbl[s] = self._table_for_slot(s)
+            tbl = self._tick_table(slots)
             table = torch.from_numpy(tbl).to(dev)
         pending = None
         if (self.sparse and ecfg.telemetry_every > 0
@@ -1044,17 +1235,23 @@ class Engine:
             pending = self._dispatch_telemetry(slots, tok_all, pos_all, bids,
                                                table)
         packed = self.sparse and ecfg.decode_worklist == "packed"
+        striped = self.paged and ecfg.seq_shards > 1
         stats = None
         if not self.sparse:
             # dense: every resident block of each active row, one table
-            # for all layers; no plan, so no bubble telemetry (as the
+            # for all layers (per-slot ids, striped: each stripe's pass
+            # masks the table); no plan, so no bubble telemetry (as the
             # reference records none)
-            items = torch.from_numpy(tfm.dense_decode_items(
-                pos_all, act_all, self.cfg.num_kv_heads, ecfg.block)).to(dev)
-            work = {"packed_items": items.expand(self.cfg.num_layers, -1,
-                                                 -1)}
+            dense = (tfm.dense_decode_ids if striped
+                     else tfm.dense_decode_items)(
+                pos_all, act_all, self.cfg.num_kv_heads, ecfg.block)
+            work = {"block_ids" if striped else "packed_items":
+                    torch.from_numpy(dense).to(dev).expand(
+                        self.cfg.num_layers, *dense.shape)}
         elif packed:
-            items, stats = self._plan_for(self._nb_sig(pos_all))
+            stripe_of = self._stripe_of_table(tbl) if striped else None
+            items, stats = self._plan_for(self._nb_sig(pos_all), stripe_of,
+                                          table=tbl)
             work = {"packed_items": items}
         else:
             # padded baseline: every slot's position-aware selection at the
@@ -1070,6 +1267,9 @@ class Engine:
             work["scales"] = (self.kv.scales if self.paged
                               else self.cache_scales)
             work["kv_dtype"] = ecfg.kv_dtype
+        if striped:
+            work["seq_stripes"] = ecfg.seq_shards
+            work["stripe_size"] = self.kv.stripe_size
         if self.paged:
             logits = tfm.decode_step_paged(
                 self.params, self.kv.pool, *args, table, self.cfg,
@@ -1081,6 +1281,10 @@ class Engine:
             logits = logits[0]
         if stats is not None:
             self._record_tick(stats)
+        if striped:
+            # one (out, m, l) merge a layer: on a seq-sharded mesh the one
+            # collective along the seq axis
+            self.decode_stats["merge_collectives"] += self.cfg.num_layers
         if packed:
             # the step's kernels are queued on the stream: plan the next
             # tick now, before sampling waits for them
@@ -1109,8 +1313,14 @@ class Engine:
         takes no chunk budget (whole prompts at admission).  ``classes``
         overrides :data:`~repro_torch.serving.scheduler.DEFAULT_CLASSES`;
         the admission policy, preemption, the host tier's capacity and the
-        swap hooks come from the engine's config."""
+        swap hooks come from the engine's config.  With ``prefix_cache``
+        the radix tree is built on the first call and kept (it outlives a
+        serve call, so cached prefixes stay warm), and the allocator drains
+        it under pool pressure (``evict_fn``) before admission preempts."""
         ecfg = self.ecfg
+        if ecfg.prefix_cache and self.prefix is None:
+            self.prefix = RadixPrefixCache(self.kv.alloc, ecfg.block)
+            self.kv.alloc.evict_fn = self.prefix.evict
         self._batcher = ContinuousBatcher(
             num_slots=ecfg.num_slots,
             num_blocks=(self.kv.num_blocks if self.paged else
@@ -1123,16 +1333,25 @@ class Engine:
             admission=ecfg.admission, preemption=ecfg.preemption,
             host_blocks=ecfg.host_swap_blocks,
             swap_out_fn=self._swap_out_seq if ecfg.preemption else None,
-            swap_in_fn=self._swap_in_seq if ecfg.preemption else None)
+            swap_in_fn=self._swap_in_seq if ecfg.preemption else None,
+            prefix_cache=self.prefix)
         return self._batcher
 
     def step_fns(self, sampling: SamplingParams = SamplingParams()):
         """(prefill_chunk_fn, decode_fn) closures for a ContinuousBatcher.
         Monolithic mode gets each whole prompt as one final chunk at offset
-        0 and prefills it at its bucket."""
+        0 and prefills it at its bucket.  A prefix hit in monolithic mode
+        comes at ``q_offset`` = the hit tokens, already resident in shared
+        blocks: its tail runs as one final chunk whose work lists are
+        sliced from the monolithic plan (a monolithic prefill would rewrite
+        the shared blocks)."""
         def prefill_chunk(toks, slot, q_offset, is_final, prompt_len):
-            if self.ecfg.prefill_mode == "monolithic":
+            if self.ecfg.prefill_mode == "monolithic" and not q_offset:
                 return self.prefill_into_slot(toks[0], slot, sampling)
+            if self.ecfg.prefill_mode == "monolithic":
+                return self.prefill_chunk_into_slot(
+                    toks[0], slot, q_offset, prompt_len, sampling,
+                    is_final=True)
             return self.prefill_chunk_into_slot(
                 toks[0], slot, q_offset, prompt_len, sampling,
                 is_final=is_final)

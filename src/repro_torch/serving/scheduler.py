@@ -1,7 +1,6 @@
 """Continuous-batching scheduler: chunked prefill + mixed prefill/decode
 ticks (Sarathi-style), with graceful degradation under overload (§2.10) —
-the reference's ``serving/scheduler.py`` without its fault hooks (§2.13)
-and prefix cache (§2.14).
+the reference's ``serving/scheduler.py`` without its fault hooks (§2.13).
 
 Each tick runs at most one prefill CHUNK plus the full decode batch.
 Prompts split into block-aligned chunks (only the final chunk may be
@@ -27,6 +26,13 @@ ITL targets), queued one deque per class.  Three composable policies:
   then the allocator migrates its accounting) and its slot frees.  Resume
   reverses it (``swap_in_fn`` after :meth:`BlockAllocator.swap_in`) and
   re-enters the decode batch with no re-prefill.
+
+Radix prefix cache (§2.14, ``prefix_cache``): admission walks the tree
+for the longest cached prefix of the prompt, seeds the block table with it
+(``admit(..., shared=)``; only its referenced blocks discount the fit
+check) and starts prefill at the divergence block; a prompt whose prefill
+ends registers its whole blocks.  A decoding victim's shared prefix stays
+resident while its private tail swaps.
 
 Contracts kept from the reference: over-length requests are rejected but
 still returned (``completed + rejected == submitted``); the token sampled at
@@ -146,6 +152,8 @@ class SchedulerStats:
     deferred: int = 0                   # SLO-gate admission deferrals
     swapped_out_blocks: int = 0
     swapped_in_blocks: int = 0
+    prefix_hits: int = 0                # admissions that reused cached blocks
+    prefix_hit_tokens: int = 0          # prompt tokens whose prefill was skipped
     per_class: dict[str, dict[str, int]] = dataclasses.field(
         default_factory=dict)
 
@@ -168,7 +176,9 @@ class ContinuousBatcher:
     ``swap_out_fn(rid, slot, resident_tokens)`` / ``swap_in_fn(rid, slot,
     resident_tokens)``: engine hooks that move the victim's mapped blocks
     device <-> host around the allocator's accounting swap (None =
-    accounting only, for host-side tests).
+    accounting only, for host-side tests).  ``prefix_cache``: the
+    engine's :class:`~repro_torch.serving.prefix_tree.RadixPrefixCache`,
+    or None (every admission prefills from token 0).
     """
 
     def __init__(self, *, num_slots: int, num_blocks: int,
@@ -182,6 +192,7 @@ class ContinuousBatcher:
                  host_blocks: int | None = None,
                  swap_out_fn: Callable | None = None,
                  swap_in_fn: Callable | None = None,
+                 prefix_cache=None,
                  clock: Callable[[], float] = time.monotonic):
         if admission not in ("fifo", "slo"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -196,6 +207,7 @@ class ContinuousBatcher:
         self.reject_slack = reject_slack
         self.swap_out_fn = swap_out_fn
         self.swap_in_fn = swap_in_fn
+        self.prefix = prefix_cache
         self._queues: dict[str, deque[Request]] = {
             c.name: deque() for c in classes}
         self._preempted: dict[str, deque[Request]] = {
@@ -344,13 +356,18 @@ class ContinuousBatcher:
             -self.classes[r.priority].level,
             -(r.t_submit or 0.0)))
 
-    def _make_room(self, pc: PriorityClass, req: Request) -> bool:
+    def _make_room(self, pc: PriorityClass, req: Request,
+                   shared_blocks: int = 0) -> bool:
         """Secure a slot + blocks (+ the prefill slot, in chunked mode) for
         ``req``, preempting strictly-lower-class work when allowed.
-        Victims are simulated first and only preempted when the plan
-        actually fits, so a hopeless arrival never thrashes the pool."""
+        ``shared_blocks`` is the prefix-cache discount: the matched hit
+        blocks that are REFERENCED (refcount > 0) and so cost nothing to
+        map (:meth:`BlockAllocator.shared_discount`; an evictable hit is
+        already inside ``available_blocks``).  Victims are simulated first
+        and only preempted when the plan actually fits, so a hopeless
+        arrival never thrashes the pool."""
         need = self.alloc.blocks_needed(
-            len(req.prompt) + req.sampling.max_tokens)
+            len(req.prompt) + req.sampling.max_tokens) - shared_blocks
         free_slots = len(self._slots_free)
         avail = self.alloc.available_blocks
         prefill_busy = self.prefilling is not None
@@ -373,6 +390,8 @@ class ContinuousBatcher:
                 # discard releases everything it holds
                 avail += self.alloc.release_estimate(v.rid)
             else:
+                # only the private tail transfers to the host tier; the
+                # victim's shared prefix stays resident (and refcounted)
                 vblk = len(self.alloc.swap_split(v.rid)[1])
                 if host_free is not None:
                     if vblk > host_free:
@@ -515,7 +534,17 @@ class ContinuousBatcher:
             if self._slo_deferred(pc, req):
                 self.stats.deferred += 1
                 break
-            if not self._make_room(pc, req):
+            # prefix-cache walk: the longest cached prefix of the prompt
+            # maps for free.  Its blocks are increfed only inside admit,
+            # but nothing between here and there grows the pool, so
+            # eviction cannot take them first
+            hit_ids: list[int] = []
+            hit_tokens = 0
+            if self.prefix is not None:
+                hit_ids, hit_tokens = self.prefix.match(req.prompt)
+            if not self._make_room(
+                    pc, req,
+                    shared_blocks=self.alloc.shared_discount(hit_ids)):
                 break  # wait for frees (shed may reject on deadline below)
             slot = self._slots_free.pop()
             self._slot_of[req.rid] = slot
@@ -523,19 +552,26 @@ class ContinuousBatcher:
             # reserve the worst case, map the prompt's blocks now (decode
             # blocks map lazily via append_token at block boundaries)
             self.alloc.admit(req.rid, len(req.prompt),
-                             req.sampling.max_tokens)
+                             req.sampling.max_tokens, shared=hit_ids)
             q.popleft()
             self.stats.admitted += 1
             self._cstat(pc.name)["admitted"] += 1
             self._stride[pc.name] += 1.0 / pc.weight
-            req.prefill_pos = 0
+            # prefill starts at the divergence block: the matched prefix's
+            # tokens are already resident by identity
+            req.prefill_pos = hit_tokens
+            if hit_tokens:
+                self.stats.prefix_hits += 1
+                self.stats.prefix_hit_tokens += hit_tokens
             if self.token_budget is None:
                 t0 = self._clock()
-                first = prefill_chunk_fn(req.prompt[None], slot, 0, True,
+                first = prefill_chunk_fn(req.prompt[None, hit_tokens:],
+                                         slot, hit_tokens, True,
                                          len(req.prompt))
-                self._observe_prefill(self._clock() - t0, len(req.prompt))
+                self._observe_prefill(self._clock() - t0,
+                                      len(req.prompt) - hit_tokens)
                 req.prefill_pos = len(req.prompt)
-                self.stats.prefill_tokens += len(req.prompt)
+                self.stats.prefill_tokens += len(req.prompt) - hit_tokens
                 self.stats.prefill_chunks += 1
                 self._finish_prefill(req, first, finished)
             else:
@@ -572,6 +608,10 @@ class ContinuousBatcher:
     def _finish_prefill(self, req: Request, first, finished: list[Request]):
         """Prefill done: record the first sampled token and either retire
         the request (the completion check decode uses) or activate it."""
+        if self.prefix is not None:
+            # register the prompt's whole blocks (matched prefix nodes just
+            # get an LRU touch; the fresh tail becomes new nodes)
+            self.prefix.insert(req.prompt, self.alloc.table(req.rid))
         self.lengths[req.rid] = len(req.prompt) + 1
         if self._record_token(req, int(first)):
             self._retire(req)

@@ -438,7 +438,7 @@ def test_dense_contiguous_prefill_then_decode_match_reference(setup):
 def test_check_supported_accepts_the_baselines(option):
     EngineConfig(**option).check_supported()
     with pytest.raises(NotImplementedError, match="not ported"):
-        EngineConfig(**option, seq_shards=2).check_supported()
+        EngineConfig(**option, admission="edf").check_supported()
 
 
 def test_launcher_serves_the_baselines(capsys):

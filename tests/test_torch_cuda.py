@@ -1560,3 +1560,167 @@ def test_cuda_preempted_serve_matches_cpu(cuda, layout, kv):
     assert eng.swap_stats["blocks_in"] == eng.swap_stats["blocks_out"]
     assert got == drive(cuda, **tight, preemption=False)[0]
     assert got == drive(torch.device("cpu"), **tight)[0]
+
+
+def _striped_step_case(S, seed=5, B=3, T=8):
+    """A SMOKE float32 model, a pool of ``4 * T`` blocks in ``S`` stripes,
+    rows whose blocks are spread over the stripes (row 2's all on stripe
+    0, so its pairs are masked in every other stripe), per-layer per-slot
+    selections and each layer's per-stripe packed lists."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32, num_heads=4,
+                              num_kv_heads=2)
+    params = init_params(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    N = 4 * T
+    size = N // S
+    pool = torch.from_numpy(rng.standard_normal(
+        (cfg.num_layers, 2, N + 1, cfg.num_kv_heads, BLK, cfg.head_dim_))
+        .astype(np.float32))
+    pos = np.array([7 * BLK + 5, 3 * BLK + 70, 2 * BLK + 1], np.int32)
+    table = np.full((B, T), -1, np.int32)
+    free = list(rng.permutation(N))
+    for b in range(B):
+        for j in range(int(pos[b]) // BLK + 1):
+            if b == 2:
+                table[b, j] = next(i for i in free if i < size)
+            else:
+                table[b, j] = free[0]
+            free.remove(table[b, j])
+    ids = np.full((cfg.num_layers, B, cfg.num_kv_heads, 5), -1, np.int32)
+    for l in range(cfg.num_layers):
+        for b in range(B):
+            nb = int(pos[b]) // BLK + 1
+            for h in range(cfg.num_kv_heads):
+                n = int(rng.integers(1, min(nb, 5) + 1))
+                sel = np.sort(rng.choice(nb, size=n, replace=False))
+                ids[l, b, h, :n] = sel
+    stripe_of = np.where(table >= 0, table // size, -1)
+    lists = [wl.pack_decode_items_2d(ids[l], stripe_of, num_stripes=S,
+                                     block=BLK) for l in range(cfg.num_layers)]
+    width = max(x.padded_length for x in lists)
+    packed = np.stack([wl.extend_packed_items(x.stripe_items(), width)
+                       for x in lists])
+    token = rng.integers(0, cfg.vocab_size, size=B)
+    return cfg, params, pool, pos, table, ids, packed, token, size
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("work", ["packed", "ids", "dense"])
+def test_cuda_striped_decode_step_matches_plain(cuda, S, work):
+    """The paged decode step with S stripes on the card (S passes of #1 a
+    layer, the partials merged) against the same step's plain versions on
+    the CPU, within 1e-4, its token writes too; #1 launched S times a
+    layer; and the unstriped step on the card agrees within 1e-4."""
+    from repro_torch.models import transformer as tfm
+    cfg, params, pool, pos, table, ids, packed, token, size = \
+        _striped_step_case(S)
+    kw = {"packed": dict(packed_items=packed), "ids": dict(block_ids=ids),
+          "dense": {}}[work]
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    def step(dev, stripes, pool_in):
+        p = to(params, dev)
+        args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in kw.items()}
+        if stripes == 1 and work == "packed":
+            return None, None
+        pl = pool_in.clone().to(dev)
+        logits = tfm.decode_step_paged(
+            p, pl, torch.from_numpy(token).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(table).to(dev),
+            cfg, seq_stripes=stripes, stripe_size=size, **args)
+        return logits.cpu(), pl.cpu()
+
+    before = flash_decode_paged_kernel.launches
+    got, got_pool = step(cuda, S, pool)
+    assert flash_decode_paged_kernel.launches - before == S * cfg.num_layers
+    want, want_pool = step(torch.device("cpu"), S, pool)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # the token writes: the card's and the CPU's projections of the same
+    # rows, sums taken in another order
+    torch.testing.assert_close(got_pool, want_pool, rtol=0, atol=1e-4)
+    one, _ = step(cuda, 1, pool)
+    if one is not None:
+        torch.testing.assert_close(got, one, rtol=0, atol=1e-4)
+
+
+def test_cuda_fully_masked_stripe_drops_out_of_the_merge(cuda):
+    """#1 on the card under a stripe-masked table: a (row, kv head) none of
+    whose blocks that stripe holds comes back as (0, -1e30, 0), and the
+    merge of the stripes' partials keeps the other stripe's output bitwise
+    for it and equals the unstriped launch within 1e-5 elsewhere."""
+    from repro_torch.models.transformer import _merge_stripe_partials
+    q, kp, vp, ids, table, pos = decode_case(11, B=3, Hkv=2, G=3, D=64,
+                                             layout="ids")
+    N = kp.shape[0] - 1
+    size = -(-N // 2)
+    # row 0's blocks all on stripe 0: rows 1, 2 keep theirs
+    t = table.copy()
+    owned = t[0] >= 0
+    low = [i for i in range(size) if i not in set(t[1:].ravel())]
+    t[0, owned] = low[:int(owned.sum())]
+    q, kp, vp, ids, t, pos = (x.to(cuda) for x in as_torch(
+        q, kp, vp, ids, t, pos))
+    parts = []
+    for s in range(2):
+        mine = torch.where((t >= 0) & (t // size == s), t, -1)
+        parts.append(ops.flash_decode_paged(q, kp, vp, ids, mine, pos,
+                                            block_kv=BLK, partials=True))
+    out1, m1, l1 = parts[1]
+    assert (l1[0] == 0).all() and (m1[0] <= -1e29).all()
+    assert not out1[0].any()
+    merged = _merge_stripe_partials(parts, 3, 2, 64, torch.float32)
+    assert torch.equal(merged[0], parts[0][0][0])
+    whole = ops.flash_decode_paged(q, kp, vp, ids, t, pos, block_kv=BLK,
+                                   partials=True)[0]
+    torch.testing.assert_close(merged, whole, rtol=0, atol=1e-5)
+
+
+def test_cuda_prefix_cache_on_equals_off(cuda):
+    """A SMOKE float32 engine on the card serving shared-prefix traffic
+    twice: the cache-on tokens equal the cache-off ones bit for bit and the
+    CPU's cache-on serve's; the second serve hits; #1 and #2 launched."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=6, device="cpu")
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab_size, size=256)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (40, 200, 129)]
+
+    def serve(dev, on, S=2):
+        eng = Engine(cfg, params,
+                     EngineConfig(max_seq_len=1024, budget_per_head=256,
+                                  prefix_cache=on, seq_shards=S),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        out = [[r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=10))] for _ in range(2)]
+        return out, eng
+
+    before = (flash_decode_paged_kernel.launches,
+              sparse_prefill_paged.launches)
+    on, eng = serve(cuda, True)
+    assert flash_decode_paged_kernel.launches > before[0]
+    assert sparse_prefill_paged.launches > before[1]
+    assert eng._batcher.stats.prefix_hits == len(prompts)
+    off, _ = serve(cuda, False)
+    assert on == off
+    cpu, _ = serve(torch.device("cpu"), True)
+    assert on == cpu

@@ -82,12 +82,14 @@ def test_engine_defaults_to_cuda():
 
 # the plan-epoch options (drift_threshold, replan_every) serve since they
 # were ported: tests/test_torch_replan.py::test_replan_options_serve; so do
-# preemption and SLO admission: tests/test_torch_preemption.py (an
-# admission policy neither package has stands in their place)
+# preemption and SLO admission: tests/test_torch_preemption.py, and seq
+# stripes and the prefix cache: tests/test_torch_seqpar.py,
+# tests/test_torch_prefix_cache.py (values neither package has stand in
+# their place)
 @pytest.mark.parametrize("option", [
     {"num_model_shards": 2}, {"num_model_shards": 3},
-    {"seq_shards": 2}, {"seq_shards": 4}, {"admission": "edf"},
-    {"prefix_cache": True}])
+    {"decode_worklist": "ragged"}, {"kv_dtype": "int4"}, {"admission": "edf"},
+    {"cache_layout": "ring"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):
         Engine(CFG, init_params(CFG, seed=0, device="cpu"),

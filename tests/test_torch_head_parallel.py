@@ -49,9 +49,10 @@ MAX_TOKENS = 12
 GRIDS = [("paged", "packed"), ("paged", "padded"),
          ("contiguous", "packed"), ("contiguous", "padded")]
 # the reference's decode_bubble_stats keys of features the port does not
-# run yet (seq stripes' merges, faults, the prefix cache): each comes with
-# its feature (swap and per_class came with preemption)
-UNPORTED_KEYS = {"merge_collectives", "faults", "injected_events", "prefix"}
+# run yet (the fault layer): each comes with its feature (swap and
+# per_class came with preemption, merge_collectives and prefix with seq
+# stripes and the prefix cache)
+UNPORTED_KEYS = {"faults", "injected_events"}
 
 
 class GlobalIdEngine(RefEngine):

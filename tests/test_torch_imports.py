@@ -75,6 +75,18 @@ def test_blocked_import_covers_every_kernel_module():
         build.KERNEL_SOURCES)
 
 
+def test_blocked_import_covers_every_serving_module():
+    """The serving modules, the radix prefix tree among them, are part of
+    the port that imports without JAX, and the engine builds its tree from
+    the port's own copy."""
+    from repro_torch.serving import engine, prefix_tree
+    mods = set(_modules())
+    for name in ("engine", "kv_cache", "prefix_tree", "sampler",
+                 "scheduler"):
+        assert f"repro_torch.serving.{name}" in mods
+    assert engine.RadixPrefixCache is prefix_tree.RadixPrefixCache
+
+
 def test_no_source_imports_jax_or_the_reference():
     bad = []
     for path in SOURCES:

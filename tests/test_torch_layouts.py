@@ -184,7 +184,7 @@ def test_serve_accounts_every_block_and_grid_item(port_tokens, layout,
 def test_check_supported_accepts_the_ported_options(option):
     EngineConfig(**option).check_supported()
     with pytest.raises(NotImplementedError, match="not ported"):
-        EngineConfig(**option, prefix_cache=True).check_supported()
+        EngineConfig(**option, admission="edf").check_supported()
 
 
 def test_launcher_serves_the_new_options_on_cpu(capsys):
