@@ -155,7 +155,33 @@ Phases, in order; any failure exits non-zero:
     the cache-off tokens, while two planted controls (its host copy zeroed;
     the hit ids mapped rotated) must change them.  SMOKE
     float32 parity on the card against the CPU with S = 2 and with the
-    cache (bf16 and int8, whose controls run).
+    cache (bf16 and int8, whose controls run);
+13. faults and self-healing (SmolLM-135M; ``FAULT_LENS``, four requests
+    of 300-1500 tokens, ``FAULT_TOKENS`` each; at full depth the
+    empty-plan, first corruption and first restore serves, the rest at
+    ``CUT_LAYERS``): an engine with an empty-plan injector gives phase
+    5's default tokens, and the sentinel's cost a decode tick is printed;
+    ``kv_corrupt`` (NaN; Inf on the int8 pool's scales; the contiguous
+    layout) fails exactly one request with a sentinel's reason, the
+    others and a second serve keep the clean tokens, the victim's
+    released blocks read codes 0 and scales 1, and with the scrub skipped
+    a later request mapping the corrupted block must part or fail; a
+    poisoned prefill fails alone with no tokens; on phase 11's preempted
+    shape a swap-out fault heals and a swap-in failing past its retries
+    is discarded and recomputed to the uninterrupted tokens, the host
+    tier empty after; at D = 3 an ``epoch_swap`` fault rolls back (params,
+    plan, epoch and pool kept), then the swap lands and serves as an
+    engine that adopted the plan directly; crash and restore (paged bf16
+    and int8, contiguous, the prefix cache at S = 2 whose restored tree
+    hits, stochastic sampling) resumes bit for bit, printing each
+    snapshot's bytes and save / restore seconds, while the restored tables
+    rotated by one must part; a corrupted shared prefix block fails both
+    holders and a later request misses; a chaos serve
+    (``FaultPlan.random(seed=0, rate=0.05)``, preemption, SLO admission,
+    the prefix cache, an audit every tick) hands back every request at
+    every tick and its completed ones keep the clean tokens; SMOKE float32
+    card == CPU for a corrupted and a restored serve.  Each serve prints
+    its fault counters, injected events and failed requests.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -364,6 +390,14 @@ PREFIX_SERVES = {
     "yi-6b": (("bf16,chunked", False, {}),)}
 # the stochastic serve (phase 9): temperature, top-k, top-p
 STOCHASTIC = dict(temperature=0.8, top_k=50, top_p=0.95)
+# faults and self-healing (phase 13): SmolLM-135M's fault traffic (four
+# requests of at most 1500 tokens, FAULT_TOKENS greedy tokens each), the
+# decode tick a crash-and-restore run is saved at, and the chaos serve's
+# pool
+FAULT_LENS = (1500, 700, 1010, 300)
+FAULT_TOKENS = 24
+SNAPSHOT_TICK = 6
+CHAOS_BLOCKS = 40
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
 # ("<kernel>.<kind>") but the contiguous prefill, which reads the
@@ -1171,17 +1205,17 @@ def check_kernels(eng, gen, dev, results, sh: Shapes, dtypes):
     return launches
 
 
-def build_engine(cfg, params, dev, profile=None, **kw):
+def build_engine(cfg, params, dev, profile=None, injector=None, **kw):
     """A full-width engine: ``EngineConfig()`` with 8 slots of 4096 tokens
     and the options ``kw``, planned from ``profile`` (default the synthetic
-    curves)."""
+    curves), with the fault injector ``injector`` (default none)."""
     from repro_torch.core.sparsity import synthetic_head_curves
     from repro_torch.serving import Engine, EngineConfig
     kw = {"max_seq_len": SMAX, "num_slots": B, **kw}
     return Engine(cfg, params, EngineConfig(**kw),
                   profile or synthetic_head_curves(cfg.num_layers,
                                                    cfg.num_heads),
-                  device=dev)
+                  device=dev, injector=injector)
 
 
 def cut_depth(cfg, params, arch: str):
@@ -2398,7 +2432,7 @@ def parked_on_device(eng) -> None:
     gather = eng._permute_cache
 
     def permute(kv_tbl):
-        gather(kv_tbl)
+        gathered = gather(kv_tbl)
         for rec in eng._host_swaps.values():
             rec["data"] = tfm.permute_cache_kv_heads(rec["data"], kv_tbl)
             if rec["scales"] is not None:
@@ -2406,6 +2440,7 @@ def parked_on_device(eng) -> None:
                                                          kv_tbl)
             rec["arrange"] = np.take_along_axis(
                 rec["arrange"], np.asarray(kv_tbl), axis=1)
+        return gathered
     eng._permute_cache = permute
 
 
@@ -2986,6 +3021,661 @@ def seq_prefix_phases(cfg, params, dev, sh: Shapes):
     print(f"stripe and prefix phases ({cfg.name}): {time.time() - t0:.1f} s")
 
 
+# -- phase 13: faults and self-healing (§2.13) -------------------------------
+
+def fault_prompts(cfg, lens=FAULT_LENS, seed=13):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+
+
+def armed(*specs):
+    """A fault injector over ``specs`` (none: an empty plan)."""
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+    return FaultInjector(FaultPlan(specs=tuple(specs)))
+
+
+def fault_report(tag: str, eng, done) -> dict:
+    """Print a serve's fault counters, injected events and failed rids
+    with their reasons; return ``{rid: fail_reason}``."""
+    from repro_torch.launch.serve import faults_line
+    bs = eng.decode_bubble_stats
+    failed = {r.rid: r.fail_reason for r in done if r.failed}
+    print(f"faults[{tag}]: {faults_line(bs, len(failed))}; injected_events "
+          f"{bs['injected_events']}; failed {failed or 'none'}")
+    return failed
+
+
+def fault_serve(eng, prompts, tag: str, sampling=None):
+    """``eng.serve`` of ``prompts`` (``FAULT_TOKENS`` greedy tokens unless
+    ``sampling``); prints the fault report and the time.  Returns the
+    tokens by rid and the failed rids' reasons."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    sp = sampling or SamplingParams(max_tokens=FAULT_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = eng.serve(prompts, sp)
+    torch.cuda.synchronize()
+    print(f"faults[{tag}]: {len(done)} requests in {time.time() - t0:.2f} s")
+    failed = fault_report(tag, eng, done)
+    return {r.rid: list(r.generated) for r in done}, failed
+
+
+def free_card() -> None:
+    """Return the pools of engines just deleted to the card (an engine and
+    its batcher refer to each other: collect the cycle first)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sentinel_cost(eng, dev, reps: int = 200) -> None:
+    """The sentinel's cost per decode tick, alone: ``Engine._sample`` on a
+    decode call's logits ``[8, vocab]`` with the check off and on, in
+    turns (off, on, on, off), host clock around calls that each end in
+    the tokens' copy to the host."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    logits = torch.randn(B, eng.cfg.vocab_size, device=dev)
+    rows = [(s, s) for s in range(B)]
+    sp = SamplingParams()
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        eng.ecfg.sentinels = on
+        for _ in range(10):
+            eng._sample(logits, sp, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng._sample(logits, sp, rows)
+        times[on].append(1e3 * (time.perf_counter() - t0) / reps)
+    eng.ecfg.sentinels = True
+    off, on = (min(times[False]), min(times[True]))
+    print(f"sentinel cost: sampling a decode tick's logits [{B}, "
+          f"{eng.cfg.vocab_size}] takes {off:.4f} ms without the check and "
+          f"{on:.4f} ms with it ({on - off:+.4f} ms a tick; host clock, one "
+          f"device-to-host copy either way; best of two runs of {reps})")
+
+
+def run_disabled(cfg, params, dev, want) -> None:
+    """Phase 13.1: an engine with an empty-plan injector (and the default
+    sentinels) serves phase 5's traffic with its recorded tokens."""
+    inj = armed()
+    eng = build_engine(cfg, params, dev, injector=inj)
+    got, _ = run_serve(eng, serve_prompts(cfg), "paged,packed,empty plan",
+                       SMOL)
+    fault_report("paged,packed,empty plan", eng, [])
+    print(f"faults[empty plan]: greedy tokens {'==' if got == want else '!='}"
+          f" phase 5's default serve; {len(inj.events)} events")
+    if got != want or inj.events:
+        fail("an engine with an empty-plan injector changed phase 5's tokens")
+    sentinel_cost(eng, dev)
+    del eng
+    free_card()
+
+
+def watch_scrub(eng) -> list:
+    """Wrap ``_release_seq`` to read, right after it, the blocks (slot
+    row) it scrubbed: ``(rid, ids, codes all 0, scales all 1)`` per
+    release."""
+    import torch
+    from repro_torch.core.quant import code_bits
+    seen, inner = [], eng._release_seq
+
+    def release(rid, slot):
+        if eng.paged:
+            alloc = eng.kv.alloc
+            ids = [b for b in alloc.table(rid)
+                   if alloc.refcount(b) == 1 and not alloc.is_cached(b)]
+        else:
+            ids = [slot]
+        inner(rid, slot)
+        codes, scales = eng._live_cache()
+        at = torch.tensor(ids, device=eng.device)
+        bits = code_bits(codes) if codes.element_size() == 1 else codes
+        zero = not bool(bits.index_select(2, at).any())
+        ones = scales is None or bool(
+            (scales.index_select(2, at) == 1.0).all())
+        seen.append((rid, ids, zero, ones))
+    eng._release_seq = release
+    return seen
+
+
+def run_kv_corrupt(cfg, params, dev, cut) -> dict:
+    """Phase 13.2: ``kv_corrupt`` (NaN, full depth paged bf16; Inf on the
+    int8 pool's scales, and NaN on the contiguous layout, both cut):
+    exactly one request fails with a sentinel's reason, every other gives
+    the clean serve's tokens, the victim's released blocks read codes 0
+    and scales 1, the engine audits clean and serves the clean tokens
+    again.  Returns the clean serves' tokens by tag (the cut paged bf16
+    one for the control and the poisoned serve; all for the restores)."""
+    from repro_torch.serving.faults import FaultSpec
+    prompts = fault_prompts(cfg)
+    cleans = {}
+    for tag, (c, p), kw, mode in (
+            ("paged,bf16", (cfg, params), {}, "nan"),
+            ("paged,bf16,cut", cut, {}, None),
+            ("paged,int8,cut", cut, {"kv_dtype": "int8"}, "inf"),
+            ("contiguous,bf16,cut", cut, {"cache_layout": "contiguous"},
+             "nan")):
+        eng = build_engine(c, p, dev, **kw)
+        clean, _ = fault_serve(eng, prompts, f"{tag} clean")
+        cleans[tag] = clean
+        del eng
+        free_card()
+        if mode is None:
+            continue
+        inj = armed(FaultSpec(seam="kv_corrupt", mode=mode, after=2))
+        eng = build_engine(c, p, dev, injector=inj, **kw)
+        scrubs = watch_scrub(eng)
+        got, failed = fault_serve(eng, prompts, f"{tag} kv_corrupt {mode}")
+        same = {rid: got[rid] == clean[rid] for rid in got
+                if rid not in failed}
+        audit = eng.audit(strict=False)
+        print(f"faults[{tag} kv_corrupt {mode}]: others == clean {same}; "
+              f"scrubbed {[(rid, len(ids), z, o) for rid, ids, z, o in scrubs]}"
+              f" (rid, blocks, codes 0, scales 1); audit "
+              f"{'clean' if not audit else audit}")
+        if (len(failed) != 1 or not set(failed.values())
+                <= {"nonfinite_logits", "probe_nonfinite"}
+                or not all(same.values()) or audit):
+            fail(f"{tag}: the corruption did not fail exactly one request "
+                 f"with the others unchanged and a clean audit")
+        if not scrubs or not all(z and o for _, _, z, o in scrubs):
+            fail(f"{tag}: the victim's released blocks are not scrubbed")
+        again, failed = fault_serve(eng, prompts, f"{tag} second serve")
+        print(f"faults[{tag} second serve]: tokens "
+              f"{'==' if again == clean else '!='} the clean serve's")
+        if again != clean or failed:
+            fail(f"{tag}: the engine's second serve after the corruption "
+                 f"differs from the clean serve")
+        del eng
+        free_card()
+    return cleans
+
+
+def scrub_control(cfg, params, dev, clean) -> None:
+    """Phase 13.2's planted control (cut): the scrub skipped, the
+    victim's corrupted block is put where the next request (1010 prompt
+    tokens) maps it when its decode crosses into its ninth block, which
+    the prefill does not write; that serve must part from the clean
+    tokens or trip a sentinel.  (The fault serve itself may already
+    recycle the block into another request: printed.)"""
+    from repro_torch.serving.faults import FaultSpec
+    prompts = fault_prompts(cfg)
+    inj = armed(FaultSpec(seam="kv_corrupt", mode="nan", after=2))
+    eng = build_engine(cfg, params, dev, injector=inj)
+    dirty = []
+
+    def unscrubbed(rid, slot):
+        if not dirty:                       # the corrupted victim's block
+            dirty.append(eng.kv.alloc.table(rid)[0])
+    eng._release_seq = unscrubbed
+    got, failed = fault_serve(eng, prompts, "control: scrub skipped")
+    parted = [rid for rid in got if rid not in failed
+              and got[rid] != clean[rid]]
+    print(f"faults[control]: the fault serve itself failed {sorted(failed)}"
+          f" and parted {parted} (the scrubbed serve fails one, parts "
+          f"none)")
+    nxt = prompts[2]
+    free = eng.kv.alloc._free[0]
+    k = eng.kv.alloc.blocks_needed(len(nxt))
+    free.remove(dirty[0])
+    free.insert(len(free) - k, dirty[0])    # popped after the prompt's
+    got, failed = fault_serve(eng, [nxt], "control: recycled dirty block")
+    parted = bool(failed) or got[0] != clean[2]
+    print(f"faults[control]: block {dirty[0]} recycled unscrubbed into the "
+          f"next request's decode block: {'parted' if parted else 'kept'} "
+          f"(failed {failed or 'none'})")
+    if not parted:
+        fail("the skipped-scrub control kept the clean tokens")
+    del eng
+    free_card()
+
+
+def run_poison(cfg, params, dev, clean) -> None:
+    """Phase 13.3 (cut): ``poison_request`` on rid 1 fails it with no
+    tokens; the others give the clean tokens."""
+    from repro_torch.serving.faults import FaultSpec
+    prompts = fault_prompts(cfg)
+    eng = build_engine(cfg, params, dev,
+                       injector=armed(FaultSpec(seam="poison_request",
+                                                rid=1)))
+    got, failed = fault_serve(eng, prompts, "paged,bf16,cut poison rid 1")
+    others = all(got[r] == clean[r] for r in got if r != 1)
+    if list(failed) != [1] or got[1] or not others:
+        fail("the poisoned request did not fail alone with no tokens")
+    del eng
+    free_card()
+
+
+def run_swap_faults(cfg, params, dev) -> None:
+    """Phase 13.4 (cut), phase 11's preempted shape (56-block pool, two
+    batch requests and a later interactive one): one ``swap_out_transfer``
+    fault heals on a retry; ``swap_in_transfer`` failing past
+    ``swap_retries`` discards the victim and requeues it, and its
+    recomputed tokens are the uninterrupted serve's; the host tier ends
+    empty."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.faults import FaultSpec
+    sp = SamplingParams(max_tokens=32)     # phase 11's, which preempts
+    prompts = preempt_prompts(cfg)
+    eng = build_engine(cfg, params, dev)
+    want, _ = drive_interrupt(eng, prompts, sp)
+    del eng
+    free_card()
+    retries = 3
+    for tag, spec, key in (
+            ("swap-out fault once", FaultSpec(seam="swap_out_transfer"),
+             "swap_recoveries"),
+            ("swap-in fault past the retries",
+             FaultSpec(seam="swap_in_transfer", times=retries + 1),
+             "swap_giveups")):
+        inj = armed(spec)
+        eng = build_engine(cfg, params, dev, injector=inj,
+                           num_kv_blocks=PREEMPT_BLOCKS, preemption=True,
+                           swap_retries=retries)
+        t0 = time.time()
+        got, b = drive_interrupt(eng, prompts, sp)
+        fault_report(tag, eng, [])
+        fs = eng.fault_stats
+        discards = b.stats.per_class["batch"]["swap_discards"]
+        print(f"faults[{tag}]: {time.time() - t0:.2f} s; swaps "
+              f"{eng.swap_stats['swapped_out']} out / "
+              f"{eng.swap_stats['swapped_in']} in, batch swap_discards "
+              f"{discards}; tokens {'==' if got == want else '!='} the "
+              f"uninterrupted serve's; host tier {len(eng._host_swaps)} "
+              f"copies, {b.alloc.host_allocated_blocks} blocks")
+        if (got != want or fs[key] != 1 or eng._host_swaps
+                or b.alloc.host_allocated_blocks
+                or discards != (key == "swap_giveups")):
+            fail(f"{tag}: the swap fault did not {'heal' if key == 'swap_recoveries' else 'discard and recompute'} "
+                 f"with the uninterrupted tokens")
+        del eng, b
+        free_card()
+
+
+def run_epoch_rollback(cfg, params, dev) -> None:
+    """Phase 13.5 (cut, D = 3: one KV group a shard): the first
+    ``replan_now`` to the shards-rotated plan fails at the ``epoch_swap``
+    seam and returns False with the params object and the epoch
+    unchanged; the engine serves on; the next one lands, and the serve
+    equals a control engine that adopted the moved plan directly."""
+    from repro_torch.serving.faults import FaultSpec
+    prompts = fault_prompts(cfg)
+    eng = build_engine(cfg, params, dev, num_model_shards=3,
+                       injector=armed(FaultSpec(seam="epoch_swap")))
+    before, _ = fault_serve(eng, prompts, "D=3 before the swap")
+    plan, epoch, weights, pool = eng.plan, eng.epoch, eng.params, eng.kv.pool
+    t0 = time.time()
+    ok = eng.replan_now(plan=rotate_shards(eng.plan))
+    kept = (eng.plan is plan and eng.epoch == epoch
+            and eng.params is weights and eng.kv.pool is pool)
+    print(f"faults[epoch swap]: failed swap returned {ok} in "
+          f"{time.time() - t0:.3f} s; plan, epoch, params and pool kept: "
+          f"{kept}; rollbacks {eng.fault_stats['replan_rollbacks']}")
+    if ok or not kept or eng.fault_stats["replan_rollbacks"] != 1:
+        fail("the failed epoch swap did not roll back")
+    same, _ = fault_serve(eng, prompts, "D=3 after the rollback")
+    landed = eng.replan_now(plan=rotate_shards(eng.plan))
+    moved, _ = fault_serve(eng, prompts, "D=3 after the swap landed")
+    del eng
+    free_card()
+    ctrl = build_engine(cfg, params, dev, num_model_shards=3)
+    ctrl.replan_now(plan=rotate_shards(ctrl.plan))
+    want, _ = fault_serve(ctrl, prompts, "D=3 control, moved plan adopted")
+    del ctrl
+    free_card()
+    print(f"faults[epoch swap]: after the rollback tokens "
+          f"{'==' if same == before else '!='} before; second swap "
+          f"{'landed' if landed else 'refused'}; its serve "
+          f"{'==' if moved == want else '!='} the control's")
+    if same != before or not landed or moved != want:
+        fail("the engine did not serve on and then land the swap cleanly")
+
+
+def shared_prefix_prompts(cfg, tails, unique, seed=14, shared=1024):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, cfg.vocab_size, size=shared)
+    return ([np.concatenate([pre, rng.integers(0, cfg.vocab_size, size=n)])
+             for n in tails]
+            + [rng.integers(0, cfg.vocab_size, size=n) for n in unique])
+
+
+def tick_until(eng, b, pf, df, done: list, until) -> None:
+    while b.busy and not (b.replan_safe and until(b)):
+        done.extend(b.tick(pf, df))
+
+
+def snapshot_variant(cfg, params, dev, tag, kw, prompts, sp, want=None,
+                     hit=None, control=False) -> None:
+    """One crash and restore of phase 13.6: a run saved at a safe point
+    once ``SNAPSHOT_TICK`` decode ticks passed with every request
+    decoding, freed, restored on the card and finished, whose tokens must
+    equal ``want`` (the uninterrupted run's; None: a tick-driven run first
+    gives them).  ``hit``: a prompt served after the restored run, which
+    must hit the restored prefix tree.  ``control``: the snapshot is
+    restored a second time with the tables rotated by one, whose tokens
+    must part.  Prints the snapshot's bytes and its save and restore
+    times."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.snapshot import restore_serving, save_serving
+
+    def start():
+        eng = build_engine(cfg, params, dev, **kw)
+        b = eng.make_batcher()
+        for i, p in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=np.asarray(p, np.int32),
+                             sampling=sp))
+        return eng, b, *eng.step_fns(sp)
+
+    if want is None:
+        eng, b, pf, df = start()
+        done = []
+        tick_until(eng, b, pf, df, done, lambda b: False)
+        want = {r.rid: r.generated for r in done}
+        del eng, b, pf, df
+        free_card()
+    eng, b, pf, df = start()
+    before = []
+    tick_until(eng, b, pf, df, before, lambda b: (
+        eng._decode_ticks >= SNAPSHOT_TICK
+        and len(b.active) == len(prompts)))
+    if len(b.active) != len(prompts):
+        fail(f"snapshot[{tag}]: the crash point is not mid-stream")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_serving(tmp, eng, b)
+        t_save = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        ecfg = eng.ecfg
+        del eng, b, pf, df
+        free_card()
+        for rotated in ((False, True) if control else (False,)):
+            t0 = time.perf_counter()
+            eng, b = restore_serving(
+                path, cfg, params, ecfg,
+                synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                device=dev)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            if rotated:
+                for rid, t in b.alloc._tables.items():
+                    if len(t) > 1:
+                        b.alloc._tables[rid] = t[1:] + t[:1]
+            pf, df = eng.step_fns(sp)
+            done = list(before)
+            tick_until(eng, b, pf, df, done, lambda b: False)
+            same = {r.rid: r.generated for r in done} == want
+            label = f"{tag}{', tables rotated (control)' if rotated else ''}"
+            fault_report(f"snapshot {label}", eng, done)
+            print(f"snapshot[{label}]: {nbytes} bytes at decode tick "
+                  f"{SNAPSHOT_TICK}, saved in {t_save:.2f} s, restored in "
+                  f"{t_restore:.2f} s (host clock, the pool copied to the "
+                  f"host and back); restored tokens "
+                  f"{'==' if same else '!='} uninterrupted")
+            if same == rotated:
+                fail(f"snapshot[{label}]: the restored serve "
+                     f"{'kept' if rotated else 'changed'} the tokens")
+            if hit is not None:
+                hits = eng.prefix.stats["hits"]
+                b.submit(Request(rid=len(prompts),
+                                 prompt=np.asarray(hit, np.int32),
+                                 sampling=sp))
+                tick_until(eng, b, pf, df, [], lambda b: False)
+                print(f"snapshot[{label}]: a request on the shared prefix "
+                      f"after the restore: "
+                      f"{eng.prefix.stats['hits'] - hits} hit(s)")
+                if eng.prefix.stats["hits"] <= hits:
+                    fail(f"snapshot[{label}]: the restored prefix tree did "
+                         f"not hit")
+            del eng, b, pf, df
+            free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_restores(cfg, params, dev, cut, clean) -> None:
+    """Phase 13.6: crash and restore, tokens equal to the uninterrupted
+    run's (``clean``: phase 13.2's clean serves of the same traffic, by
+    tag): paged bf16 (full depth; and its rotated-tables control), paged
+    int8, contiguous bf16, paged bf16 with the prefix cache at S = 2 (the
+    restored tree hits), stochastic sampling (all cut)."""
+    from repro_torch.serving import SamplingParams
+    prompts = fault_prompts(cfg)
+    greedy = SamplingParams(max_tokens=FAULT_TOKENS)
+    stoch = SamplingParams(max_tokens=FAULT_TOKENS, **STOCHASTIC)
+    shared = shared_prefix_prompts(cfg, (300, 500), (700,))
+    for (c, p), tag, kw, ps, sp, extra in (
+            ((cfg, params), "paged,bf16", {}, prompts, greedy,
+             dict(want=clean["paged,bf16"], control=True)),
+            (cut, "paged,int8,cut", {"kv_dtype": "int8"}, prompts, greedy,
+             dict(want=clean["paged,int8,cut"])),
+            (cut, "contiguous,bf16,cut", {"cache_layout": "contiguous"},
+             prompts, greedy, dict(want=clean["contiguous,bf16,cut"])),
+            (cut, "paged,bf16,prefix,S=2,cut",
+             {"prefix_cache": True, "seq_shards": 2}, shared, greedy,
+             dict(hit=shared[0])),
+            (cut, "paged,bf16,stochastic,cut", {}, prompts, stoch, {})):
+        snapshot_variant(c, p, dev, tag, kw, ps, sp, **extra)
+
+
+def run_shared_corrupt(cfg, params, dev) -> None:
+    """Phase 13.7 (cut, the prefix cache): ``kv_corrupt`` in the shared
+    prefix block of two holders, once all three requests decode, fails
+    both and invalidates the tree; the unrelated request keeps its clean
+    tokens; a later request on the same prefix misses and gives the clean
+    tokens."""
+    from repro_torch.serving.faults import FaultSpec
+    prompts = shared_prefix_prompts(cfg, (300, 500), (700,))
+    eng = build_engine(cfg, params, dev, prefix_cache=True)
+    widths, inner = [], eng.decode_slots
+
+    def decode(slots, *a, **k):
+        widths.append(len(slots))
+        return inner(slots, *a, **k)
+    eng.decode_slots = decode
+    clean, _ = fault_serve(eng, prompts, "prefix,cut clean")
+    del eng
+    free_card()
+    if len(prompts) not in widths:
+        fail("prefix,cut: the clean serve never decoded all its requests "
+             "at once")
+    at = widths.index(len(prompts))
+    eng = build_engine(cfg, params, dev, prefix_cache=True, injector=armed(
+        FaultSpec(seam="kv_corrupt", mode="nan", after=at)))
+    got, failed = fault_serve(eng, prompts, f"prefix,cut kv_corrupt at "
+                              f"decode tick {at}")
+    inval = eng.prefix.stats["invalidated_blocks"]
+    hits = eng.prefix.stats["hits"]
+    again, refail = fault_serve(eng, prompts[:1], "prefix,cut later request")
+    missed = eng.prefix.stats["hits"] == hits
+    print(f"faults[prefix,cut]: failed {sorted(failed)}, invalidated "
+          f"{inval} blocks; unrelated tokens "
+          f"{'==' if got[2] == clean[2] else '!='} clean; the later request "
+          f"{'missed' if missed else 'hit'} and its tokens "
+          f"{'==' if again[0] == clean[0] else '!='} clean")
+    if (sorted(failed) != [0, 1] or inval < 1 or got[2] != clean[2]
+            or not missed or again[0] != clean[0] or refail):
+        fail("a corrupted shared block did not fail both holders alone, or "
+             "the tree kept it")
+    del eng
+    free_card()
+
+
+def run_chaos(cfg, params, dev) -> None:
+    """Phase 13.8 (cut): ``FaultPlan.random(seed=0, rate=0.05)`` over all
+    six seams on an engine with preemption, SLO admission, the prefix
+    cache and an audit every tick: batch requests, then interactive and
+    standard ones into a pool of ``CHAOS_BLOCKS``.  At every tick
+    completed + rejected + failed equals the requests handed back and
+    every audit passes; every completed request gives the clean serve's
+    tokens (fifo, no faults)."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+    from repro_torch.serving.scheduler import Request
+    sp = SamplingParams(max_tokens=FAULT_TOKENS)
+    prompts = shared_prefix_prompts(cfg, (300, 500, 200), (1500, 700, 1010),
+                                    shared=512)
+    classes = ("batch", "batch", "batch", "interactive", "standard",
+               "interactive")
+
+    def drive(eng, check):
+        b = eng.make_batcher()
+        pf, df = eng.step_fns(sp)
+        done = []
+        for i in range(3):
+            b.submit(Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
+                             sampling=sp, priority=classes[i]))
+        ticks = 0
+        while b.busy or ticks <= 6:
+            if ticks == 6:
+                for i in range(3, len(prompts)):
+                    b.submit(Request(rid=i,
+                                     prompt=np.asarray(prompts[i], np.int32),
+                                     sampling=sp, priority=classes[i]))
+            done.extend(b.tick(pf, df))
+            eng.on_tick(b)
+            ticks += 1
+            st = b.stats
+            if check and st.completed + st.rejected + st.failed != len(done):
+                fail(f"chaos: at tick {ticks} completed {st.completed} + "
+                     f"rejected {st.rejected} + failed {st.failed} != "
+                     f"{len(done)} handed back")
+        return done, b, ticks
+
+    eng = build_engine(cfg, params, dev, prefix_cache=True,
+                       num_kv_blocks=CHAOS_BLOCKS, preemption=True)
+    clean, _, _ = drive(eng, False)
+    clean = {r.rid: r.generated for r in clean}
+    del eng
+    free_card()
+    plan = FaultPlan.random(seed=0, rate=0.05)
+    inj = FaultInjector(plan)
+    eng = build_engine(cfg, params, dev, injector=inj, prefix_cache=True,
+                       num_kv_blocks=CHAOS_BLOCKS, preemption=True,
+                       admission="slo", audit_every=1)
+    t0 = time.time()
+    done, b, ticks = drive(eng, True)
+    failed = fault_report("chaos", eng, done)
+    ok = [r.rid for r in done if r.done and not r.failed and not r.rejected]
+    same = {rid: clean[rid] == next(r.generated for r in done
+                                    if r.rid == rid) for rid in ok}
+    seams = sorted({e["seam"] for e in inj.events})
+    print(f"faults[chaos]: {len(plan.specs)} specs, {len(inj.events)} fired "
+          f"({seams}); {ticks} ticks in {time.time() - t0:.2f} s, every tick "
+          f"audited ({eng.fault_stats['audits']} clean audits); completed "
+          f"{len(ok)}, rejected {b.stats.rejected}, failed {sorted(failed)}, "
+          f"preempted {b.stats.preempted}, swap discards "
+          f"{b.stats.swap_discards}; completed == clean {same}")
+    if sorted(r.rid for r in done) != list(range(len(prompts))):
+        fail("chaos: a request was not handed back")
+    if not all(same.values()):
+        fail("chaos: a completed request's tokens differ from the clean "
+             "serve's")
+    del eng, b
+    free_card()
+
+
+def fault_smoke_parity(dev) -> None:
+    """Phase 13.9: SMOKE float32 (paged, bf16 cache): a ``kv_corrupt``
+    serve fails the same request with the same tokens for the others on
+    the card as on the CPU, and a serve saved, freed and restored on the
+    card gives the CPU's uninterrupted tokens."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving.faults import FaultSpec
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.snapshot import restore_serving, save_serving
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=1, device=dev)
+    cpu = torch.device("cpu")
+    weights = {dev: params, cpu: to_device(params, cpu)}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (300, 40, 520, 129)]
+    sp = SamplingParams(max_tokens=12)
+    ecfg = EngineConfig(max_seq_len=1024, num_slots=4, budget_per_head=256)
+    curves = synthetic_head_curves(cfg.num_layers, cfg.num_heads)
+
+    def engine(d, inj=None):
+        return Engine(cfg, weights[d], dataclasses.replace(ecfg), curves,
+                      device=d, injector=inj)
+
+    outs = {}
+    for name, d in (("cpu", cpu), ("card", dev)):
+        eng = engine(d, armed(FaultSpec(seam="kv_corrupt", after=2)))
+        done = eng.serve(prompts, sp)
+        outs[name] = ({r.rid: r.fail_reason for r in done if r.failed},
+                      {r.rid: r.generated for r in done})
+    print(f"smoke f32 kv_corrupt: failed {outs['cpu'][0]} on the CPU, "
+          f"{outs['card'][0]} on the card; tokens "
+          f"{'==' if outs['cpu'] == outs['card'] else '!='}")
+    if outs["cpu"] != outs["card"] or len(outs["cpu"][0]) != 1:
+        fail("smoke f32 kv_corrupt: card and CPU outcomes differ")
+    want = {r.rid: r.generated for r in engine(cpu).serve(prompts, sp)}
+    eng = engine(dev)
+    b = eng.make_batcher()
+    pf, df = eng.step_fns(sp)
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=np.asarray(p, np.int32), sampling=sp))
+    done = []
+    tick_until(eng, b, pf, df, done,
+               lambda b: eng._decode_ticks >= SNAPSHOT_TICK and b.active)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    try:
+        path = save_serving(tmp, eng, b)
+        del eng, b, pf, df
+        free_card()
+        eng, b = restore_serving(path, cfg, params, dataclasses.replace(ecfg),
+                                 curves, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pf, df = eng.step_fns(sp)
+    tick_until(eng, b, pf, df, done, lambda b: False)
+    got = {r.rid: r.generated for r in done}
+    print(f"smoke f32 restored on the card: tokens "
+          f"{'==' if got == want else '!='} the CPU's uninterrupted serve")
+    if got != want:
+        fail("smoke f32: the card's restored serve differs from the CPU's")
+    del eng, b, pf, df
+    free_card()
+
+
+def fault_phases(cfg, params, dev, default_tokens) -> None:
+    """Phase 13 for SmolLM-135M (the secondary serves at ``CUT_LAYERS``)."""
+    t0 = time.time()
+    run_disabled(cfg, params, dev, default_tokens)
+    cut = cut_depth(cfg, params, cfg.name)
+    cleans = run_kv_corrupt(cfg, params, dev, cut)
+    scrub_control(*cut, dev, cleans["paged,bf16,cut"])
+    run_poison(*cut, dev, cleans["paged,bf16,cut"])
+    run_swap_faults(*cut, dev)
+    run_epoch_rollback(*cut, dev)
+    run_restores(cfg, params, dev, cut, cleans)
+    run_shared_corrupt(*cut, dev)
+    run_chaos(*cut, dev)
+    fault_smoke_parity(dev)
+    print(f"fault phases ({cfg.name}): {time.time() - t0:.1f} s")
+
+
 def model_phases(dev, gen, results, sh: Shapes):
     """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
     f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
@@ -3140,12 +3830,13 @@ def main() -> int:
     print(f"profiling and overload phases ({cfg.name}): "
           f"{time.time() - t0:.1f} s")
     seq_prefix_phases(cfg, params, dev, SMOL)
+    fault_phases(cfg, params, dev, tokens["paged,packed"])
     del params
 
     for sh in (YI, GEMMA):
         launches.update(model_phases(dev, gen, results, sh))
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the device "
-          f"check")
+          f"check (PR 27's final call: 777.2 s)")
 
     src = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

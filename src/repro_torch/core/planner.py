@@ -1,7 +1,9 @@
 """S-HPLB deployment planner: budgets + partitioning -> executable plan.
 A copy of the reference package's ``core/planner.py``: plan construction,
 the composable deltas between plan epochs (``plans_equal``,
-``plan_delta``, ``PlanDelta``) and the weight permutation.
+``plan_delta``, ``PlanDelta``), the weight permutation and the plan's JSON
+form (``HPLBPlan.to_json`` / ``from_json``, which a serving snapshot
+carries).
 
 Placement is a head permutation applied once to the attention projections:
 device ``d`` owns the permuted head slots ``[d*Hd, (d+1)*Hd)``.  Under GQA
@@ -11,6 +13,7 @@ budgets), partitioned under an equal-count constraint.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Sequence
 
 import numpy as np
@@ -78,6 +81,63 @@ class HPLBPlan:
     def device_of_slot(self, slot: int) -> int:
         heads_per_dev = self.num_heads // self.num_devices
         return slot // heads_per_dev
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "num_devices": self.num_devices,
+                "num_heads": self.num_heads,
+                "num_kv_heads": self.num_kv_heads,
+                "block": self.block,
+                "seq_len": self.seq_len,
+                "mode": self.mode,
+                "partitioner": self.partitioner,
+                "allocator": self.allocator,
+                "epoch": self.epoch,
+                "layers": [
+                    {
+                        "perm": lp.perm.tolist(),
+                        "budgets": lp.budgets.tolist(),
+                        "kv_perm": lp.kv_perm.tolist(),
+                        "device_loads": lp.device_loads.tolist(),
+                    }
+                    for lp in self.layers
+                ],
+            }
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "HPLBPlan":
+        d = json.loads(s)
+        layers = []
+        for lp in d["layers"]:
+            perm = np.asarray(lp["perm"], np.int64)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+            loads = np.asarray(lp["device_loads"], np.int64)
+            layers.append(
+                LayerPlan(
+                    perm=perm,
+                    inv_perm=inv,
+                    budgets=np.asarray(lp["budgets"], np.int64),
+                    kv_perm=np.asarray(lp["kv_perm"], np.int64),
+                    device_loads=loads,
+                    assignment=Assignment(
+                        np.zeros(0, np.int64), loads, "loaded"),
+                )
+            )
+        return HPLBPlan(
+            layers=layers,
+            num_devices=d["num_devices"],
+            num_heads=d["num_heads"],
+            num_kv_heads=d["num_kv_heads"],
+            block=d["block"],
+            seq_len=d["seq_len"],
+            mode=d["mode"],
+            partitioner=d["partitioner"],
+            allocator=d["allocator"],
+            epoch=int(d.get("epoch", 0)),
+        )
 
 
 # ---------------------------------------------------------------------------

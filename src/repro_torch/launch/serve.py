@@ -9,7 +9,9 @@
         --top-p 0.95 --sample-seed 0] [--telemetry-every 4 \
         --replan-every 16 --drift-threshold 0.5] [--admission fifo|slo \
         --preemption --host-blocks N --kv-blocks N] [--seq-shards S] \
-        [--prefix-cache] [--profile]
+        [--prefix-cache] [--fault-plan PLAN --audit-every N \
+        --swap-retries N --checkpoint-dir DIR --checkpoint-every N] \
+        [--profile]
 
 Weights and prompts are random, drawn from ``--seed``; the sparsity profile
 is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
@@ -33,7 +35,15 @@ pass a stripe, partials merged).  ``--prefix-cache`` shares the KV blocks of
 cached prompt prefixes by refcount, and the traffic becomes the
 reference's agent pattern: four requests in five continue one shared
 256-token prompt with a tail of 16-47 tokens, the fifth is a unique prompt
-of 32-127 tokens (``--requests`` of them; not with ``--prompt-lens``).  The
+of 32-127 tokens (``--requests`` of them; not with ``--prompt-lens``).
+Faults (§2.13): ``--fault-plan`` arms a fault injector from a JSON file, an
+inline JSON string or ``random:SEED:RATE`` (a seeded schedule over all six
+seams); ``--audit-every N`` audits the engine every N decode ticks and at
+swap and replan boundaries; ``--swap-retries`` bounds a swap transfer's
+retries; ``--checkpoint-dir`` / ``--checkpoint-every N`` write a snapshot
+every N decode ticks.  Then a ``faults:`` line gives the injected events,
+the failed requests and the fault counters, and each failed request its
+reason.  The
 default device is CUDA; ``--device cpu`` runs every kernel's plain PyTorch version.
 After the serve it prints the plan's imbalance (sparse) and the decode
 grid's bubble stats (``Engine.decode_bubble_stats``: with the plan's epoch,
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -58,6 +69,7 @@ from repro_torch.core.planner import plan_summary
 from repro_torch.core.sparsity import synthetic_head_curves
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
+from repro_torch.serving.faults import FaultInjector, FaultPlan
 
 
 def main(argv=None) -> list:
@@ -119,6 +131,22 @@ def main(argv=None) -> list:
                     help="share cached prompt-prefix KV blocks by refcount "
                          "(paged); the traffic continues one shared prompt "
                          "in 80%% of requests")
+    ap.add_argument("--fault-plan", default=None,
+                    help="fault-injection plan: a JSON file, an inline "
+                         "JSON string, or 'random:SEED:RATE' for a seeded "
+                         "schedule over all seams")
+    ap.add_argument("--audit-every", type=int, default=defaults.audit_every,
+                    help="audit the engine's invariants every N decode "
+                         "ticks and at swap / replan boundaries (0 = off)")
+    ap.add_argument("--swap-retries", type=int,
+                    default=defaults.swap_retries,
+                    help="retries of a host swap transfer before the "
+                         "victim is discarded and requeued")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory of crash-consistent serving snapshots")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot every N decode ticks into "
+                         "--checkpoint-dir (0 = off)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default=None,
                     help="comma-separated prompt lengths (overrides "
@@ -135,6 +163,11 @@ def main(argv=None) -> list:
         ap.error("--seq-shards must be >= 1")
     if args.prefix_cache and args.prompt_lens:
         ap.error("--prefix-cache draws its own traffic; drop --prompt-lens")
+    if args.checkpoint_every > 0 and not args.checkpoint_dir:
+        ap.error("--checkpoint-every needs --checkpoint-dir")
+    injector = None
+    if args.fault_plan:
+        injector = FaultInjector(fault_plan(args.fault_plan))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to run the "
@@ -159,9 +192,13 @@ def main(argv=None) -> list:
                               host_swap_blocks=args.host_blocks,
                               num_kv_blocks=args.kv_blocks,
                               seq_shards=args.seq_shards,
-                              prefix_cache=args.prefix_cache),
+                              prefix_cache=args.prefix_cache,
+                              audit_every=args.audit_every,
+                              swap_retries=args.swap_retries,
+                              checkpoint_dir=args.checkpoint_dir,
+                              checkpoint_every=args.checkpoint_every),
                  synthetic_head_curves(cfg.num_layers, cfg.num_heads),
-                 device=device)
+                 device=device, injector=injector)
     rng = np.random.default_rng(args.seed)
     lens = ([int(n) for n in args.prompt_lens.split(",")]
             if args.prompt_lens else
@@ -214,9 +251,38 @@ def main(argv=None) -> list:
         print(f"prefix cache: {ps['hits']}/{ps['lookups']} lookups hit "
               f"({ps['hit_tokens']} tokens mapped for free), {ps['nodes']} "
               f"blocks in tree, {ps['evicted_blocks']} evicted")
+    n_failed = sum(1 for r in done if r.failed)
+    if injector is not None or args.audit_every or n_failed:
+        print(faults_line(bs, n_failed))
+        for r in done:
+            if r.failed:
+                print(f"  rid {r.rid} failed: {r.fail_reason}")
     if args.profile:
         _print_profile(prof, dt)
     return done
+
+
+def fault_plan(spec: str) -> FaultPlan:
+    """``--fault-plan``: ``random:SEED:RATE``, a JSON file, or inline
+    JSON."""
+    if spec.startswith("random:"):
+        _, seed, rate = spec.split(":")
+        return FaultPlan.random(int(seed), float(rate))
+    if os.path.exists(spec):
+        return FaultPlan.load(spec)
+    return FaultPlan.from_json(spec)
+
+
+def faults_line(bs: dict, n_failed: int) -> str:
+    """One line of ``decode_bubble_stats``' fault counters."""
+    fs = bs["faults"]
+    return (f"faults: {bs['injected_events']} injected events, {n_failed} "
+            f"failed requests, {fs['sentinel_trips']} sentinel trips, "
+            f"{fs['corruptions_injected']} corruptions, "
+            f"{fs['swap_retries']} swap retries ({fs['swap_recoveries']} "
+            f"recovered / {fs['swap_giveups']} gave up), {fs['audits']} "
+            f"clean audits, {fs['replan_rollbacks']} replan rollbacks, "
+            f"{fs['checkpoints']} checkpoints")
 
 
 def agent_prompts(rng, vocab: int, n: int, shared_tokens: int = 256):

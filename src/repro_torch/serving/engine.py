@@ -63,10 +63,34 @@ starts its prefill at the first block that differs; the tree outlives a
 ``serve`` call, drains under pool pressure before preemption, and is
 flushed at an epoch swap.  A swapped-out hit keeps its shared prefix
 resident and moves only its private tail.
+
+Faults and self-healing (§2.13): ``Engine(..., injector=)`` takes a
+:class:`~repro_torch.serving.faults.FaultInjector` whose six seams fire at
+the reference's points (swap transfers, admission growth, KV corruption
+before a decode step, the epoch swap, a prefill's logits), each guarded by
+``injector.enabled``, so an engine without one runs exactly as before.
+``sentinels`` (default on) checks every sampled row's logits for
+non-finite values on the device and brings the flags back in the same
+copy as the tokens; a flagged slot is quarantined (``take_quarantine``)
+and the scheduler fails only that request, whose blocks
+:meth:`Engine._release_seq` scrubs (codes 0, scales 1) before they free:
+the decode kernels multiply a masked key's zero weight into its value row,
+so a stale NaN in a recycled block would poison its next tenant.  The
+probe's health bit quarantines too (``probe_nonfinite``).  Swap transfers
+retry ``swap_retries`` times (``swap_backoff_s`` doubling), then the
+scheduler discards and requeues the victim; ``audit`` checks the allocator,
+the pool's shapes, the host tier and the prefix tree every
+``audit_every`` decode ticks and at swap and replan boundaries; an epoch
+swap builds its permuted weights and gathered pool before it commits any,
+so a failed one leaves the old epoch serving (``replan_rollbacks``);
+``checkpoint_dir`` / ``checkpoint_every`` write crash-consistent snapshots
+(:mod:`repro_torch.serving.snapshot`) at safe points.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -84,11 +108,15 @@ from repro_torch.core.worklist import (
     extend_packed_items, pack_decode_items, pack_decode_items_2d,
     pow2_bucket, worklist_from_budgets)
 from repro_torch.models import transformer as tfm
+from repro_torch.serving.faults import (
+    EpochSwapError, FaultInjector, IntegrityError, TransferError)
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.prefix_tree import RadixPrefixCache
 from repro_torch.serving.sampler import SamplingParams, sample
 from repro_torch.serving.scheduler import (
     DEFAULT_CLASSES, ContinuousBatcher, Request)
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -143,6 +171,23 @@ class EngineConfig:
     # whole-block prefix by refcount and prefills from the divergence;
     # unreferenced cached blocks evict (LRU) before preemption
     prefix_cache: bool = False
+    # -- faults (§2.13) ----------------------------------------------------
+    # per-step numerical sentinels: every sampled row's logits are checked
+    # for NaN / Inf on the device, the flags riding the tokens' copy; a
+    # flagged sequence alone is quarantined
+    sentinels: bool = True
+    # host swap transfers retry this many times, the backoff doubling from
+    # swap_backoff_s (0 = no sleep), before the scheduler discards the
+    # victim and requeues it
+    swap_retries: int = 3
+    swap_backoff_s: float = 0.0
+    # invariant audits every N decode ticks, plus swap and replan
+    # boundaries; 0 = off.  A violation raises IntegrityError
+    audit_every: int = 0
+    # crash-consistent snapshots every N decode ticks at a safe point into
+    # checkpoint_dir; None / 0 = off
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for option values the port does
@@ -173,13 +218,15 @@ class Engine:
     ``device`` holds the params and the KV pool; it defaults to CUDA and
     the engine raises when CUDA is absent.  Pass ``device="cpu"`` to run
     every kernel's plain PyTorch version instead.  ``profile`` is required
-    for sparse attention; dense attention plans nothing.
+    for sparse attention; dense attention plans nothing.  ``injector``
+    arms the fault seams (None: none fires).
     """
 
     def __init__(self, cfg: TransformerConfig, params: dict,
                  engine_cfg: EngineConfig,
                  profile: HeadSparsityProfile | None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 injector: FaultInjector | None = None):
         engine_cfg.check_supported()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -202,6 +249,24 @@ class Engine:
                                       block_kv=ecfg.block)
         self.cfg = cfg
         self.ecfg = ecfg
+        # faults: every seam guards on ``injector is None or not
+        # injector.enabled`` before touching anything
+        self.injector = injector
+        # slots the sentinels flagged this step, drained by the scheduler
+        # (sentinel_fn) right after the step returns
+        self._quarantine: dict[int, str] = {}
+        self.fault_stats = {
+            "sentinel_trips": 0,       # slots quarantined by sentinels
+            "swap_faults": 0,          # transfer attempts that faulted
+            "swap_retries": 0,         # retry attempts issued
+            "swap_recoveries": 0,      # transfers healed by a retry
+            "swap_giveups": 0,         # retries exhausted -> TransferError
+            "audits": 0,               # invariant audits run (all passed)
+            "replan_rollbacks": 0,     # epoch swaps rolled back
+            "corruptions_injected": 0,  # kv_corrupt seam firings
+            "checkpoints": 0,          # snapshots written
+        }
+        self._last_audit_activity = -1  # forces an audit on the first tick
         if self.sparse and cfg.num_kv_heads % ecfg.num_model_shards:
             raise NotImplementedError(
                 f"EngineConfig.num_model_shards={ecfg.num_model_shards} is "
@@ -260,6 +325,8 @@ class Engine:
                     cfg, n, device=self.device)) if self.quantized
                     else None),
                 host_blocks=ecfg.host_swap_blocks, stripes=ecfg.seq_shards)
+            # the allocator fires the admission_alloc seam inside _grow
+            self.kv.alloc.injector = injector
         else:
             # every slot reserves a max_seq_len row; chunks build in a
             # one-sequence staging cache (the scheduler prefills one
@@ -721,6 +788,11 @@ class Engine:
             # overload (§2.10): host-tier swap volume and the scheduler's
             # per-class admission / preemption counters
             "swap": dict(self.swap_stats),
+            # faults (§2.13): sentinel trips, swap retry outcomes, audits,
+            # rollbacks, and the injected fault count beside them
+            "faults": dict(self.fault_stats),
+            "injected_events": (len(self.injector.events)
+                                if self.injector is not None else 0),
             "per_class": ({k: dict(v) for k, v in
                            self._batcher.stats.per_class.items()}
                           if self._batcher is not None else {}),
@@ -752,9 +824,16 @@ class Engine:
         """Fold a probe's samples of the rows whose estimator forward stayed
         finite into the estimator, in ORIGINAL head order: the probe ran on
         permuted weights, so its head h is slot h, original head
-        ``perm[h]`` of the layer's plan."""
+        ``perm[h]`` of the layer's plan.  With ``sentinels`` a row whose
+        estimator forward went non-finite is quarantined
+        (``probe_nonfinite``) even if its logits look clean this tick."""
         rec, frac, fin, rows = pending
         fin = fin.cpu().numpy()
+        if self.ecfg.sentinels:
+            for r in rows:
+                if not fin[r] and int(r) not in self._quarantine:
+                    self._quarantine[int(r)] = "probe_nonfinite"
+                    self.fault_stats["sentinel_trips"] += 1
         rows = [r for r in rows if fin[r]]
         if not rows:
             return
@@ -812,7 +891,8 @@ class Engine:
         The allocator warm-starts from the live plan's budgets.  ``plan``
         skips planning and swaps onto that plan (its geometry must be the
         engine's).  A plan equal to the live one (placement and budgets)
-        changes nothing and returns False."""
+        changes nothing and returns False, as does a swap that failed and
+        rolled back (``fault_stats["replan_rollbacks"]``)."""
         if self.plan is None:
             raise ValueError("replanning needs a sparse engine")
         self._ticks_since_replan = 0
@@ -831,7 +911,16 @@ class Engine:
                 prev_plan=self.plan, epoch=self.epoch + 1)
         if plans_equal(self.plan, new_plan):
             return False
-        self._apply_epoch(new_plan)
+        try:
+            self._apply_epoch(new_plan)
+        except EpochSwapError as e:
+            # nothing was committed: the old epoch keeps serving and the
+            # next policy trigger retries
+            self.fault_stats["replan_rollbacks"] += 1
+            log.warning("epoch swap failed (%s); keeping epoch %d serving",
+                        e, self.epoch)
+            return False
+        self.maybe_audit(boundary=True)
         if profile is not None:
             self._plan_profile = profile
         return True
@@ -842,20 +931,42 @@ class Engine:
         scales together) and compose it into ``_kv_arrange``, bump the
         epoch, purge the memos of the dead epoch and flush the prefix tree.
         The staging row of the contiguous layout holds no live sequence at a
-        safe point, so it is not gathered."""
+        safe point, so it is not gathered.
+
+        Commit last: the ``epoch_swap`` seam fires before anything, and the
+        permuted weights and the gathered cache are built beside the live
+        ones and adopted together at the end, so a failure part way (the
+        seam, or the card running out of memory for the gathered pool)
+        raises :class:`EpochSwapError` with the old epoch intact."""
+        inj = self.injector
+        if inj is not None and inj.enabled:
+            if inj.fire("epoch_swap") is not None:
+                raise EpochSwapError(
+                    "epoch_swap", f"injected swap failure at epoch "
+                    f"{self.epoch} -> {new_plan.epoch}")
         delta = plan_delta(self.plan, new_plan)
+        new_params, new_cache, new_arrange = self.params, None, None
         if not delta.identity:
-            self.params = self._permute_params(self.params,
-                                               layer_plans=delta.layers)
-            kv_tbl = delta.kv_perm_table()
-            if not (kv_tbl == np.arange(kv_tbl.shape[1])).all():
-                self._permute_cache(kv_tbl)
-                # fold the gather into the cumulative arrangement: slot h
-                # now holds what slot kv_tbl[l, h] held.  Host copies of
-                # swapped-out sequences are not touched here; swap-in
-                # re-arranges them against this record exactly once
-                self._kv_arrange = np.take_along_axis(
-                    self._kv_arrange, np.asarray(kv_tbl), axis=1)
+            try:
+                new_params = self._permute_params(self.params,
+                                                  layer_plans=delta.layers)
+                kv_tbl = delta.kv_perm_table()
+                if not (kv_tbl == np.arange(kv_tbl.shape[1])).all():
+                    new_cache = self._permute_cache(kv_tbl)
+                    # the cumulative arrangement: slot h then holds what
+                    # slot kv_tbl[l, h] held.  Host copies of swapped-out
+                    # sequences are not touched; swap-in re-arranges them
+                    # against this record exactly once
+                    new_arrange = np.take_along_axis(
+                        self._kv_arrange, np.asarray(kv_tbl), axis=1)
+            except torch.cuda.OutOfMemoryError as e:
+                raise EpochSwapError("epoch_swap", f"out of device memory "
+                                     f"building epoch {new_plan.epoch}: "
+                                     f"{e}") from e
+        self.params = new_params
+        if new_cache is not None:
+            self._adopt_cache(*new_cache)
+            self._kv_arrange = new_arrange
         self.plan = new_plan
         self.epoch = new_plan.epoch
         self.replans += 1
@@ -868,20 +979,29 @@ class Engine:
             # now, shared ones as their holders finish)
             self.prefix.flush()
 
-    def _permute_cache(self, kv_tbl: np.ndarray) -> None:
-        """Gather the resident cache's kv-head axis by ``kv_tbl [L, Hkv]``
-        (new slot -> previous slot), its scales with it."""
+    def _live_cache(self):
+        """``(codes, scales)`` of the resident cache: the pool (paged) or
+        the slot cache (contiguous); scales None at full precision."""
         if self.paged:
-            pool, scales = self.kv.pool, self.kv.scales
-            self.kv.replace_pool(
-                tfm.permute_cache_kv_heads(pool, kv_tbl),
+            return self.kv.pool, self.kv.scales
+        return self.cache, self.cache_scales
+
+    def _permute_cache(self, kv_tbl: np.ndarray):
+        """The resident cache's kv-head axis gathered by ``kv_tbl [L,
+        Hkv]`` (new slot -> previous slot), its scales with it: new tensors
+        ``(codes, scales)``, the live ones untouched."""
+        codes, scales = self._live_cache()
+        return (tfm.permute_cache_kv_heads(codes, kv_tbl),
                 None if scales is None
                 else tfm.permute_cache_scales(scales, kv_tbl))
+
+    def _adopt_cache(self, codes, scales) -> None:
+        """Make ``(codes, scales)`` the resident cache (same shapes and
+        dtypes as the live one)."""
+        if self.paged:
+            self.kv.replace_pool(codes, scales)
         else:
-            self.cache = tfm.permute_cache_kv_heads(self.cache, kv_tbl)
-            if self.cache_scales is not None:
-                self.cache_scales = tfm.permute_cache_scales(
-                    self.cache_scales, kv_tbl)
+            self.cache, self.cache_scales = codes, scales
 
     def _purge_plan_memos(self) -> None:
         """Drop every host memo derived from a plan epoch's budgets (work
@@ -1024,7 +1144,9 @@ class Engine:
         :meth:`BlockAllocator.swap_split`, stays resident for its other
         holders and is not copied); contiguous: slice its slot rows (whole
         blocks: the tokens past ``resident`` ride along, masked by
-        position)."""
+        position).  The transfer gate fires first: a give-up leaves no host
+        record and no pinned buffer."""
+        self._transfer_gate("swap_out_transfer", rid)
         self._reap_transfers()
         blk = self.ecfg.block
         sdata = None
@@ -1073,7 +1195,9 @@ class Engine:
         re-arranged here on the device: exactly once, against the
         cumulative arrangement, codes and scales alike (the retained
         prefix never left the pool, so the epoch gather already moved
-        it)."""
+        it).  The transfer gate fires before the host record is taken, so a
+        give-up keeps the copy for the scheduler's discard."""
+        self._transfer_gate("swap_in_transfer", rid)
         self._reap_transfers()
         rec = self._host_swaps.pop(rid)
         if rec["tokens"] != resident:
@@ -1120,6 +1244,257 @@ class Engine:
         st["blocks_in"] += nblk
         st["bytes_in"] += _nbytes(data) + _nbytes(sdata)
 
+    # -- faults: transfer gate, sentinels, seams, scrub, audits (§2.13) -------
+    def _transfer_gate(self, seam: str, rid: int) -> None:
+        """Bounded retry with backoff around a host <-> device transfer:
+        each attempt re-fires ``seam``, so a spec hitting ``times <=
+        swap_retries`` attempts heals and one past the budget raises
+        :class:`TransferError` (the scheduler discards and requeues).  Fires
+        before any device work, so nothing is left half moved."""
+        inj = self.injector
+        if inj is None or not inj.enabled:
+            return
+        retries = self.ecfg.swap_retries
+        for attempt in range(retries + 1):
+            spec = inj.fire(seam, rid=rid)
+            if spec is None:
+                if attempt:
+                    self.fault_stats["swap_recoveries"] += 1
+                    log.info("%s rid=%d recovered on retry %d", seam, rid,
+                             attempt)
+                return
+            if spec.mode == "delay":
+                time.sleep(spec.value)
+                return
+            self.fault_stats["swap_faults"] += 1
+            if attempt < retries:
+                self.fault_stats["swap_retries"] += 1
+                if self.ecfg.swap_backoff_s > 0:
+                    time.sleep(self.ecfg.swap_backoff_s * (2 ** attempt))
+        self.fault_stats["swap_giveups"] += 1
+        raise TransferError(
+            seam, f"transfer failed after {retries + 1} attempts", rid=rid)
+
+    def take_quarantine(self) -> dict[int, str]:
+        """Drain the sentinel flags raised by the last step (the batcher's
+        ``sentinel_fn``): ``{slot: fail_reason}``, then cleared."""
+        got, self._quarantine = self._quarantine, {}
+        return got
+
+    def _sample(self, logits: torch.Tensor, sampling: SamplingParams,
+                row_slots) -> np.ndarray:
+        """Sample ``logits [B, V]`` on the device and return the tokens on
+        the host.  With ``sentinels``, each row's all-finite flag is
+        computed on the device and crosses in the same copy as the tokens
+        (one transfer a step, as without the check); a row of
+        ``row_slots`` ((row, slot) pairs) with a non-finite logit flags its
+        slot ``nonfinite_logits``."""
+        toks = sample(logits, sampling, self.rng)
+        if not self.ecfg.sentinels:
+            return toks.cpu().numpy()
+        fin = torch.isfinite(logits).all(dim=-1).to(toks.dtype)
+        toks, fin = torch.stack([toks, fin]).cpu().numpy()
+        for row, s in row_slots:
+            if not fin[row] and int(s) not in self._quarantine:
+                self._quarantine[int(s)] = "nonfinite_logits"
+                self.fault_stats["sentinel_trips"] += 1
+        return toks
+
+    def _poison_gate(self, logits: torch.Tensor, slot: int) -> torch.Tensor:
+        """``poison_request`` seam: a fired spec turns THIS prefill's logits
+        into NaN (a request whose inputs drive the network into garbage);
+        the sentinel must catch it.  A rid-scoped spec poisons only its
+        victim."""
+        inj = self.injector
+        if inj is None or not inj.enabled:
+            return logits
+        rid = None
+        if self._batcher is not None:
+            try:
+                rid = self._batcher.rid_of_slot(slot)
+            except KeyError:
+                rid = None
+        spec = inj.fire("poison_request", rid=rid)
+        if spec is None:
+            return logits
+        if spec.rid is not None and rid is not None and spec.rid != rid:
+            return logits
+        return torch.full_like(logits, torch.nan)
+
+    def _maybe_corrupt(self, slots) -> None:
+        """``kv_corrupt`` seam, before a decode step (and its probe): set
+        one victim's OLDEST block (paged; its slot row, contiguous) to NaN
+        / Inf on the VALUE plane, the codes of a full-precision cache or
+        the scales of a quantized one.  The first block always holds
+        attended prompt tokens, so the fault shows this tick; a value keeps
+        the scores finite and rides the accumulator into the victim's
+        logits (a poisoned key would make ``l`` non-finite, which the
+        kernels' masked-row guard zeroes).  With the prefix cache the
+        oldest block may be shared: every holder then trips its sentinel."""
+        inj = self.injector
+        if inj is None or not inj.enabled:
+            return
+        spec = inj.fire("kv_corrupt")
+        if spec is None:
+            return
+        slots = list(slots)
+        if not slots:
+            return
+        victim = slots[0]
+        if spec.rid is not None and self._batcher is not None:
+            for s in slots:
+                if self._batcher.rid_of_slot(s) == spec.rid:
+                    victim = s
+                    break
+        bad = torch.inf if spec.mode == "inf" else torch.nan
+        codes, scales = self._live_cache()
+        if self.paged:
+            rid = (self._batcher.rid_of_slot(victim)
+                   if self._batcher is not None else None)
+            ids = self.kv.alloc.table(rid) if rid is not None else []
+            if not ids:
+                return
+            at = int(ids[0])
+        else:
+            at = victim
+        if scales is not None:
+            scales[:, 1, at] = bad
+        else:
+            codes[:, 1, at] = bad
+        self.fault_stats["corruptions_injected"] += 1
+        log.warning("injected kv_corrupt (%s) into slot %d", spec.mode,
+                    victim)
+
+    def _release_seq(self, rid: int, slot: int | None) -> None:
+        """Batcher ``on_fail_fn``, for a quarantined or discarded sequence
+        while its block table is valid: drop its host copy and SCRUB its
+        blocks (codes 0, scales 1) before they recycle.  The decode kernels
+        multiply a masked key's zero weight into its value row (0 x NaN is
+        NaN), so a stale NaN in a block handed to a later sequence would
+        poison it.  The scrub is queued on the stream ahead of any later
+        write.  Prefix sharing: only blocks about to free are scrubbed, not
+        one another holder references or the tree keeps (the fault path
+        invalidates the tree first, so a corrupted block is uncached by
+        now and is scrubbed when its last holder drops it)."""
+        rec = self._host_swaps.pop(rid, None)
+        if rec is not None and rec["event"] is not None:
+            rec["event"].synchronize()    # its pinned buffer may be in use
+        codes, scales = self._live_cache()
+        if self.paged:
+            alloc = self.kv.alloc
+            ids = [b for b in alloc.table(rid)
+                   if alloc.refcount(b) == 1 and not alloc.is_cached(b)]
+            if not ids:
+                return
+            at = torch.tensor(ids, dtype=torch.long, device=self.device)
+        elif slot is not None:
+            at = slot
+        else:
+            return
+        _bits(codes)[:, :, at] = 0
+        if scales is not None:
+            scales[:, :, at] = 1.0
+
+    def audit(self, strict: bool = True) -> list[str]:
+        """Engine-level invariant audit: the allocator's two-tier
+        conservation, refcount, stripe and double-map checks, the pool's
+        shapes, the host tier (every allocator-swapped sequence has exactly
+        one host copy whose tokens and retained prefix agree) and the
+        prefix tree's pins.  Returns the violations; ``strict`` raises
+        :class:`IntegrityError` on any."""
+        if self.paged:
+            fails = self.kv.audit(strict=False)
+            alloc = self.kv.alloc
+        else:
+            alloc = (self._batcher.alloc if self._batcher is not None
+                     else None)
+            fails = alloc.audit(strict=False) if alloc is not None else []
+            if (self.cache_scales is not None and tuple(
+                    self.cache_scales.shape[:4]) != tuple(
+                        self.cache.shape[:4])):
+                fails.append(
+                    f"contiguous scales shape "
+                    f"{tuple(self.cache_scales.shape)} disagrees with cache "
+                    f"{tuple(self.cache.shape)}")
+        if alloc is not None:
+            swapped = set(alloc.swapped_seqs)
+            held = set(self._host_swaps)
+            for rid in sorted(swapped - held):
+                fails.append(f"seq {rid} swapped-out in allocator but has "
+                             "no host copy")
+            for rid in sorted(held - swapped):
+                fails.append(f"seq {rid} has a host copy but is not "
+                             "swapped-out in the allocator")
+            for rid in sorted(swapped & held):
+                rec = self._host_swaps[rid]
+                if alloc.host_tokens(rid) != rec["tokens"]:
+                    fails.append(
+                        f"seq {rid} host tokens disagree: allocator "
+                        f"{alloc.host_tokens(rid)} vs copy "
+                        f"{rec['tokens']}")
+                if self.paged:
+                    shn = rec.get("shared_blocks", 0)
+                    if shn != alloc.host_shared_blocks(rid):
+                        fails.append(
+                            f"seq {rid} retained-prefix disagree: "
+                            f"allocator {alloc.host_shared_blocks(rid)} "
+                            f"vs copy {shn}")
+                    want = alloc.blocks_needed(rec["tokens"]) - shn
+                    if rec["data"].shape[2] != want:
+                        fails.append(
+                            f"seq {rid} host payload holds "
+                            f"{rec['data'].shape[2]} blocks, expected "
+                            f"{want}")
+        if self.prefix is not None:
+            tree_ids = self.prefix.block_ids()
+            pinned = self.kv.alloc.cached_ids()
+            if tree_ids != pinned:
+                fails.append(
+                    f"prefix tree / allocator pin drift: tree-only "
+                    f"{sorted(tree_ids - pinned)}, alloc-only "
+                    f"{sorted(pinned - tree_ids)}")
+        if fails and strict:
+            raise IntegrityError(fails)
+        if not fails:
+            self.fault_stats["audits"] += 1
+        return fails
+
+    def maybe_audit(self, boundary: bool = False) -> None:
+        """Every ``audit_every`` decode ticks, and at a swap or replan
+        ``boundary``, when auditing is on."""
+        ae = self.ecfg.audit_every
+        if ae <= 0:
+            return
+        if boundary or (self._decode_ticks and self._decode_ticks % ae == 0):
+            self.audit(strict=True)
+
+    def _maybe_checkpoint(self, batcher) -> None:
+        """Every ``checkpoint_every`` decode ticks at a safe point (no
+        prefill in flight, the point epoch swaps use), write a snapshot
+        into ``checkpoint_dir``."""
+        ecfg = self.ecfg
+        if (not ecfg.checkpoint_dir or ecfg.checkpoint_every <= 0
+                or self._decode_ticks == 0
+                or self._decode_ticks % ecfg.checkpoint_every != 0
+                or not batcher.replan_safe):
+            return
+        from repro_torch.serving import snapshot  # it imports this module
+        snapshot.save_serving(ecfg.checkpoint_dir, self, batcher)
+        self.fault_stats["checkpoints"] += 1
+
+    def on_tick(self, batcher) -> None:
+        """The per-tick policy (:meth:`serve` wires it; a caller driving
+        ``tick`` may call it): the replan policy, audits (periodic, and at a
+        swap or replan boundary) and checkpoints at safe points."""
+        self._maybe_replan(batcher)
+        if self.ecfg.audit_every > 0:
+            activity = (self.swap_stats["swapped_out"]
+                        + self.swap_stats["swapped_in"] + self.replans)
+            boundary = activity != self._last_audit_activity
+            self._last_audit_activity = activity
+            self.maybe_audit(boundary=boundary)
+        self._maybe_checkpoint(batcher)
+
     # -- device steps ---------------------------------------------------------
     def prefill_into_slot(self, tokens: np.ndarray, slot: int,
                           sampling: SamplingParams = SamplingParams()) -> int:
@@ -1158,7 +1533,8 @@ class Engine:
             self.cache_scales[:, :, slot, :, :n // blk] = sc[:, :, 0]
         else:
             self.cache[:, :, slot, :, :seq.shape[4]] = seq[:, :, 0]
-        return int(sample(logits, sampling, self.rng)[0])
+        logits = self._poison_gate(logits, slot)
+        return int(self._sample(logits, sampling, [(0, slot)])[0])
 
     def prefill_chunk_into_slot(self, tokens: np.ndarray, slot: int,
                                 q_offset: int, prompt_len: int,
@@ -1205,7 +1581,8 @@ class Engine:
                 self.cache_scales[:, :, slot] = sc[:, :, 0]
             else:
                 self.cache[:, :, slot] = self._staging[:, :, 0]
-        return int(sample(logits, sampling, self.rng)[0])
+        logits = self._poison_gate(logits, slot)
+        return int(self._sample(logits, sampling, [(0, slot)])[0])
 
     def decode_slots(self, slots, tokens, positions,
                      sampling: SamplingParams = SamplingParams()):
@@ -1225,6 +1602,9 @@ class Engine:
         if self.paged:
             tbl = self._tick_table(slots)
             table = torch.from_numpy(tbl).to(dev)
+        # the kv_corrupt seam fires before the probe and the step, so both
+        # read the corrupted block
+        self._maybe_corrupt(slots)
         pending = None
         if (self.sparse and ecfg.telemetry_every > 0
                 and self._decode_ticks % ecfg.telemetry_every == 0):
@@ -1291,7 +1671,8 @@ class Engine:
             self._prefetch_next_plan()
         if pending is not None:
             self._fold_telemetry(pending)
-        return sample(logits, sampling, self.rng).cpu().numpy()[list(slots)]
+        return self._sample(logits, sampling,
+                            [(s, s) for s in slots])[list(slots)]
 
     def kv_bytes(self) -> int:
         """Resident device bytes of the KV cache: the pool's codes and
@@ -1313,7 +1694,8 @@ class Engine:
         takes no chunk budget (whole prompts at admission).  ``classes``
         overrides :data:`~repro_torch.serving.scheduler.DEFAULT_CLASSES`;
         the admission policy, preemption, the host tier's capacity and the
-        swap hooks come from the engine's config.  With ``prefix_cache``
+        swap hooks come from the engine's config; the sentinel drain and
+        the fail hook are always wired.  With ``prefix_cache``
         the radix tree is built on the first call and kept (it outlives a
         serve call, so cached prefixes stay warm), and the allocator drains
         it under pool pressure (``evict_fn``) before admission preempts."""
@@ -1334,7 +1716,12 @@ class Engine:
             host_blocks=ecfg.host_swap_blocks,
             swap_out_fn=self._swap_out_seq if ecfg.preemption else None,
             swap_in_fn=self._swap_in_seq if ecfg.preemption else None,
+            sentinel_fn=self.take_quarantine, on_fail_fn=self._release_seq,
             prefix_cache=self.prefix)
+        if not self.paged:
+            # the contiguous layout's allocator is the batcher's own
+            # accounting: wire the admission_alloc seam there
+            self._batcher.alloc.injector = self.injector
         return self._batcher
 
     def step_fns(self, sampling: SamplingParams = SamplingParams()):
@@ -1369,15 +1756,16 @@ class Engine:
         generated tokens, over-length (or, under SLO admission, shed) ones
         come back ``rejected``.  ``priorities`` names each prompt's
         :class:`~repro_torch.serving.scheduler.PriorityClass` (default
-        "standard").  The replan policy runs after every tick
-        (:meth:`_maybe_replan`)."""
+        "standard").  The per-tick policy (:meth:`on_tick`: replans, audits,
+        checkpoints) runs after every tick; a request a fault killed comes
+        back ``failed`` with its ``fail_reason``."""
         batcher = self.make_batcher()
         for i, pr in enumerate(prompts):
             batcher.submit(Request(
                 rid=i, prompt=np.asarray(pr, np.int32), sampling=sampling,
                 priority=priorities[i] if priorities else "standard"))
         done = batcher.run(*self.step_fns(sampling),
-                           on_tick=lambda: self._maybe_replan(batcher))
+                           on_tick=lambda: self.on_tick(batcher))
         self._reap_transfers(wait=True)
         return sorted(done, key=lambda r: r.rid)
 

@@ -30,6 +30,13 @@ The main-path subset of the reference's ``serving/kv_cache.py``:
   the private tail (ids generally differ: the engine restores the device
   copy by scatter).  A sequence is never accounted on both tiers, and the
   audit extends to the host tier.
+
+  Faults (§2.13): ``injector`` (a
+  :class:`~repro_torch.serving.faults.FaultInjector`, None by default)
+  fires the ``admission_alloc`` seam inside admission-time growth (admit
+  and swap-in, which roll back); :meth:`snapshot_state` /
+  :meth:`load_state` carry the whole accounting, free-list order
+  included, through a serving snapshot.
 - :class:`PagedKVCache` — the device pool ``[L, 2, num_blocks+1, Hkv,
   block, Dh]`` whose last block is the trash block, addressed through the
   allocator's tables (one block-id namespace down to the kernels).  A
@@ -43,13 +50,7 @@ import dataclasses
 
 import numpy as np
 
-
-class IntegrityError(RuntimeError):
-    """The allocator's accounting violated an invariant."""
-
-    def __init__(self, failures: list[str]):
-        super().__init__("; ".join(failures))
-        self.failures = failures
+from repro_torch.serving.faults import InjectedAllocError, IntegrityError
 
 
 @dataclasses.dataclass
@@ -103,6 +104,10 @@ class BlockAllocator:
         # here so pool pressure drains LRU cache subtrees before any
         # MemoryError (and therefore before the scheduler ever preempts)
         self.evict_fn = None
+        # fault-injection hook (§2.13): the engine wires its FaultInjector
+        # here so the "admission_alloc" seam can exhaust the pool
+        # MID-MAPPING.  None (the default) costs one attribute read.
+        self.injector = None
 
     # -- stripe views -------------------------------------------------------
     def stripe_of(self, block_id: int) -> int:
@@ -171,6 +176,9 @@ class BlockAllocator:
 
     def is_cached(self, block_id: int) -> bool:
         return block_id in self._cached
+
+    def cached_ids(self) -> set[int]:
+        return set(self._cached)
 
     def evictable_ids(self) -> set[int]:
         """Blocks that are cached AND unreferenced (maintained
@@ -356,7 +364,8 @@ class BlockAllocator:
         self._tables[seq_id] = list(shared)
         self._lens[seq_id] = 0
         try:
-            self._grow(seq_id, self.blocks_needed(resident) - len(shared))
+            self._grow(seq_id, self.blocks_needed(resident) - len(shared),
+                       admission=True)
         except MemoryError:
             # partial-failure rollback: freshly-mapped blocks return to
             # their stripes, the retained prefix goes back to the host
@@ -386,6 +395,11 @@ class BlockAllocator:
             self._decref(b)
         self._lens.pop(seq_id, None)
         self._reserved.pop(seq_id, None)
+
+    def conserves(self) -> bool:
+        """True iff :meth:`audit` finds nothing (the boolean view the
+        chaos tests poll every tick)."""
+        return not self.audit(strict=False)
 
     def audit(self, strict: bool = True) -> list[str]:
         """Full invariant audit of both tiers: returns the list of
@@ -502,6 +516,55 @@ class BlockAllocator:
             raise IntegrityError(fails)
         return fails
 
+    # -- checkpoint (§2.13) ---------------------------------------
+    def snapshot_state(self) -> dict:
+        """JSON-serializable snapshot of the full accounting state —
+        free-list ORDER included, so a restored allocator hands out the
+        same ids in the same order as the uninterrupted one."""
+        return {
+            "free": [list(f) for f in self._free],
+            "tables": {str(k): list(v) for k, v in self._tables.items()},
+            "lens": {str(k): v for k, v in self._lens.items()},
+            "reserved": {str(k): v for k, v in self._reserved.items()},
+            "host_lens": {str(k): v for k, v in self._host_lens.items()},
+            "host_nblk": {str(k): v for k, v in self._host_nblk.items()},
+            # prefix sharing (§2.14): refcounts + evictable are derivable
+            # (recomputed at load) — only the cache pins and retained
+            # shared prefixes are primary state
+            "cached": sorted(self._cached),
+            "host_shared": {str(k): list(v)
+                            for k, v in self._host_shared.items()},
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Adopt a :meth:`snapshot_state` snapshot (geometry must match),
+        then audit it — a corrupt checkpoint fails loudly at restore."""
+        self._free = [list(map(int, f)) for f in state["free"]]
+        self._tables = {int(k): list(map(int, v))
+                        for k, v in state["tables"].items()}
+        self._lens = {int(k): int(v) for k, v in state["lens"].items()}
+        self._reserved = {int(k): int(v)
+                          for k, v in state["reserved"].items()}
+        self._host_lens = {int(k): int(v)
+                           for k, v in state["host_lens"].items()}
+        self._host_nblk = {int(k): int(v)
+                           for k, v in state["host_nblk"].items()}
+        self._cached = set(map(int, state.get("cached", ())))
+        self._host_shared = {int(k): list(map(int, v))
+                             for k, v in state.get("host_shared",
+                                                   {}).items()}
+        refs: dict[int, int] = {}
+        for t in self._tables.values():
+            for b in t:
+                refs[b] = refs.get(b, 0) + 1
+        for hs in self._host_shared.values():
+            for b in hs:
+                refs[b] = refs.get(b, 0) + 1
+        self._refcnt = refs
+        self._shared_cnt = sum(1 for c in refs.values() if c >= 2)
+        self._evictable = {b for b in self._cached if b not in refs}
+        self.audit()
+
     # -- lifecycle ----------------------------------------------------------
     def admit(self, seq_id: int, prompt_tokens: int,
               max_new_tokens: int = 0, shared=()) -> list[int]:
@@ -535,7 +598,8 @@ class BlockAllocator:
             self._incref(b)
             table.append(b)
         try:
-            self._grow(seq_id, self.blocks_needed(prompt_tokens) - len(shared))
+            self._grow(seq_id, self.blocks_needed(prompt_tokens) - len(shared),
+                       admission=True)
         except MemoryError:
             # partial-failure rollback (see _rollback_partial): admission
             # either fully lands or leaves no trace
@@ -544,7 +608,8 @@ class BlockAllocator:
         self._lens[seq_id] = prompt_tokens
         return list(self._tables[seq_id])
 
-    def _grow(self, seq_id: int, n_new: int) -> None:
+    def _grow(self, seq_id: int, n_new: int, *,
+              admission: bool = False) -> None:
         if n_new > self.free_blocks and self.evict_fn is not None \
                 and self._evictable:
             # pool pressure drains the prefix cache (LRU subtrees) before
@@ -559,7 +624,21 @@ class BlockAllocator:
             raise MemoryError(
                 f"seq {seq_id} grows past its reservation "
                 f"({len(table)}+{n_new} > {self._reserved[seq_id]})")
-        for _ in range(n_new):
+        # fault seam "admission_alloc" (§2.13): a fired spec exhausts the
+        # pool after HALF the requested blocks mapped, the partial failure
+        # the admit / swap-in rollback must clean up.  Only admission-time
+        # growth consults it (those callers roll back and retry next tick);
+        # append_token's mid-decode growth has no retry above it
+        inj = self.injector
+        fault_at = None
+        if admission and inj is not None and inj.enabled:
+            if inj.fire("admission_alloc", rid=seq_id) is not None:
+                fault_at = n_new // 2
+        for i in range(n_new):
+            if fault_at is not None and i >= fault_at:
+                raise InjectedAllocError(
+                    f"injected pool exhaustion after {i}/{n_new} blocks",
+                    rid=seq_id)
             s = self._growth_stripe(table)
             if not self._free[s]:
                 raise MemoryError("KV pool exhausted: all stripes empty")

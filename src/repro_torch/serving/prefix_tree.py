@@ -1,6 +1,6 @@
 """Radix-tree prefix cache over full prompt blocks (DESIGN.md §2.14): a
-copy of the reference package's ``serving/prefix_tree.py`` without its
-checkpoint state (§2.13).
+copy of the reference package's ``serving/prefix_tree.py``, its
+checkpoint state (§2.13) included.
 
 The tree maps *block-granular prompt content* to resident pool blocks:
 each node owns exactly one physical block of the paged KV pool and is
@@ -218,3 +218,43 @@ class RadixPrefixCache:
             count += self._drop_subtree(node)
         self.stats["flushes"] += 1
         return count
+
+    # -- checkpoint (§2.13) --------------------------------------------------
+    def snapshot_state(self) -> dict:
+        """JSON-serializable tree state, parent-before-child, with LRU
+        clocks — a restored server keeps its hits warm AND evicts in the
+        same order as the uninterrupted one."""
+        nodes: list[dict] = []
+
+        def walk(node: _Node, parent_idx: int) -> None:
+            idx = len(nodes)
+            nodes.append({
+                "block": node.block_id,
+                "tokens": np.frombuffer(node.key, np.int32).tolist(),
+                "parent": parent_idx,
+                "last_used": node.last_used,
+            })
+            for child in node.children.values():
+                walk(child, idx)
+
+        for child in self.root.children.values():
+            walk(child, -1)
+        return {"clock": self._clock, "nodes": nodes}
+
+    def load_state(self, state: dict) -> None:
+        """Adopt a :meth:`snapshot_state` snapshot.  The allocator's state
+        (including cache pins) must already be restored; ``cache_block``
+        is idempotent so re-pinning here is safe."""
+        for node in list(self.root.children.values()):
+            self._drop_subtree(node)
+        self._clock = int(state["clock"])
+        flat: list[_Node] = []
+        for rec in state["nodes"]:
+            parent = self.root if rec["parent"] < 0 else flat[rec["parent"]]
+            key = np.asarray(rec["tokens"], np.int32).tobytes()
+            node = _Node(key, int(rec["block"]), parent,
+                         int(rec["last_used"]))
+            parent.children[key] = node
+            self._nodes[node.block_id] = node
+            self.alloc.cache_block(node.block_id)
+            flat.append(node)

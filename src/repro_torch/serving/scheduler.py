@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: chunked prefill + mixed prefill/decode
-ticks (Sarathi-style), with graceful degradation under overload (§2.10) —
-the reference's ``serving/scheduler.py`` without its fault hooks (§2.13).
+ticks (Sarathi-style), with graceful degradation under overload (§2.10)
+and structured failure under faults (§2.13) — the reference's
+``serving/scheduler.py``.
 
 Each tick runs at most one prefill CHUNK plus the full decode batch.
 Prompts split into block-aligned chunks (only the final chunk may be
@@ -34,8 +35,19 @@ check) and starts prefill at the divergence block; a prompt whose prefill
 ends registers its whole blocks.  A decoding victim's shared prefix stays
 resident while its private tail swaps.
 
+Faults (§2.13): after every prefill and decode step ``sentinel_fn`` drains
+the engine's quarantine (``{slot: reason}``); a flagged request FAILS
+(``failed``, ``fail_reason``) instead of recording a garbage token, its
+tree blocks are invalidated, ``on_fail_fn`` scrubs its blocks while the
+table is valid, and the allocator frees it.  A swap transfer that
+exhausted the engine's retries (:class:`TransferError`) discards the
+victim's progress and requeues it at the head of its class queue; an
+allocator failure mid-admission (``MemoryError``) rolls back and retries
+next tick, for a swap-in too (the reference lets that one escape ``tick``
+with the request in no queue; ROADMAP.md §3).
+
 Contracts kept from the reference: over-length requests are rejected but
-still returned (``completed + rejected == submitted``); the token sampled at
+still returned (``completed + rejected + failed == submitted``); the token sampled at
 prefill passes the same completion check as decode tokens; admission
 reserves a request's worst case (prompt + max_tokens) and maps only the
 prompt's blocks, every decode tick accounts the token it writes via
@@ -52,6 +64,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.serving.faults import TransferError
 from repro_torch.serving.kv_cache import BlockAllocator
 from repro_torch.serving.sampler import SamplingParams
 
@@ -99,6 +112,10 @@ class Request:
     done: bool = False
     rejected: bool = False              # refused (over-length / SLO shed)
     reject_reason: str | None = None    # over_length|over_capacity|slo_timeout
+    # admitted, then killed mid-flight by a fault (sentinel quarantine):
+    # distinct from ``rejected`` (refused before any work)
+    failed: bool = False
+    fail_reason: str | None = None      # nonfinite_logits|probe_nonfinite
     prefill_pos: int = 0                # prompt tokens prefilled so far
     preemptions: int = 0                # times swapped out or discarded
     # scheduler-clock telemetry: t_done is stamped at retire AND at
@@ -132,8 +149,6 @@ class Request:
 
 
 def _class_counters() -> dict[str, int]:
-    """The reference's per-class counters; ``failed`` and
-    ``swap_discards`` belong to the fault layer (§2.13) and stay 0."""
     return {"submitted": 0, "admitted": 0, "completed": 0, "rejected": 0,
             "failed": 0, "preempted": 0, "resumed": 0, "swap_discards": 0,
             "swapped_out_blocks": 0, "swapped_in_blocks": 0}
@@ -144,6 +159,8 @@ class SchedulerStats:
     admitted: int = 0
     completed: int = 0
     rejected: int = 0
+    failed: int = 0                     # quarantined mid-flight (§2.13)
+    swap_discards: int = 0              # transfer gave up -> discard+requeue
     decode_steps: int = 0
     prefill_tokens: int = 0
     prefill_chunks: int = 0
@@ -176,7 +193,11 @@ class ContinuousBatcher:
     ``swap_out_fn(rid, slot, resident_tokens)`` / ``swap_in_fn(rid, slot,
     resident_tokens)``: engine hooks that move the victim's mapped blocks
     device <-> host around the allocator's accounting swap (None =
-    accounting only, for host-side tests).  ``prefix_cache``: the
+    accounting only, for host-side tests).  ``sentinel_fn() -> {slot:
+    fail_reason}`` drains the engine's per-step quarantine and
+    ``on_fail_fn(rid, slot)`` scrubs a failed or discarded sequence's
+    blocks and drops its host copy before the allocator recycles them
+    (both None = no fault layer).  ``prefix_cache``: the
     engine's :class:`~repro_torch.serving.prefix_tree.RadixPrefixCache`,
     or None (every admission prefills from token 0).
     """
@@ -192,6 +213,8 @@ class ContinuousBatcher:
                  host_blocks: int | None = None,
                  swap_out_fn: Callable | None = None,
                  swap_in_fn: Callable | None = None,
+                 sentinel_fn: Callable | None = None,
+                 on_fail_fn: Callable | None = None,
                  prefix_cache=None,
                  clock: Callable[[], float] = time.monotonic):
         if admission not in ("fifo", "slo"):
@@ -207,6 +230,8 @@ class ContinuousBatcher:
         self.reject_slack = reject_slack
         self.swap_out_fn = swap_out_fn
         self.swap_in_fn = swap_in_fn
+        self.sentinel_fn = sentinel_fn
+        self.on_fail_fn = on_fail_fn
         self.prefix = prefix_cache
         self._queues: dict[str, deque[Request]] = {
             c.name: deque() for c in classes}
@@ -214,6 +239,7 @@ class ContinuousBatcher:
             c.name: deque() for c in classes}
         self._stride: dict[str, float] = {c.name: 0.0 for c in classes}
         self._arrival: dict[int, int] = {}  # rid -> global FIFO order
+        self._arrivals = 0                   # submissions so far
         self.active: dict[int, Request] = {}
         self.prefilling: Request | None = None
         self.lengths: dict[int, int] = {}
@@ -235,7 +261,8 @@ class ContinuousBatcher:
         if req.priority not in self.classes:
             raise KeyError(f"unknown priority class {req.priority!r}")
         req.t_submit = self._clock()
-        self._arrival[req.rid] = len(self._arrival)
+        self._arrival[req.rid] = self._arrivals
+        self._arrivals += 1
         self._queues[req.priority].append(req)
         self._cstat(req.priority)["submitted"] += 1
 
@@ -432,7 +459,13 @@ class ContinuousBatcher:
             return
         resident = self.alloc.seq_tokens(req.rid)
         if self.swap_out_fn is not None:
-            self.swap_out_fn(req.rid, slot, resident)
+            try:
+                self.swap_out_fn(req.rid, slot, resident)
+            except TransferError as e:
+                # the host tier never got a complete copy, so the sequence
+                # cannot be parked: discard and requeue
+                self._discard_requeue(req, slot, str(e))
+                return
         # the ids are released here while the hook's gather may still be in
         # flight on the card: stream order keeps a new tenant's writes to a
         # recycled id (queued later on the same stream) from landing before
@@ -462,12 +495,33 @@ class ContinuousBatcher:
                     break   # not enough device headroom yet
                 q.popleft()
                 resident = self.alloc.host_tokens(req.rid)
-                ids = self.alloc.swap_in(req.rid, remaining)
+                try:
+                    ids = self.alloc.swap_in(req.rid, remaining)
+                except MemoryError as e:
+                    # the allocator rolled back (the sequence is still
+                    # cleanly swapped out): back to the head of its queue,
+                    # retried next tick.  The reference lets this escape
+                    # tick() with the request in no queue
+                    q.appendleft(req)
+                    log.warning("swap-in alloc failed rid=%d (%s); will "
+                                "retry next tick", req.rid, e)
+                    break
                 slot = self._slots_free.pop()
                 self._slot_of[req.rid] = slot
                 self._rid_of[slot] = req.rid
                 if self.swap_in_fn is not None:
-                    self.swap_in_fn(req.rid, slot, resident)
+                    try:
+                        self.swap_in_fn(req.rid, slot, resident)
+                    except TransferError as e:
+                        # the fresh device blocks never got valid contents:
+                        # unbind the slot, free them, restart from the
+                        # prompt
+                        self._slot_of.pop(req.rid, None)
+                        self._rid_of.pop(slot, None)
+                        self._slots_free.append(slot)
+                        req.preemptions += 1
+                        self._discard_requeue(req, None, str(e))
+                        continue
                 # resident counts tokens IN cache; lengths counts the
                 # pending not-yet-written token too (generated[-1] decodes
                 # next at position == resident)
@@ -479,6 +533,62 @@ class ContinuousBatcher:
                 self._cstat(pc.name)["swapped_in_blocks"] += len(ids)
                 log.info("resume (swap-in) rid=%d class=%s blocks=%d",
                          req.rid, pc.name, len(ids))
+
+    def _sentinel(self) -> dict[int, str]:
+        """Drain the engine's quarantine flags: ``{slot: fail_reason}`` of
+        slots whose last step produced non-finite output."""
+        return self.sentinel_fn() if self.sentinel_fn is not None else {}
+
+    def _fail(self, req: Request, reason: str, finished: list[Request]):
+        """Quarantine an ADMITTED request that hit a fault: free its slot,
+        invalidate its blocks in the prefix tree (before the scrub hook, so
+        a just-uncached corrupted block is seen as about to free), scrub and
+        free what it holds alone, and hand it back ``failed``.  A request
+        sharing a corrupted block reads non-finite values at its next step
+        and fails the same way; the last holder's scrub cleans the block."""
+        name = req.priority
+        req.done = True
+        req.failed = True
+        req.fail_reason = reason
+        req.t_done = self._clock()
+        slot = self._slot_of.pop(req.rid, None)
+        if slot is not None:
+            self._rid_of.pop(slot, None)
+            self._slots_free.append(slot)
+        if self.prefix is not None:
+            self.prefix.invalidate_blocks(self.alloc.table(req.rid))
+        if self.on_fail_fn is not None:
+            self.on_fail_fn(req.rid, slot)
+        self.alloc.free(req.rid)
+        self.active.pop(req.rid, None)
+        self.lengths.pop(req.rid, None)
+        if req is self.prefilling:
+            self.prefilling = None
+        self.stats.failed += 1
+        self._cstat(name)["failed"] += 1
+        finished.append(req)
+        log.warning("request %d FAILED (%s) class=%s after %d tokens",
+                    req.rid, reason, name, len(req.generated))
+
+    def _discard_requeue(self, req: Request, slot: int | None,
+                         why: str) -> None:
+        """A swap transfer gave up: the KV payload is lost, so discard all
+        progress and requeue at the head of the class queue; a greedy
+        re-prefill regenerates the same tokens, later."""
+        name = req.priority
+        if self.on_fail_fn is not None:
+            self.on_fail_fn(req.rid, slot)
+        self.alloc.free(req.rid)
+        self.active.pop(req.rid, None)
+        self.lengths.pop(req.rid, None)
+        req.prefill_pos = 0
+        req.generated.clear()
+        req.token_times.clear()
+        self.stats.swap_discards += 1
+        self._cstat(name)["swap_discards"] += 1
+        self._queues[name].appendleft(req)
+        log.warning("swap transfer gave up (%s) rid=%d class=%s: discarded "
+                    "and requeued", why, req.rid, name)
 
     def _reject(self, req: Request, reason: str, finished: list[Request]):
         req.done = True
@@ -551,8 +661,18 @@ class ContinuousBatcher:
             self._rid_of[slot] = req.rid
             # reserve the worst case, map the prompt's blocks now (decode
             # blocks map lazily via append_token at block boundaries)
-            self.alloc.admit(req.rid, len(req.prompt),
-                             req.sampling.max_tokens, shared=hit_ids)
+            try:
+                self.alloc.admit(req.rid, len(req.prompt),
+                                 req.sampling.max_tokens, shared=hit_ids)
+            except MemoryError as e:
+                # the allocator failed mid-mapping and rolled itself back:
+                # release the slot, leave the request at the queue head
+                self._slot_of.pop(req.rid, None)
+                self._rid_of.pop(slot, None)
+                self._slots_free.append(slot)
+                log.warning("admission alloc failed rid=%d (%s); will "
+                            "retry next tick", req.rid, e)
+                break
             q.popleft()
             self.stats.admitted += 1
             self._cstat(pc.name)["admitted"] += 1
@@ -607,7 +727,13 @@ class ContinuousBatcher:
 
     def _finish_prefill(self, req: Request, first, finished: list[Request]):
         """Prefill done: record the first sampled token and either retire
-        the request (the completion check decode uses) or activate it."""
+        the request (the completion check decode uses) or activate it; a
+        sentinel flag on its slot fails it instead."""
+        q = self._sentinel()
+        slot = self._slot_of.get(req.rid)
+        if slot in q:
+            self._fail(req, q.pop(slot), finished)
+            return
         if self.prefix is not None:
             # register the prompt's whole blocks (matched prefix nodes just
             # get an LRU touch; the fresh tail becomes new nodes)
@@ -647,7 +773,7 @@ class ContinuousBatcher:
     def tick(self, prefill_chunk_fn: Callable,
              decode_fn: Callable) -> list[Request]:
         """One scheduler iteration; returns the requests finished this tick
-        (completed and rejected)."""
+        (completed, rejected and failed)."""
         finished: list[Request] = []
         self._admit(prefill_chunk_fn, finished)
         if self.token_budget is not None:
@@ -667,9 +793,17 @@ class ContinuousBatcher:
             nxt = decode_fn(slots, tokens, positions)
             self._observe_decode(self._clock() - t0)
             self.stats.decode_steps += 1
+            bad = self._sentinel()
             done_now = []
             for r, t in zip(rids, np.asarray(nxt)):
                 req = self.active[r]
+                slot = self._slot_of[r]
+                if slot in bad:
+                    # its sampled token is garbage: quarantine instead of
+                    # recording it (the other rows came off the same step
+                    # untouched)
+                    self._fail(req, bad.pop(slot), finished)
+                    continue
                 self.lengths[r] += 1
                 if self._record_token(req, int(t)):
                     done_now.append(req)

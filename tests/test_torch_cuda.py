@@ -1724,3 +1724,195 @@ def test_cuda_prefix_cache_on_equals_off(cuda):
     assert on == off
     cpu, _ = serve(torch.device("cpu"), True)
     assert on == cpu
+
+
+# -- faults (§2.13): stale non-finite values, the sentinel, the scrub --------
+
+def stale_nan_outputs(dev, dtype=torch.float32, D=64, blk=64, nan=True):
+    """Each paged / contiguous attention form over a cache whose last,
+    partly filled block holds NaN past the sequence's length (the state of
+    a recycled block the fault path did not scrub): ``{form: all outputs
+    finite}``.  Keys past the length are masked, so a kernel that never
+    multiplies a masked key's value row stays finite, and one whose p.V
+    multiplies it by a zero weight gives ``0 x NaN = NaN``.  Forms: ``#1``
+    (paged decode), ``#3`` (contiguous decode), ``#2`` (paged sparse
+    prefill).  ``nan=False`` leaves the block clean (the control)."""
+    g = torch.Generator().manual_seed(0)
+    Hkv, G, T = 2, 2, 3
+    n = 2 * blk + blk // 2           # the third block is half filled
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dtype)   # noqa: E731
+    kp, vp = rnd(T + 1, Hkv, blk, D), rnd(T + 1, Hkv, blk, D)
+    table = torch.tensor([[1, 3, 0]], dtype=torch.int32)
+    if nan:
+        vp[0, :, n - 2 * blk:] = torch.nan  # physical block 0, past n
+    pos = torch.tensor([n - 1], dtype=torch.int32)
+    ids = torch.arange(T, dtype=torch.int32).expand(1, Hkv, T).contiguous()
+    items = flash_decode_items(ids)
+    q = rnd(1, Hkv, G, D)
+    out = {}
+    got = flash_decode_paged_kernel(
+        q.to(dev), kp.to(dev), vp.to(dev), items.to(dev), table.to(dev),
+        pos.to(dev), block_kv=blk)[0]
+    out["#1"] = bool(torch.isfinite(got).all())
+    kc = torch.cat([kp[int(b)] for b in table[0]], dim=1)[None]
+    vc = torch.cat([vp[int(b)] for b in table[0]], dim=1)[None]
+    got = flash_decode_kernel(q.to(dev), kc.to(dev), vc.to(dev),
+                              items.to(dev), pos.to(dev), block_kv=blk)[0]
+    out["#3"] = bool(torch.isfinite(got).all())
+    # a final prefill chunk: the last q block's rows attend every block
+    # (the causal list), keys past n masked
+    qs = rnd(Hkv * G, blk, D)
+    rows = []
+    for h in range(Hkv * G):
+        for kb in range(T):
+            rows.append([h, 0, kb, int(kb == 0), int(kb == T - 1), 1,
+                         h // G])
+    pitems = torch.tensor(rows, dtype=torch.int32)
+    got = sparse_prefill_paged(
+        qs.to(dev), kp.to(dev), vp.to(dev), pitems.to(dev),
+        table[0].to(dev), block_q=blk, block_kv=blk, q_offset=n - blk,
+        kv_len=n)
+    out["#2"] = bool(torch.isfinite(got[:, :blk]).all())
+    return out
+
+
+def flash_decode_items(block_ids):
+    from repro_torch.kernels.flash_decode import decode_items_from_ids
+    return decode_items_from_ids(block_ids)
+
+
+def test_cuda_stale_nan_past_the_length_leaks(cuda):
+    """On the card the decode forms multiply a masked key's zero weight
+    into its value row (#1 / #3's p.V loop over every key of the tile), and
+    the bf16 prefill's tensor-core P.V takes the whole V tile: a NaN past
+    the length in a recycled block poisons their output, which is why the
+    engine scrubs a failed sequence's blocks before they free.  The f32
+    prefill's scalar body stops at the length and stays finite.  (The
+    plain versions leak in every form: ``tests/test_torch_faults.py``.)"""
+    leaks = {torch.float32: {"#1": False, "#3": False, "#2": True},
+             torch.bfloat16: {"#1": False, "#3": False, "#2": False}}
+    for dtype, want in leaks.items():
+        assert stale_nan_outputs(cuda, dtype, nan=False) == {
+            "#1": True, "#3": True, "#2": True}
+        assert stale_nan_outputs(cuda, dtype) == want
+
+
+def _fault_parts(dev):
+    """The SMOKE float32 config, its seeded weights on ``dev`` and the
+    synthetic profile of the card fault tests."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              dtype=torch.float32)
+    return (cfg, init_params(cfg, seed=4, device=dev),
+            synthetic_head_curves(cfg.num_layers, cfg.num_heads))
+
+
+def _fault_config(layout="paged", kv="bf16", **kw):
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(max_seq_len=1024, budget_per_head=256,
+                        cache_layout=layout, kv_dtype=kv, **kw)
+
+
+def _fault_engine(dev, layout="paged", kv="bf16", **kw):
+    from repro_torch.serving import Engine
+    cfg, params, profile = _fault_parts(dev)
+    return Engine(cfg, params, _fault_config(layout, kv, **kw), profile,
+                  device=dev)
+
+
+def test_cuda_sentinel_flags_ride_the_token_copy(cuda):
+    """The sentinel's finite flags are computed on the card and cross in
+    the one device-to-host copy of the sampled tokens: a decode call with
+    a NaN row copies once, and flags that row's slot alone."""
+    from repro_torch.serving import SamplingParams
+    eng = _fault_engine(cuda)
+    logits = torch.randn(4, 512, device=cuda)
+    logits[2, 7] = torch.nan
+    copies = []
+    real = torch.Tensor.cpu
+
+    def counted(t, *a, **k):
+        copies.append(tuple(t.shape))
+        return real(t, *a, **k)
+    torch.Tensor.cpu = counted
+    try:
+        toks = eng._sample(logits, SamplingParams(),
+                           [(r, r) for r in range(4)])
+    finally:
+        torch.Tensor.cpu = real
+    assert copies == [(2, 4)]
+    want = logits.argmax(-1).tolist()
+    assert [toks[r] for r in (0, 1, 3)] == [want[r] for r in (0, 1, 3)]
+    assert eng.take_quarantine() == {2: "nonfinite_logits"}
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_cuda_scrub_zeroes_codes_and_resets_scales(cuda, layout, kv):
+    """``_release_seq`` on the card: every block a failed sequence held
+    alone (its slot row, contiguous) reads codes 0 and scales 1 after the
+    scrub, and nothing else changed."""
+    from repro_torch.core.quant import code_bits
+    eng = _fault_engine(cuda, layout, kv)
+    b = eng.make_batcher()
+    b.alloc.admit(3, 300, 0)
+    codes, scales = eng._live_cache()
+    bits = code_bits(codes) if codes.element_size() == 1 else codes
+    bits.copy_(torch.randint(1, 100, bits.shape, device=cuda)
+               .to(bits.dtype))
+    if scales is not None:
+        scales.fill_(3.0)
+    before = (bits.clone(), None if scales is None else scales.clone())
+    if layout == "paged":
+        at = torch.tensor(b.alloc.table(3), device=cuda)
+        eng._release_seq(3, None)
+    else:
+        at = torch.tensor([1], device=cuda)
+        eng._release_seq(3, 1)
+    torch.cuda.synchronize()
+    assert not bits.index_select(2, at).any()
+    keep = torch.ones(bits.shape[2], dtype=torch.bool, device=cuda)
+    keep[at] = False
+    assert torch.equal(bits[:, :, keep], before[0][:, :, keep])
+    if scales is not None:
+        assert (scales.index_select(2, at) == 1.0).all()
+        assert torch.equal(scales[:, :, keep], before[1][:, :, keep])
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_snapshot_restore_resumes(cuda, layout, tmp_path):
+    """A SMOKE float32 engine on the card ticks part way, is saved, freed
+    and restored on the card; the restored engine finishes with the
+    uninterrupted serve's tokens."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.snapshot import restore_serving, save_serving
+    sp = SamplingParams(max_tokens=16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n) for n in (300, 200, 130)]
+    want = {r.rid: r.generated
+            for r in _fault_engine(cuda, layout).serve(prompts, sp)}
+    eng = _fault_engine(cuda, layout)
+    b = eng.make_batcher()
+    pf, df = eng.step_fns(sp)
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=np.asarray(p, np.int32),
+                         sampling=sp))
+    done = []
+    while not (len(b.active) == len(prompts) and b.replan_safe
+               and eng._decode_ticks >= 4):
+        done.extend(b.tick(pf, df))
+    path = save_serving(str(tmp_path), eng, b)
+    del eng, b, pf, df
+    torch.cuda.empty_cache()
+    cfg, params, profile = _fault_parts(cuda)
+    eng, b = restore_serving(path, cfg, params, _fault_config(layout),
+                             profile, device=cuda)
+    pf, df = eng.step_fns(sp)
+    while b.busy:
+        done.extend(b.tick(pf, df))
+    assert {r.rid: r.generated for r in done} == want

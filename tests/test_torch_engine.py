@@ -145,9 +145,10 @@ def test_launcher_defaults_and_prompt_lens(monkeypatch, capsys):
     sequence length and slots, and ``--prompt-lens`` sets the traffic."""
     seen = []
 
-    def engine(cfg, params, ecfg, curves, device):
+    def engine(cfg, params, ecfg, curves, device, injector=None):
         seen.append(ecfg)
-        return Engine(cfg, params, ecfg, curves, device=device)
+        return Engine(cfg, params, ecfg, curves, device=device,
+                      injector=injector)
 
     monkeypatch.setattr(launch_serve, "Engine", engine)
     done = launch_serve.main(["--arch", "smollm-135m", "--smoke",

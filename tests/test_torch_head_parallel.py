@@ -49,10 +49,10 @@ MAX_TOKENS = 12
 GRIDS = [("paged", "packed"), ("paged", "padded"),
          ("contiguous", "packed"), ("contiguous", "padded")]
 # the reference's decode_bubble_stats keys of features the port does not
-# run yet (the fault layer): each comes with its feature (swap and
-# per_class came with preemption, merge_collectives and prefix with seq
-# stripes and the prefix cache)
-UNPORTED_KEYS = {"faults", "injected_events"}
+# run yet: none since the fault layer (faults, injected_events); each came
+# with its feature (swap and per_class with preemption, merge_collectives
+# and prefix with seq stripes and the prefix cache)
+UNPORTED_KEYS: set = set()
 
 
 class GlobalIdEngine(RefEngine):

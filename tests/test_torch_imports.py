@@ -76,15 +76,17 @@ def test_blocked_import_covers_every_kernel_module():
 
 
 def test_blocked_import_covers_every_serving_module():
-    """The serving modules, the radix prefix tree among them, are part of
-    the port that imports without JAX, and the engine builds its tree from
-    the port's own copy."""
-    from repro_torch.serving import engine, prefix_tree
+    """The serving modules, the radix prefix tree, the fault layer and the
+    snapshots among them, are part of the port that imports without JAX;
+    the engine builds its tree from the port's own copy, and the allocator
+    raises the fault layer's one ``IntegrityError``."""
+    from repro_torch.serving import engine, faults, kv_cache, prefix_tree
     mods = set(_modules())
-    for name in ("engine", "kv_cache", "prefix_tree", "sampler",
-                 "scheduler"):
+    for name in ("engine", "faults", "kv_cache", "prefix_tree", "sampler",
+                 "scheduler", "snapshot"):
         assert f"repro_torch.serving.{name}" in mods
     assert engine.RadixPrefixCache is prefix_tree.RadixPrefixCache
+    assert kv_cache.IntegrityError is faults.IntegrityError
 
 
 def test_no_source_imports_jax_or_the_reference():
