@@ -51,7 +51,8 @@ Phases, in order; any failure exits non-zero:
    code kernels) must equal the plain versions' on the CPU; then three
    full-width serves of the same 8 prompts (paged bf16, the main path;
    contiguous bf16, whose tokens must equal the paged serve's; paged int8
-   through the code forms), each completing every request;
+   through the code forms, at ``CUT_LAYERS``), each completing every
+   request;
 7. Gemma3-1B (4 heads over 1 KV head: G = 4, head_dim 256; five
    sliding-window layers of 512 positions to one global) the same way:
    phases 3 and 4 at its shapes (the decodes also with its window), its
@@ -59,7 +60,7 @@ Phases, in order; any failure exits non-zero:
    longer than the window (card tokens == CPU tokens, bf16 / int8 / fp8
    caches, both layouts; and dense attention, monolithic and chunked, both
    layouts, through the window forms of #4 and #2), and three full-width
-   serves (26 layers);
+   serves (26 layers; the int8 one 12);
 8. the head-parallel degree (``num_model_shards`` = D: KV groups placed on
    D shards, emulated on the one card; the packed decode table holds the D
    shards' lists end to end, pads between them): #1 and #3 (bf16, f32) on
@@ -87,10 +88,12 @@ Phases, in order; any failure exits non-zero:
    windowed boolean mask and a bound over the pairs inside the window;
    full-width serves (``BASELINE_SERVES``): dense attention with
    monolithic prefill (SmolLM-135M paged, contiguous, paged int8 and paged
-   with exact buckets; Yi-6B paged; Gemma3-1B paged), whose #4 launches are
-   counted, the paged and contiguous ones giving equal tokens, Gemma3-1B's
-   dense chunked serves (paged and contiguous: equal tokens; against the
-   monolithic serve's reported), each windowed serve launching its
+   with exact buckets, the last two at ``CUT_LAYERS``; Yi-6B paged;
+   Gemma3-1B paged, its baseline serves at ``CUT_LAYERS``), whose #4
+   launches are counted, the paged and contiguous ones giving equal
+   tokens, Gemma3-1B's dense chunked serves (paged and contiguous: equal
+   tokens; against the monolithic serve's reported), each windowed serve
+   launching its
    prefill kernel's window form, and sparse monolithic serves, whose tokens
    must equal the chunked serve's of their layout; SmolLM-135M's
    stochastic serve (temperature 0.8, top-k 50, top-p 0.95, the engine's
@@ -103,14 +106,14 @@ Phases, in order; any failure exits non-zero:
     #1; it prints the bubble stats, realized recovery and epochs, and a
     probe tick's host time against a plain decode tick's; a SMOKE float32
     replanning serve gives the CPU's tokens and epochs on the card; and
-    Yi-6B at D = 4 (``HEAD_MOVE``) moves its KV groups one shard on
-    mid-serve: replaying the frozen serve's tokens, its logits stay within
-    ``HEAD_MOVE_ATOL`` of the frozen serve's (the median over the live
-    requests' rows; the median over every row, finished slots' too, is
-    printed beside it), which a planted control (the pool gathered by a
-    wrong kv-head table) must fail, a free moved serve's tokens are
-    reported, and the swap's parts (weights, the 2.16 GB pool's kv-head
-    gather) are timed;
+    Yi-6B at D = 4 (``HEAD_MOVE``, ``CUT_LAYERS``) moves its KV groups one
+    shard on mid-serve: replaying the frozen serve's tokens, its logits
+    stay within ``HEAD_MOVE_ATOL`` of the frozen serve's (the median over
+    the live requests' rows; the median over every row, finished slots'
+    too, is printed beside it), which a planted control (the pool gathered
+    by a wrong kv-head table) must fail, a free moved serve's tokens are
+    reported, and the swap's parts (weights, the pool's kv-head gather) are
+    timed;
 11. the offline profiling stage and overload serving: SmolLM-135M's
     profiling forward (``tfm.prefill(..., maps_out=)``, #4 once a layer)
     over two seeded calibration prompts of 1024 tokens and
@@ -118,9 +121,9 @@ Phases, in order; any failure exits non-zero:
     1] and 1 at frac 1; each layer's heterogeneity and the plan's budget
     spread printed, and the 8 prompts served from that profile; a SMOKE
     float32 profile whose card curves lie within ``PROFILE_ATOL`` of the
-    CPU's; preempted serves (``PREEMPT_SERVES``: SmolLM-135M paged and
-    contiguous bf16, after its plan epochs; Yi-6B paged int8, after its
-    head move, at its first ``CUT_LAYERS`` layers): two batch requests and
+    CPU's; preempted serves (``PREEMPT_SERVES``, at the model's first
+    ``CUT_LAYERS`` layers: SmolLM-135M paged and contiguous bf16, after its
+    plan epochs; Yi-6B paged int8, after its head move): two batch requests and
     a later interactive arrival that swaps one out to pinned host memory
     and back, whose greedy tokens must equal the uninterrupted serve's,
     with the swaps' card times, bytes and rates printed, both tiers
@@ -131,8 +134,10 @@ Phases, in order; any failure exits non-zero:
     victim's copy stays on the card and moves with the cache, and a
     control without the remap that must differ;
 12. sequence stripes and the prefix cache (``STRIPE_SERVES``,
-    ``PREFIX_SERVES``; at full depth but SmolLM-135M S = 4 padded and int8
-    prefix and Yi-6B D = 4 x S = 2, at ``CUT_LAYERS``): striped serves
+    ``PREFIX_SERVES``; at full depth but SmolLM-135M S = 4 padded, the
+    int8, monolithic and S = 2 prefix serves and the preempted hit victim,
+    Yi-6B D = 4 x S = 2 and its prefix serve, and Gemma3-1B dense S = 2, at
+    ``CUT_LAYERS``): striped serves
     (SmolLM-135M S = 2 packed and S = 4 padded, Yi-6B D = 4 x S = 2,
     Gemma3-1B dense S = 2) replay their
     unstriped twin's greedy tokens and hold ``STRIPE_ATOL`` on each live
@@ -181,7 +186,23 @@ Phases, in order; any failure exits non-zero:
     the prefix cache, an audit every tick) hands back every request at
     every tick and its completed ones keep the clean tokens; SMOKE float32
     card == CPU for a corrupted and a restored serve.  Each serve prints
-    its fault counters, injected events and failed requests.
+    its fault counters, injected events and failed requests;
+14. the rest of the transformer family (``FAMILY_SERVES``), weights from a
+    seeded torch generator on the card: Granite-MoE-1B's widths at 2
+    layers in float32, paged and contiguous (card tokens == CPU tokens,
+    the MoE FFN on both); then each model at full width, one at a time:
+    Granite-MoE-1B (24 layers, 32 experts, top 8; D 64, G 2) serves phase
+    5's traffic paged and contiguous (equal tokens) and dense monolithic
+    (through #4; its tokens reported: a MoE model's chunks route other
+    rows than the prompt bucket); Llama4-Scout (its first 4 of 48 layers,
+    16 experts, top 1; D 128, G 5) paged and contiguous (equal tokens);
+    Minitron-8B (its first 8 of 32 layers; D 128, G 4) paged.  Before its
+    serves each MoE model's layer-0 ``moe_ffn`` runs in bf16 on the card
+    against its float32 CPU run (``MOE_ROWS``, ``MOE_ATOL``; two card
+    calls bit for bit; the pairs dropped printed, and each serve's), and
+    Llama4-Scout's and Minitron-8B's engines hold #1 and #3 to their plain
+    versions at their G (5, 4) and head_dim 128, timed (not forms of the
+    kernels line).
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -262,6 +283,7 @@ SERVES = (("paged", "packed"), ("contiguous", "packed"),
 # Yi-6B's and Gemma3-1B's full-width serves: (cache layout, KV dtype), all
 # packed decode
 FULL_SERVES = (("paged", "bf16"), ("contiguous", "bf16"), ("paged", "int8"))
+# (the int8 serve at CUT_LAYERS)
 QUANT_KINDS = ("int8", "fp8")
 # the head-parallel degrees served at full width (``num_model_shards`` = D,
 # KV groups placed on D shards, emulated on the one card), bf16: per model,
@@ -277,42 +299,45 @@ SHARDED_SERVES = {
 SHARDED_CHECK = 4
 # the depth that keeps the whole script near its share of the time limit:
 # the head-parallel serves (phase 8), SmolLM-135M's quantized serves (phase
-# 5), Yi-6B's overload serves (phase 11) and phase 12's secondary serves
-# (SmolLM-135M S = 4 padded and int8 prefix, Yi-6B D = 4 x S = 2) run the
+# 5), Yi-6B's and Gemma3-1B's int8 serves (phases 6 and 7), the marked
+# baseline serves (phase 9), Yi-6B's head move (phase 10), the preempted
+# serves (phase 11), phase 12's secondary serves (SmolLM-135M S = 4 padded,
+# int8, monolithic and S = 2 prefix and the preempted hit victim, Yi-6B D =
+# 4 x S = 2 and prefix, Gemma3-1B dense S = 2) and phase 13's run the
 # model's first CUT_LAYERS layers at full width (the default serves, the
-# path of the kernels line's bf16 launches, and the first serve of each
-# feature keep every layer)
-CUT_LAYERS = {"smollm-135m": 15, "yi-6b": 16}
+# path of the kernels line's bf16 launches, and the first serve of most
+# features keep every layer); Gemma3-1B's 12 layers are two LLLLLG periods
+CUT_LAYERS = {"smollm-135m": 8, "yi-6b": 8, "gemma3-1b": 12}
 # the paper's baselines served at full width (phase 9), per model: (tag,
-# EngineConfig options).  Dense serves prefill monolithically, so the dense
-# flash attention (#4) runs on the prompt bucket; the first is the serve
-# whose #4 launches the kernels line reads
+# cut to CUT_LAYERS, EngineConfig options).  Dense serves prefill
+# monolithically, so the dense flash attention (#4) runs on the prompt
+# bucket; the first is the serve whose #4 launches the kernels line reads
 BASELINE_SERVES = {
     "smollm-135m": (
-        ("dense,monolithic,paged",
+        ("dense,monolithic,paged", False,
          dict(attention="dense", prefill_mode="monolithic")),
-        ("dense,monolithic,contiguous",
+        ("dense,monolithic,contiguous", False,
          dict(attention="dense", prefill_mode="monolithic",
               cache_layout="contiguous")),
-        ("dense,monolithic,paged,int8",
+        ("dense,monolithic,paged,int8", True,
          dict(attention="dense", prefill_mode="monolithic", kv_dtype="int8")),
-        ("dense,monolithic,exact,paged",
+        ("dense,monolithic,exact,paged", True,
          dict(attention="dense", prefill_mode="monolithic",
               prefill_buckets="exact")),
-        ("sparse,monolithic,paged", dict(prefill_mode="monolithic")),
-        ("sparse,monolithic,contiguous",
+        ("sparse,monolithic,paged", False, dict(prefill_mode="monolithic")),
+        ("sparse,monolithic,contiguous", False,
          dict(prefill_mode="monolithic", cache_layout="contiguous"))),
     "yi-6b": (
-        ("dense,monolithic,paged",
+        ("dense,monolithic,paged", False,
          dict(attention="dense", prefill_mode="monolithic")),
-        ("sparse,monolithic,paged", dict(prefill_mode="monolithic"))),
+        ("sparse,monolithic,paged", False, dict(prefill_mode="monolithic"))),
     # the windowed dense prefill: #4's window form on the prompt bucket
     # (monolithic), #2's over dense chunks (chunked, both layouts)
     "gemma3-1b": (
-        ("dense,monolithic,paged",
+        ("dense,monolithic,paged", True,
          dict(attention="dense", prefill_mode="monolithic")),
-        ("dense,chunked,paged", dict(attention="dense")),
-        ("dense,chunked,contiguous",
+        ("dense,chunked,paged", True, dict(attention="dense")),
+        ("dense,chunked,contiguous", True,
          dict(attention="dense", cache_layout="contiguous")))}
 # the kernels whose window forms a sliding-window model's dense prefill
 # runs on its 'L' layers (the kernels line's "<kernel>.window@<model>")
@@ -366,7 +391,7 @@ STRIPE_SERVES = {
                      dict(decode_worklist="padded"), True)),
     "yi-6b": (("D=4,S=2", True, dict(num_model_shards=4, seq_shards=2),
                dict(num_model_shards=4), False),),
-    "gemma3-1b": (("dense,S=2", False, dict(attention="dense", seq_shards=2),
+    "gemma3-1b": (("dense,S=2", True, dict(attention="dense", seq_shards=2),
                    dict(attention="dense"), False),)}
 STRIPE_ATOL = (0.1, 0.25)
 # the default serve's sampled logits by (model, depth) (phase 5), which
@@ -384,10 +409,10 @@ PREFIX_TAILS = 8
 PREFIX_SERVES = {
     "smollm-135m": (("bf16,chunked", False, {}),
                     ("int8,chunked", True, dict(kv_dtype="int8")),
-                    ("bf16,monolithic", False,
+                    ("bf16,monolithic", True,
                      dict(prefill_mode="monolithic")),
-                    ("bf16,chunked,S=2", False, dict(seq_shards=2))),
-    "yi-6b": (("bf16,chunked", False, {}),)}
+                    ("bf16,chunked,S=2", True, dict(seq_shards=2))),
+    "yi-6b": (("bf16,chunked", True, {}),)}
 # the stochastic serve (phase 9): temperature, top-k, top-p
 STOCHASTIC = dict(temperature=0.8, top_k=50, top_p=0.95)
 # faults and self-healing (phase 13): SmolLM-135M's fault traffic (four
@@ -398,6 +423,40 @@ FAULT_LENS = (1500, 700, 1010, 300)
 FAULT_TOKENS = 24
 SNAPSHOT_TICK = 6
 CHAOS_BLOCKS = 40
+# the rest of the transformer family (phase 14): per model, its attention
+# shapes, the depth served at full width (None: every layer; Llama4-Scout's
+# 48 layers, ~203 GB of bf16 weights, do not fit one 80 GB card) and its
+# serves (tag, EngineConfig options) of phase 5's traffic; a contiguous
+# serve must give the paged serve's tokens bit for bit (both route the
+# same rows through the MoE FFN).  Chunked == monolithic does not hold for
+# a MoE model (a chunk routes other rows than the prompt bucket, so an
+# expert's capacity and its drops differ: ROADMAP.md §3), so the dense
+# monolithic serve's tokens are reported, not compared
+GRANITE = Shapes("granite-moe-1b-a400m", 16, 8, 64, "@granite-moe-1b")
+SCOUT = Shapes("llama4-scout-17b-a16e", 40, 8, 128, "@llama4-scout")
+MINITRON = Shapes("minitron-8b", 32, 8, 128, "@minitron-8b")
+FAMILY_SERVES = {
+    GRANITE: (None, (("paged,packed", {}),
+                     ("contiguous,packed", dict(cache_layout="contiguous")),
+                     ("dense,monolithic,paged",
+                      dict(attention="dense", prefill_mode="monolithic")))),
+    SCOUT: (4, (("paged,packed", {}),
+                ("contiguous,packed", dict(cache_layout="contiguous")))),
+    MINITRON: (8, (("paged,packed", {}),))}
+# the D 128 decode forms no earlier phase checks against their plain
+# versions: G = 5 (the G <= 8 instantiation) and G = 4 (G <= 4)
+FAMILY_DECODE_CHECKS = (SCOUT, MINITRON)
+# the MoE FFN on the card in bf16 against its CPU run in float32 on the
+# same inputs: rows a call (a decode step of 8 slots, a 256-row chunk),
+# the largest difference allowed on rows routed alike (two bf16 ulps at
+# |x| < 4: the experts' products and the combine round to bf16), and the
+# rows a call that may be routed otherwise (f32 router sums taken in
+# another order can swap two experts at a near-tie)
+MOE_ROWS = (8, 256)
+MOE_ATOL = 2.0 ** -5
+MOE_REROUTED = 0.01
+# Granite-MoE-1B's float32 parity: its widths at 2 layers, the prompts
+FAMILY_PARITY = (2, (300, 40, 130))
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
 # ("<kernel>.<kind>") but the contiguous prefill, which reads the
@@ -1347,7 +1406,8 @@ def run_serves(cfg, params, dev):
 def run_full_serves(cfg, params, dev, sh: Shapes):
     """A model's full-width serves (``FULL_SERVES``, packed decode): the
     contiguous bf16 serve must give the paged one's tokens, and the code
-    serves complete every request through the code forms.  The int8
+    serves (at ``CUT_LAYERS``) complete every request through the code
+    forms.  The int8
     serve also reads the bf16-q fp8 prefill's count, which no serve here
     launches (the kernels line's launches are all from serves).  Returns
     the launches and the tokens by (layout, KV dtype)."""
@@ -1356,8 +1416,9 @@ def run_full_serves(cfg, params, dev, sh: Shapes):
     tokens, launches = {}, {}
     for layout, kind in FULL_SERVES:
         tag = f"{layout},packed,{kind}"
-        eng = build_engine(cfg, params, dev, cache_layout=layout,
-                           kv_dtype=kind)
+        model = (cfg, params) if kind == "bf16" else cut_depth(cfg, params,
+                                                               sh.arch)
+        eng = build_engine(*model, dev, cache_layout=layout, kv_dtype=kind)
         also = ([form("sparse_prefill_paged", "fp8", sh)]
                 if kind == "int8" else [])
         tokens[layout, kind], got = run_serve(eng, prompts, tag, sh, also)
@@ -1645,7 +1706,8 @@ def check_baselines(gen, dev, sh: Shapes, results=None,
 
 def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
     """Phase 9's full-width serves of the paper's baselines
-    (``BASELINE_SERVES``, 8 prompts, 32 greedy tokens): each completes
+    (``BASELINE_SERVES``, 8 prompts, 32 greedy tokens; the marked ones at
+    ``CUT_LAYERS``, compared only with serves of their depth): each completes
     every request through its path's kernels (dense monolithic: #4 on the
     prompt bucket; on a sliding-window model each dense serve also through
     its prefill kernel's window form).  The dense paged and contiguous
@@ -1657,9 +1719,13 @@ def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
     prompts = serve_prompts(cfg)
     fa = form("flash_attention", None, sh)
     windowed = "L" in cfg.attn_pattern
-    tokens, launches = {}, {}
-    for tag, options in BASELINE_SERVES[sh.arch]:
-        eng = build_engine(cfg, params, dev, **options)
+    tokens, launches, depth, cut = {}, {}, {}, None
+    for tag, short, options in BASELINE_SERVES[sh.arch]:
+        if short:
+            cut = cut or cut_depth(cfg, params, sh.arch)
+        model = cut if short else (cfg, params)
+        depth[tag] = model[0].num_layers
+        eng = build_engine(*model, dev, **options)
         wins = ([form(serve_kernels(eng.ecfg)[1], "window", sh)]
                 if windowed and not eng.sparse else [])
         tokens[tag], got = run_serve(eng, prompts, tag, sh, also=[fa, *wins])
@@ -1677,7 +1743,7 @@ def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
         if required and not eq:
             fail(f"{sh.arch}: the {tag} tokens differ from {other}'s")
 
-    for tag, options in BASELINE_SERVES[sh.arch]:
+    for tag, _, options in BASELINE_SERVES[sh.arch]:
         layout = options.get("cache_layout", "paged")
         if options.get("attention") != "dense":
             same(tag, chunked[layout], f"the chunked {layout} serve", True)
@@ -1689,7 +1755,7 @@ def run_baseline_serves(cfg, params, dev, sh: Shapes, chunked):
             ("dense,chunked,contiguous", "dense,chunked,paged", True),
             # #4 and #2 are different kernels: reported
             ("dense,chunked,paged", "dense,monolithic,paged", False)):
-        if tag in tokens and base in tokens:
+        if tag in tokens and base in tokens and depth[tag] == depth[base]:
             same(tag, tokens[base], base, required)
     return launches
 
@@ -1855,7 +1921,7 @@ def smoke_parity(cfg, dev, prompts, kinds, params, max_tokens, tag,
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
     cpu = torch.device("cpu")
     cpu_params = to_device(params, cpu)
-    med_atol = QUANT_MEDIAN_ATOL[cfg.name]
+    med_atol = QUANT_MEDIAN_ATOL.get(cfg.name)
 
     def serve(d, layout, kind, forced=None):
         eng = Engine(cfg, params if d == dev else cpu_params,
@@ -2097,7 +2163,8 @@ def rotate_shards(plan):
 
 
 def run_head_move(cfg, params, dev, sh: Shapes):
-    """Phase 10's forced head move at full width (``HEAD_MOVE``): at the
+    """Phase 10's forced head move at full width (``HEAD_MOVE``, the
+    model's first ``CUT_LAYERS`` layers): at the
     first safe point from decode tick ``HEAD_MOVE_TICK`` with every prompt
     prefilled (nothing queued or in flight) the engine swaps
     onto its plan with the KV groups rotated across the shards (weights
@@ -3016,7 +3083,8 @@ def seq_prefix_phases(cfg, params, dev, sh: Shapes):
             cut = cut or cut_depth(cfg, params, sh.arch)
         run_prefix(*(cut if short else (cfg, params)), dev, sh, tag, kw)
     if sh.arch == "smollm-135m":
-        run_prefix_preempted(cfg, params, dev, sh)
+        run_prefix_preempted(*(cut or cut_depth(cfg, params, sh.arch)), dev,
+                             sh)
         seq_prefix_parity(dev)
     print(f"stripe and prefix phases ({cfg.name}): {time.time() - t0:.1f} s")
 
@@ -3676,6 +3744,152 @@ def fault_phases(cfg, params, dev, default_tokens) -> None:
     print(f"fault phases ({cfg.name}): {time.time() - t0:.1f} s")
 
 
+# -- phase 14: the rest of the transformer family ----------------------------
+
+def moe_card_check(p, moe_cfg, sh: Shapes, gen, dev) -> None:
+    """``moe_ffn`` on the card in bf16 (the model's layer-0 experts ``p``)
+    against its CPU run in float32 on the same bf16 inputs and weights,
+    ``MOE_ROWS`` rows a call: the largest difference over the rows both
+    route alike within ``MOE_ATOL``, at most ``MOE_REROUTED`` of the rows
+    routed otherwise, and two card calls equal bit for bit (the combine
+    sums each row's experts in a fixed order).  Prints the capacity and
+    the pairs dropped in each call."""
+    import torch
+    from repro_torch.models import moe
+    cpu_p = {k: v.float().cpu() for k, v in p.items()}
+    E, k = moe_cfg.num_experts, moe_cfg.experts_per_token
+    d = p["down"].shape[2]
+    for n in MOE_ROWS:
+        x = torch.randn((1, n, d), generator=gen).to(dev, torch.bfloat16)
+        got = moe.moe_ffn(x, p, moe_cfg)
+        same = torch.equal(got, moe.moe_ffn(x, p, moe_cfg))
+        want = moe.moe_ffn(x.float().cpu(), cpu_p, moe_cfg)
+        C = moe._capacity(n, moe_cfg)
+        slot = moe.route(x[0], p["router"], moe_cfg)[0].cpu()
+        alike = (slot == moe.route(x[0].float().cpu(), cpu_p["router"],
+                                   moe_cfg)[0]).all(-1)
+        err = (got[0].float().cpu() - want[0])[alike].abs().max().item()
+        moved = n - int(alike.sum())
+        print(f"moe{sh.tag}[{n} rows]: {E} experts, top {k}, capacity {C}: "
+              f"{int((slot == E * C).sum())} of {n * k} pairs dropped on the "
+              f"card; bf16 card vs f32 CPU max abs err {err:.3e} over "
+              f"{n - moved} rows routed alike (tolerance {MOE_ATOL:g}), "
+              f"{moved} routed otherwise; two card calls "
+              f"{'==' if same else '!='} bit for bit")
+        if not same:
+            fail(f"{sh.arch}: two card calls of moe_ffn differ")
+        if not err <= MOE_ATOL or moved > MOE_REROUTED * n:
+            fail(f"{sh.arch}: moe_ffn on the card leaves its CPU run "
+                 f"({err:.3e}, {moved} rows routed otherwise)")
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """While the block runs, count the MoE FFN's calls, routed pairs and
+    dropped pairs (a running sum on the device, read once at the end)."""
+    from repro_torch.models import moe
+    route, got, per_call = moe.route, {"calls": 0, "pairs": 0}, []
+
+    def counted(xf, router, cfg):
+        slot, gate = route(xf, router, cfg)
+        C = moe._capacity(xf.shape[0], cfg)
+        per_call.append((slot == cfg.num_experts * C).sum())
+        got["calls"] += 1
+        got["pairs"] += slot.numel()
+        return slot, gate
+
+    moe.route = counted
+    try:
+        yield got
+    finally:
+        moe.route = route
+        counts = [int(c) for c in per_call]
+        got["dropped"] = sum(counts)
+        got["dropping"] = sum(c > 0 for c in counts)
+
+
+def granite_parity(dev) -> None:
+    """Granite-MoE-1B's widths at ``FAMILY_PARITY``'s depth in float32,
+    paged and contiguous: the card's greedy tokens == the plain versions'
+    on the CPU (the MoE FFN on both devices)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    depth, lens = FAMILY_PARITY
+    cfg = dataclasses.replace(get_config(GRANITE.arch), num_layers=depth,
+                              dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    smoke_parity(cfg, dev, prompts, ("bf16",),
+                 init_params(cfg, seed=3, device=dev, host_rng=False), 8,
+                 f"{GRANITE.arch} {depth}-layer")
+
+
+def family_model(dev, gen, sh: Shapes) -> None:
+    """One model of phase 14 at full width and its ``FAMILY_SERVES``
+    depth, weights from a seeded torch generator on the card: the MoE
+    check (a MoE model), the decode kernels against their plain versions
+    at its shapes (``FAMILY_DECODE_CHECKS``), its serves (contiguous ==
+    paged bit for bit; a MoE model's dropped pairs printed); the weights
+    freed after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    t0 = time.time()
+    depth, serves = FAMILY_SERVES[sh]
+    full = get_config(sh.arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         num_layers=depth)
+    params = init_params(cfg, seed=0, device=dev, host_rng=False)
+    torch.cuda.synchronize()
+    print(f"full-width {cfg.name}: {cfg.num_layers} of {full.num_layers} "
+          f"layers, {cfg.num_params / 1e9:.3f}B params "
+          f"({full.num_params / 1e9:.3f}B at full depth), "
+          f"{cfg.num_active_params / 1e9:.3f}B active a token; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB on the card; "
+          f"weight init {time.time() - t0:.1f} s")
+    if cfg.moe is not None:
+        moe_card_check(params["layers"][0]["moe"], cfg.moe, sh, gen, dev)
+    prompts = serve_prompts(cfg)
+    tokens = {}
+    for tag, kw in serves:
+        eng = build_engine(cfg, params, dev, **kw)
+        if sh in FAMILY_DECODE_CHECKS and not tokens:
+            check_decode(eng, gen, dev, {}, sh, (torch.bfloat16,))
+        with counted_drops() as drops:
+            tokens[tag], _ = run_serve(eng, prompts, tag, sh)
+        if cfg.moe is not None:
+            print(f"serve[{sh.arch}:{tag}]: MoE FFN calls "
+                  f"{drops['calls']}, pairs dropped {int(drops['dropped'])} "
+                  f"of {drops['pairs']} routed (pad rows of the buckets "
+                  f"included), in {drops['dropping']} calls")
+        del eng
+        free_card()
+    if "contiguous,packed" in tokens:
+        same = tokens["contiguous,packed"] == tokens["paged,packed"]
+        print(f"serve[{sh.arch}:contiguous,packed]: greedy tokens "
+              f"{'==' if same else '!='} paged,packed")
+        if not same:
+            fail(f"{sh.arch}: the contiguous tokens differ from the paged "
+                 f"serve's")
+    del params
+    free_card()
+    print(f"transformer-family phases ({cfg.name}): "
+          f"{time.time() - t0:.1f} s")
+
+
+def family_phases(dev, gen) -> None:
+    """Phase 14: Granite-MoE-1B's float32 parity, then each model of
+    ``FAMILY_SERVES``."""
+    t0 = time.time()
+    granite_parity(dev)
+    print(f"transformer-family parity ({GRANITE.arch}): "
+          f"{time.time() - t0:.1f} s")
+    for sh in FAMILY_SERVES:
+        family_model(dev, gen, sh)
+
+
 def model_phases(dev, gen, results, sh: Shapes):
     """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
     f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
@@ -3737,7 +3951,7 @@ def model_phases(dev, gen, results, sh: Shapes):
         print(f"head-parallel phases ({cfg.name}): {t_sharded:.1f} s")
     if sh.arch in HEAD_MOVE:
         t0 = time.time()
-        run_head_move(cfg, params, dev, sh)
+        run_head_move(*cut_depth(cfg, params, sh.arch), dev, sh)
         print(f"plan-epoch phases ({cfg.name}): {time.time() - t0:.1f} s")
     if sh.arch in PREEMPT_SERVES or sh.arch in STRADDLE:
         t0 = time.time()
@@ -3826,7 +4040,8 @@ def main() -> int:
     run_profile(cfg, params, dev)
     profile_smoke_parity(dev)
     for layout, kind in PREEMPT_SERVES[cfg.name]:
-        run_preempted(cfg, params, dev, SMOL, layout, kind)
+        run_preempted(*cut_depth(cfg, params, cfg.name), dev, SMOL, layout,
+                      kind)
     print(f"profiling and overload phases ({cfg.name}): "
           f"{time.time() - t0:.1f} s")
     seq_prefix_phases(cfg, params, dev, SMOL)
@@ -3835,8 +4050,9 @@ def main() -> int:
 
     for sh in (YI, GEMMA):
         launches.update(model_phases(dev, gen, results, sh))
+    family_phases(dev, gen)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the device "
-          f"check (PR 27's final call: 777.2 s)")
+          f"check")
 
     src = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

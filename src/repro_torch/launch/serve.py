@@ -1,9 +1,10 @@
 """Serve synthetic requests through the port's engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-        [--smoke] [--device cuda|cpu] [--budget 512] [--requests 8] \
-        [--prompt-lens 300,1010,3500] [--cache-layout paged|contiguous] \
-        [--decode-worklist packed|padded] [--kv-dtype bf16|int8|fp8] \
+        [--smoke] [--layers N] [--device cuda|cpu] [--budget 512] \
+        [--requests 8] [--prompt-lens 300,1010,3500] \
+        [--cache-layout paged|contiguous] [--decode-worklist packed|padded] \
+        [--kv-dtype bf16|int8|fp8] \
         [--attention sparse|dense] [--prefill-mode chunked|monolithic] \
         [--prefill-buckets pow2|exact] [--temperature 0.8 --top-k 50 \
         --top-p 0.95 --sample-seed 0] [--telemetry-every 4 \
@@ -13,9 +14,14 @@
         --swap-retries N --checkpoint-dir DIR --checkpoint-every N] \
         [--profile]
 
-Weights and prompts are random, drawn from ``--seed``; the sparsity profile
-is the synthetic one.  Prompts have the lengths ``--prompt-lens`` gives,
-else ``--requests`` lengths drawn from [32, 128).  Budget, sequence length
+``--arch`` is one of smollm-135m, yi-6b, gemma3-1b, granite-moe-1b-a400m,
+llama4-scout-17b-a16e (MoE FFNs) and minitron-8b; ``--layers N`` keeps the
+first N layers at full width.  The launcher prints the total and per-token
+active parameter counts.  Weights and prompts are random, drawn from
+``--seed`` (the weights by a torch generator on a CUDA device, by numpy's on
+the CPU); the sparsity profile is the synthetic one.  Prompts have the
+lengths ``--prompt-lens`` gives, else ``--requests`` lengths drawn from
+[32, 128).  Budget, sequence length
 and slots, the attention (S-HPLB sparse or the dense baseline), the
 prefill mode and buckets, the cache layout, the decode work list and the
 KV storage dtype (``--kv-dtype``: int8 / fp8 codes with per-block scales,
@@ -58,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import time
 
@@ -78,6 +85,10 @@ def main(argv=None) -> list:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the CPU test size of the arch, not its full width")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the arch's first N layers only (full "
+                         "width: Llama4-Scout's 48 layers do not fit one "
+                         "80 GB card)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--budget", type=int, default=defaults.budget_per_head)
     ap.add_argument("--max-seq", type=int, default=defaults.max_seq_len)
@@ -173,7 +184,17 @@ def main(argv=None) -> list:
         ap.error("no CUDA device is available; pass --device cpu to run the "
                  "plain PyTorch kernels")
     cfg = get_config(args.arch, smoke=args.smoke)
-    eng = Engine(cfg, init_params(cfg, seed=args.seed, device=device),
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.num_layers:
+            ap.error(f"--layers must be in 1..{cfg.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    print(f"{cfg.name}: {cfg.num_layers} layers, {cfg.num_params} params, "
+          f"{cfg.num_active_params} active a token")
+    # a seeded torch generator on the card: no host draw of billions of
+    # normals
+    params = init_params(cfg, seed=args.seed, device=device,
+                         host_rng=device.type == "cpu")
+    eng = Engine(cfg, params,
                  EngineConfig(budget_per_head=args.budget,
                               max_seq_len=args.max_seq,
                               num_slots=args.slots,

@@ -7,10 +7,14 @@ pytree (:mod:`repro_torch.weights`) drop in unchanged.  The paged KV pool
 is ``[L, 2, N+1, Hkv, block, Dh]``; its last block is the trash block that
 absorbs writes of padding rows.  The contiguous slot cache is ``[L, 2, B,
 Hkv, Smax, Dh]``, one row per batch slot (the reference's parity baseline).
-The layer loop is a Python loop; cache writes are in place.  An 'L'
-layer of ``cfg.attn_pattern`` decodes, and prefills densely, within its
-last ``cfg.local_window`` positions; the sparse prefill attends unwindowed
-on every layer, as the reference's does.
+The layer loop is a Python loop; cache writes are in place.  The FFN is
+SwiGLU, or with ``cfg.moe`` the MoE FFN (:mod:`repro_torch.models.moe`),
+which routes every row of a call together: all slots of a decode step, the
+whole chunk bucket of a chunk, the whole prompt bucket of a monolithic
+prefill (see :func:`_prefill_out`).  An 'L' layer of ``cfg.attn_pattern``
+decodes, and prefills densely, within its last ``cfg.local_window``
+positions; the sparse prefill attends unwindowed on every layer, as the
+reference's does.
 
 Attention is S-HPLB sparse (work lists) or dense, the reference's baseline.
 Dense chunks run the sparse prefill kernel over a dense causal work list
@@ -52,32 +56,33 @@ from repro_torch.core.worklist import (
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_decode import merge_partials
 from repro_torch.models import common
+from repro_torch.models.moe import moe_ffn
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device: str | torch.device = "cuda",
                 host_rng: bool = True) -> dict:
     """Random weights from a seed, with the reference's shapes and init
-    scales (``N(0, 1/in_dim)`` projections, ``N(0, 1/d_model)``
-    embeddings, unit norms).  Projections and embeddings are in
-    ``cfg.dtype``; norm weights are float32.  The normals come from
-    numpy's generator (the same values on every device), or, with
-    ``host_rng=False``, from a torch generator on ``device`` (no host
-    draw: for billions of weights on a GPU; the values are that
-    generator's)."""
+    scales (``N(0, 1/in_dim)`` projections, experts and router,
+    ``N(0, 1/d_model)`` embeddings, unit norms).  Projections, experts and
+    embeddings are in ``cfg.dtype``; norm weights and a MoE layer's router
+    are float32.  The normals come from numpy's generator (the same values
+    on every device), or, with ``host_rng=False``, from a torch generator
+    on ``device`` (no host draw: for billions of weights on a GPU; the
+    values are that generator's)."""
     if host_rng:
         rng = np.random.default_rng(seed)
 
-        def normal(shape, scale):
+        def normal(shape, scale, dtype=cfg.dtype):
             w = rng.standard_normal(shape, dtype=np.float32)
             w *= np.float32(scale)
-            return torch.from_numpy(w).to(device=device, dtype=cfg.dtype)
+            return torch.from_numpy(w).to(device=device, dtype=dtype)
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
 
-        def normal(shape, scale):
+        def normal(shape, scale, dtype=cfg.dtype):
             return torch.randn(shape, generator=gen, device=device).mul_(
-                scale).to(cfg.dtype)
+                scale).to(dtype)
 
     def dense(din, dout):
         return normal((din, dout), 1.0 / np.sqrt(din))
@@ -85,18 +90,25 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     def ones():
         return torch.ones(cfg.d_model, dtype=torch.float32, device=device)
 
-    d, dh = cfg.d_model, cfg.head_dim_
+    d, dh, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
     layers = []
     for _ in range(cfg.num_layers):
-        layers.append({
-            "attn": {"wq": dense(d, cfg.num_heads * dh),
-                     "wk": dense(d, cfg.num_kv_heads * dh),
-                     "wv": dense(d, cfg.num_kv_heads * dh),
-                     "wo": dense(cfg.num_heads * dh, d)},
-            "ln1": ones(), "ln2": ones(),
-            "mlp": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
-                    "down": dense(cfg.d_ff, d)},
-        })
+        lp = {"attn": {"wq": dense(d, cfg.num_heads * dh),
+                       "wk": dense(d, cfg.num_kv_heads * dh),
+                       "wv": dense(d, cfg.num_kv_heads * dh),
+                       "wo": dense(cfg.num_heads * dh, d)},
+              "ln1": ones(), "ln2": ones()}
+        if cfg.moe is not None:
+            E = cfg.moe.num_experts
+            lp["moe"] = {"router": normal((d, E), 1.0 / np.sqrt(d),
+                                          torch.float32),
+                         "gate": normal((E, d, f), 1.0 / np.sqrt(d)),
+                         "up": normal((E, d, f), 1.0 / np.sqrt(d)),
+                         "down": normal((E, f, d), 1.0 / np.sqrt(f))}
+        else:
+            lp["mlp"] = {"gate": dense(d, f), "up": dense(d, f),
+                         "down": dense(f, d)}
+        layers.append(lp)
     params = {"embed": normal((cfg.vocab_size, d), 1.0 / np.sqrt(d)),
               "layers": layers, "ln_f": ones()}
     if not cfg.tie_embeddings:
@@ -152,12 +164,25 @@ def _qkv(x, ap, cfg: TransformerConfig, positions):
     return q, k, v
 
 
-def _block_out(x, o, lp):
-    """Attention output projection + residual, then the SwiGLU FFN."""
+def _attn_residual(x, o, lp):
+    """Attention output projection + residual, and the FFN's pre-norm."""
     x = x + common.merge_heads(o) @ lp["attn"]["wo"]
-    h = common.rmsnorm(x, lp["ln2"])
-    return x + common.swiglu(h, lp["mlp"]["gate"], lp["mlp"]["up"],
-                             lp["mlp"]["down"])
+    return x, common.rmsnorm(x, lp["ln2"])
+
+
+def _ffn(h, lp, cfg: TransformerConfig):
+    """The FFN of normed rows ``h [B, S, d]``: SwiGLU, or the MoE FFN,
+    which routes all ``B * S`` rows together."""
+    if cfg.moe is not None:
+        return moe_ffn(h, lp["moe"], cfg.moe)
+    mlp = lp["mlp"]
+    return common.swiglu(h, mlp["gate"], mlp["up"], mlp["down"])
+
+
+def _block_out(x, o, lp, cfg: TransformerConfig):
+    """Attention output projection + residual, then the FFN."""
+    x, h = _attn_residual(x, o, lp)
+    return x + _ffn(h, lp, cfg)
 
 
 def _tiles(n: int, tile: int) -> list[slice]:
@@ -184,12 +209,25 @@ def _prefill_qkv(x, lp, cfg: TransformerConfig, positions):
     return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
 
 
-def _prefill_out(x, o, lp, cfg: TransformerConfig):
+def _prefill_out(x, o, lp, cfg: TransformerConfig,
+                 routed: int | None = None):
     """``_block_out`` of prefill rows, one q block of rows at a time (see
-    :func:`_prefill_qkv`)."""
-    parts = [_block_out(x[:, t], o[:, :, t], lp)
-             for t in _tiles(x.shape[1], cfg.block_q)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    :func:`_prefill_qkv`).
+
+    A MoE FFN instead routes the first ``routed`` rows (default all) in
+    one call, as the reference routes every row of its prefill call: an
+    expert's capacity, and so which pairs it drops, depends on the rows
+    routed together.  Rows past ``routed`` (the monolithic prefill's
+    padding to whole q blocks) keep the attention residual alone."""
+    tiles = _tiles(x.shape[1], cfg.block_q)
+    if cfg.moe is None:
+        parts = [_block_out(x[:, t], o[:, :, t], lp, cfg) for t in tiles]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    xs, hs = zip(*(_attn_residual(x[:, t], o[:, :, t], lp) for t in tiles))
+    x, h = torch.cat(xs, dim=1), torch.cat(hs, dim=1)
+    n = x.shape[1] if routed is None else routed
+    y = x[:, :n] + _ffn(h[:, :n], lp, cfg)
+    return y if n == x.shape[1] else torch.cat([y, x[:, n:]], dim=1)
 
 
 def _logits(x, params, cfg: TransformerConfig):
@@ -367,7 +405,7 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
                 o[b, :, :S] = kernel_ops.sparse_prefill_contiguous(
                     qb, kb, vb, sparse_items[l], block_q=cfg.block_q,
                     block_kv=cfg.block_kv)
-        x = _prefill_out(x, o, lp, cfg)
+        x = _prefill_out(x, o, lp, cfg, routed=S)
     last = S - 1 if last_index is None else last_index
     return _logits(x[:, last:last + 1], params, cfg)[:, 0], cache
 
@@ -601,7 +639,7 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
             o = kernel_ops.flash_decode(
                 q, kc, vc, block_ids[l], pos, block_kv=blk,
                 window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
-        x = _block_out(x, o, lp)
+        x = _block_out(x, o, lp, cfg)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, cache, scales) if qz else logits
 
@@ -703,7 +741,7 @@ def decode_step_paged(params, pool, token, pos, table,
         else:
             o = kernel_ops.flash_decode_paged(
                 q, kc, vc, block_ids[l], table, pos, **kw)
-        x = _block_out(x, o, lp)
+        x = _block_out(x, o, lp, cfg)
     logits = _logits(x, params, cfg)[:, 0]
     return (logits, pool, scales) if qz else logits
 
@@ -856,7 +894,7 @@ def decode_telemetry(params, cache, token, pos, cfg: TransformerConfig, *,
             o = kernel_ops.flash_decode_packed(
                 q, kc, vc, items, last, block_kv=blk, k_scales=ks,
                 v_scales=vs)
-        x = _block_out(x, o, lp)
+        x = _block_out(x, o, lp, cfg)
     rec, frac = torch.stack(recs), torch.stack(fracs)
     if with_health:
         return rec, frac, torch.isfinite(x).all(dim=2).all(dim=1)

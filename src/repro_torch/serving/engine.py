@@ -426,11 +426,12 @@ class Engine:
                     wq, wk, wv, wo, layer_plans[l], cfg.head_dim_,
                     cfg.group_size,
                     kv_replicated=self.plan.mode == "kv_replication")
+            ffn = "moe" if cfg.moe is not None else "mlp"
             layers.append({
                 "attn": {"wq": to(wq), "wk": to(wk), "wv": to(wv),
                          "wo": to(wo)},
                 "ln1": to(lp["ln1"]), "ln2": to(lp["ln2"]),
-                "mlp": {k: to(v) for k, v in lp["mlp"].items()}})
+                ffn: {k: to(v) for k, v in lp[ffn].items()}})
         out = {k: to(v) for k, v in params.items() if k != "layers"}
         out["layers"] = layers
         return out

@@ -1916,3 +1916,61 @@ def test_cuda_snapshot_restore_resumes(cuda, layout, tmp_path):
     while b.busy:
         done.extend(b.tick(pf, df))
     assert {r.rid: r.generated for r in done} == want
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("n", [8, 256])
+def test_cuda_moe_ffn_bf16_matches_cpu_f32(cuda, arch, n):
+    """The MoE FFN at the model's widths (one layer's experts, bf16 on the
+    card) against its float32 CPU run on the same bf16 values: within two
+    bf16 ulps at |x| < 4 on the rows both devices route alike (at most 1%
+    routed otherwise: f32 router sums in another order), and two card
+    calls equal bit for bit (the combine adds each row's experts in a
+    fixed order, no atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config(arch), num_layers=1, vocab_size=8)
+    p = init_params(cfg, seed=0, device=cuda, host_rng=False)[
+        "layers"][0]["moe"]
+    x = torch.randn((1, n, cfg.d_model), device=cuda).to(torch.bfloat16)
+    got = moe.moe_ffn(x, p, cfg.moe)
+    assert torch.equal(got, moe.moe_ffn(x, p, cfg.moe))
+    cpu_p = {k: v.float().cpu() for k, v in p.items()}
+    want = moe.moe_ffn(x.float().cpu(), cpu_p, cfg.moe)
+    alike = (moe.route(x[0], p["router"], cfg.moe)[0].cpu()
+             == moe.route(x[0].float().cpu(), cpu_p["router"],
+                          cfg.moe)[0]).all(-1)
+    assert alike.sum() >= 0.99 * n
+    err = (got[0].float().cpu() - want[0])[alike].abs().max().item()
+    assert err <= 2.0 ** -5
+
+
+def test_cuda_granite_width_f32_serve_matches_cpu(cuda):
+    """Granite-MoE-1B's widths at 2 layers in float32, both layouts: the
+    card's greedy tokens (the MoE FFN and the kernels' f32 forms at
+    head_dim 64) == the plain versions' on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import synthetic_head_curves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              num_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (300, 40)]
+
+    def serve(dev, layout):
+        eng = Engine(cfg, params,
+                     EngineConfig(max_seq_len=1024, num_slots=4,
+                                  budget_per_head=256, cache_layout=layout),
+                     synthetic_head_curves(cfg.num_layers, cfg.num_heads),
+                     device=dev)
+        return [r.generated for r in eng.serve(
+            prompts, SamplingParams(max_tokens=6))]
+
+    for layout in ("paged", "contiguous"):
+        assert serve(cuda, layout) == serve(torch.device("cpu"), layout)
