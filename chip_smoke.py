@@ -202,7 +202,29 @@ Phases, in order; any failure exits non-zero:
     calls bit for bit; the pairs dropped printed, and each serve's), and
     Llama4-Scout's and Minitron-8B's engines hold #1 and #3 to their plain
     versions at their G (5, 4) and head_dim 128, timed (not forms of the
-    kernels line).
+    kernels line);
+15. mesh (the multi-GPU islands on one card): every rank a process on
+    ``cuda:0``, the ``gloo`` backend staging each collective through host
+    memory (``repro_torch.launch.steps.run_on_mesh``; ``MESH_RUNS``, full
+    width, cut depth and batch): Yi-6B at ``model=4`` (``kv_group``, one
+    KV group a rank) prefills 32768 tokens and decodes (the head-sharded
+    branch) at 32768 cache positions for 8 rows; Gemma3-1B at ``model=2``
+    (``kv_replication``, global kv ids) prefills 8192 tokens and decodes
+    through the seq-sharded island (#3 partials merged over 2 ranks);
+    SmolLM-135M at ``model=2`` prefills 8192 tokens in row mode; then the islands alone
+    at Yi-6B's widths on 4 ranks (``island_rank``: the paged island over 2
+    stripes, the 2D island over 2 x 2, the int8 packed decode, repermute,
+    swap gather and scatter); then a one-rank NCCL mesh runs a Yi-6B
+    prefill and decode.  Each rank records its layer-0 island calls: a
+    head-sharded island's output must equal, bit for bit, the same kernel
+    launched here on the rank's inputs; a merged output (#1 / #3 partials,
+    row mode's tiles) and the ``wo`` sum over ``model`` must agree with the
+    one-process result (``MESH_MERGE_ATOL``, ``MESH_REDUCE_RTOL``), and the
+    same merge with any one rank's part dropped must not; every rank must launch
+    its kernels and hold the same greedy tokens.  Each rank's island
+    milliseconds print beside the plan's ``device_loads``: the ranks
+    contend for one card's SMs, so these are not the paper's cross-GPU
+    bubble.
 
 Each kernel form of the last JSON line but one is named ``<kernel>``,
 ``<kernel>.<kind>`` (``int8``, ``fp8``, ``f32``) and, at Yi-6B's and
@@ -457,6 +479,29 @@ MOE_ATOL = 2.0 ** -5
 MOE_REROUTED = 0.01
 # Granite-MoE-1B's float32 parity: its widths at 2 layers, the prompts
 FAMILY_PARITY = (2, (300, 40, 130))
+# the multi-GPU islands (phase 15): per run (arch, model degree, layers,
+# shapes as (name, seq_len, batch, kind)); Yi-6B at the reference's
+# prefill_32k and decode_32k lengths, batch cut from 32 / 128 to 1 / 8;
+# Gemma3-1B and SmolLM-135M prefill a quarter of that (8192 tokens); depth
+# cut (PERF.md §4)
+MESH_RUNS = (
+    ("yi-6b", 4, 2, (("prefill_32k", 32768, 1, "prefill"),
+                     ("decode_32k", 32768, 8, "decode"))),
+    ("gemma3-1b", 2, 2, (("prefill_8k", 8192, 1, "prefill"),)),
+    ("smollm-135m", 2, 2, (("prefill_8k", 8192, 1, "prefill"),)))
+MESH_STEPS = 2                 # greedy decode steps after each prefill
+MESH_TIMEOUT = 300             # seconds a spawn of ranks may take
+# phase 15's merged outputs (#1 / #3 partials merged over ranks, row
+# tiles summed) against one process, max abs: sound merges read at most
+# 2.441e-4, a merge with any one rank's part dropped at least 5.585e-2
+# (the least: Gemma3-1B's seq-sharded decode without the rank that holds
+# only the sink block)
+MESH_MERGE_ATOL = 2.0 ** -10
+# the wo sum over model against one process's product, max abs relative to
+# the product's largest |value|: the bf16 partials, each rounded, summed in
+# bf16 land 1-2 bf16 steps off (sound sums read at most 8.368e-3, 2^-8 would
+# refuse them), a sum with any one rank's partial left out at least 0.415
+MESH_REDUCE_RTOL = 2.0 ** -6
 # the kernels each serve must launch (the first two are also the
 # default path's); a quantized cache runs the codes-and-scales forms
 # ("<kernel>.<kind>") but the contiguous prefill, which reads the
@@ -3890,6 +3935,312 @@ def family_phases(dev, gen) -> None:
         family_model(dev, gen, sh)
 
 
+# -- phase 15: the multi-GPU islands on one card ------------------------------
+
+def mesh_loaded(paths, dev):
+    """Each rank's record (``torch.save``) on the card, by rank."""
+    import torch
+    return [torch.load(p, map_location=dev, weights_only=False)
+            for p in paths]
+
+
+def bits_equal(name: str, got, want) -> None:
+    import torch
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"{name}: {'bit for bit' if same else 'DIFFERS from'} the same "
+          f"work done here")
+    if not same:
+        fail(f"{name}: a rank's island output differs from the same work "
+             f"done here on its inputs")
+
+
+def merged_check(name: str, got, parts, merge, want) -> None:
+    """A merged output ``got`` against this process's merge of the ranks'
+    ``parts`` and against the one-process result ``want``, within
+    ``MESH_MERGE_ATOL``; the planted controls, the merge with each rank's
+    part left out in turn, must each miss ``want`` by more."""
+    atol = MESH_MERGE_ATOL
+    mine = merge(parts)
+    err_m = (got.float() - mine.float()).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    ctls = [(merge(parts[:i] + parts[i + 1:]).float()
+             - want.float()).abs().max().item() for i in range(len(parts))]
+    print(f"{name}: merged vs one process max abs err {err:.3e}, vs the "
+          f"ranks' parts merged here {err_m:.3e} (tolerance {atol:g}); "
+          f"controls, each rank's part dropped in turn: "
+          f"{', '.join(f'{c:.3e}' for c in ctls)}")
+    if not (err <= atol and err_m <= atol):
+        fail(f"{name}: the merged output misses the one-process result "
+             f"({err:.3e}, {err_m:.3e})")
+    if not min(ctls) > atol:
+        fail(f"{name}: the control dropping rank {ctls.index(min(ctls))}'s "
+             f"part passed ({min(ctls):.3e})")
+
+
+def decode_merge(parts):
+    """The flash-decoding merge of ``(out, m, l)`` partials in rank order
+    (``merge_partials``), as ``[B, H, 1, D]`` bf16."""
+    import torch
+    from repro_torch.kernels.flash_decode import merge_partials
+    B, hkv, G = parts[0][1].shape
+    dh = parts[0][0].shape[-1]
+    out = merge_partials(torch.stack([o.reshape(B, hkv, G, dh)
+                                      for o, _, _ in parts]),
+                         torch.stack([m for _, m, _ in parts]),
+                         torch.stack([l for _, _, l in parts]))[0]
+    return out.reshape(B, hkv * G, 1, dh).to(torch.bfloat16)
+
+
+def union_ids(ids):
+    """The shards' global block ids ``[1, Hkv, nb]`` joined: ``[Hkv, n]``
+    ascending, -1 trailing."""
+    import torch
+    x = torch.cat([i[0] for i in ids], dim=-1)
+    big = torch.iinfo(torch.int32).max
+    x = torch.where(x < 0, big, x).sort(dim=-1).values
+    return torch.where(x == big, -1, x).to(torch.int32)
+
+
+def check_wo_sum(name: str, recs) -> None:
+    """The ranks' ``wo`` partial products summed over ``model`` against
+    one process's product of the gathered island rows and ``wo``, relative
+    to the product's largest ``|value|``; the controls, the sum with each
+    rank's partial left out in turn, must each miss it."""
+    import torch
+    from repro_torch.models.common import merge_heads
+    got = recs[0]["wo_sum"].float()
+    want = (merge_heads(torch.cat([r["wo_rows"] for r in recs], dim=1))
+            @ torch.cat([r["wo"] for r in recs], dim=0)).float()
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item() / top
+    ctls = [(sum(r["wo_partial"].float() for j, r in enumerate(recs)
+                 if j != i) - want).abs().max().item() / top
+            for i in range(len(recs))]
+    same = all(torch.equal(r["wo_sum"], recs[0]["wo_sum"]) for r in recs)
+    print(f"{name}: wo summed over model vs one process: max err "
+          f"{err:.3e} of max |x| {top:.4g} (tolerance {MESH_REDUCE_RTOL:g})"
+          f", ranks equal {same}; controls, each rank's partial left out in "
+          f"turn: {', '.join(f'{c:.3e}' for c in ctls)}")
+    if not (err <= MESH_REDUCE_RTOL and same):
+        fail(f"{name}: the wo sum misses the one-process product")
+    if not min(ctls) > MESH_REDUCE_RTOL:
+        fail(f"{name}: the control leaving out rank "
+             f"{ctls.index(min(ctls))}'s partial passed ({min(ctls):.3e})")
+
+
+def check_mesh_records(tag: str, run0: dict, runs, dev) -> None:
+    """The checks of one shape's recorded layer-0 island calls: prefill,
+    then the first decode step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_prefill import sparse_prefill_attention
+    from repro_torch.serving import sharded_attention as isl
+    for kind in ("prefill", "decode"):
+        paths = [r[f"{kind}_record"] for r in runs]
+        if paths[0] is None:
+            continue
+        recs = mesh_loaded(paths, dev)
+        name = f"mesh[{tag}:{kind}]"
+        if kind == "prefill" and run0["mode"] == "rows":
+            parts = [isl.hplb_prefill_attention()(*r["inputs"])
+                     for r in recs]
+            l, q, k, v, _ = recs[0]["inputs"]
+            every = torch.cat([r["inputs"][4][0, l] for r in recs])
+            want = torch.stack([sparse_prefill_attention(
+                q[b].contiguous(), k[b].contiguous(), v[b].contiguous(),
+                every) for b in range(q.shape[0])])
+            merged_check(name + " rows", recs[0]["output"], parts,
+                         lambda ps: sum(p.float() for p in ps).to(
+                             torch.bfloat16), want)
+        elif kind == "prefill":
+            for r, rec in enumerate(recs):
+                bits_equal(f"{name} rank {r}", rec["output"],
+                           isl.hplb_prefill_attention()(*rec["inputs"]))
+        elif run0["branch"] == "heads":
+            for r, rec in enumerate(recs):
+                bits_equal(f"{name} rank {r}", rec["output"],
+                           isl.hplb_decode_attention_packed()(
+                               *rec["inputs"]))
+        else:
+            q, _, _, _, pos, _, _ = recs[0]["inputs"]
+            parts = [isl.seq_shard_partials(
+                q, r["inputs"][1], r["inputs"][2], r["inputs"][3], pos, i,
+                block_kv=BLK) for i, r in enumerate(recs)]
+            ids = union_ids([r["inputs"][3] for r in recs])
+            want = ops.flash_decode(
+                q, torch.cat([r["inputs"][1] for r in recs], dim=2),
+                torch.cat([r["inputs"][2] for r in recs], dim=2),
+                ids[None].expand(q.shape[0], -1, -1).contiguous(), pos,
+                block_kv=BLK)
+            merged_check(name + " seq", recs[0]["output"], parts,
+                         decode_merge, want)
+        if "wo_sum" in recs[0]:
+            check_wo_sum(name, recs)
+        del recs
+        free_card()
+
+
+def check_mesh_launches(tag: str, run: dict, want: dict) -> None:
+    """Each of ``want``'s kernels launched at least that often on a
+    rank."""
+    short = [k for k, n in want.items() if run["launches"].get(k, 0) < n]
+    if short:
+        fail(f"{tag}: kernels {short} launched less than {want}: "
+             f"{run['launches']}")
+
+
+def mesh_job(arch: str, model: int, layers: int, shapes, record_dir):
+    """The ``MeshJob`` of a ``MESH_RUNS`` entry (gloo, every rank on the
+    card; layer 0's island calls recorded)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import make_job
+    return make_job(arch, [ShapeSpec(*sh) for sh in shapes], model=model,
+                    layers=layers, seed=0, steps=MESH_STEPS, record_layer=0,
+                    record_dir=record_dir)
+
+
+def check_mesh_run(job, ranks, dev) -> None:
+    """The prints and checks of one ``MESH_RUNS`` entry's ranks."""
+    t0 = time.time()
+    arch, model, layers = job.arch, job.model, job.layers
+    for i, sp in enumerate(job.shapes):
+        run0 = ranks[0]["runs"][i]
+        tag = f"{arch}[model={model}]:{sp.name}"
+        print(f"mesh[{tag}]: {layers} layers, batch {sp.global_batch}, "
+              f"{sp.seq_len} positions; list mode {run0['mode']}, decode "
+              f"branch {run0['branch']}; plan device_loads (layer 0) "
+              f"{run0['device_loads'][0]}, mean imbalance "
+              f"{run0['imbalance']:.4f}")
+        for r in ranks:
+            run = r["runs"][i]
+            pre = run.get("prefill_island_ms", [])
+            dec = run["decode_island_ms"]
+            print(f"  rank {r['rank']}: island ms (ranks contend for one "
+                  f"card's SMs: not the cross-GPU bubble) prefill "
+                  f"{sum(pre):.3f} (layer 0 {pre[0] if pre else 0:.3f}), "
+                  f"decode {sum(dec):.3f} over {len(dec)} calls; walls "
+                  f"prefill {run.get('prefill_s', 0):.3f} s, decode "
+                  f"{run['decode_s']:.3f} s; launches {run['launches']}")
+            if run["tokens"] != run0["tokens"]:
+                fail(f"mesh[{tag}]: rank {r['rank']} holds other tokens")
+            want = {"flash_decode_contig": MESH_STEPS * layers}
+            if sp.kind == "prefill":
+                want["sparse_prefill_contig"] = layers
+            check_mesh_launches(f"mesh[{tag}] rank {r['rank']}", run, want)
+        print(f"  greedy tokens: {run0['tokens']}")
+        check_mesh_records(tag, run0, [r["runs"][i] for r in ranks], dev)
+    print(f"mesh checks ({arch}, model={model}): {time.time() - t0:.1f} s")
+
+
+def check_islands_alone(ranks, dev) -> None:
+    """The islands alone at Yi-6B's widths on 4 ranks (``island_rank``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import permute_cache_kv_heads
+    from repro_torch.serving import sharded_attention as isl
+    t0 = time.time()
+    for r in ranks:
+        print(f"mesh[islands@yi-6b] rank {r['rank']}: island ms "
+              f"{ {k: round(v, 4) for k, v in r['ms'].items()} }, launches "
+              f"{r['launches']}")
+        check_mesh_launches(f"mesh[islands] rank {r['rank']}", r,
+                            {"flash_decode_paged": 2,
+                             "flash_decode_contig": 1})
+    recs = mesh_loaded([r["record"] for r in ranks], dev)
+    for key, group, stripe in (("paged", "data", "model"),
+                               ("twod", "model", "seq")):
+        for g in (0, 1):
+            mine = sorted((r for r in recs if r["coords"][key][group] == g),
+                          key=lambda r: r["coords"][key][stripe])
+            q, _, _, ids, table, pos = mine[0][key]["args"]
+            n_loc = mine[0][key]["args"][1].shape[0]
+            parts = [ops.flash_decode_paged(
+                q, r[key]["args"][1], r[key]["args"][2], ids,
+                isl.local_table(table, i * n_loc, n_loc), pos,
+                partials=True) for i, r in enumerate(mine)]
+            want = ops.flash_decode_paged(
+                q, torch.cat([r[key]["args"][1] for r in mine]),
+                torch.cat([r[key]["args"][2] for r in mine]), ids, table,
+                pos)
+            merged_check(f"mesh[islands:{key} {group} {g}]",
+                         mine[0][key]["out"], parts, decode_merge, want)
+    for r, rec in enumerate(recs):
+        bits_equal(f"mesh[islands:packed8] rank {r}", rec["packed8"]["out"],
+                   isl.hplb_decode_attention_packed()(
+                       *rec["packed8"]["args"]))
+    by_model = sorted((r for r in recs if r["coords"]["paged"]["data"] == 0),
+                      key=lambda r: r["coords"]["paged"]["model"])
+    rp = by_model[0]["reperm"]
+    bits_equal("mesh[islands:repermute] vs permute_cache_kv_heads",
+               torch.cat([r["reperm"]["out"] for r in by_model], dim=3),
+               permute_cache_kv_heads(rp["full"], rp["kv_perm"]))
+    sw = by_model[0]["swap"]
+    blocks = torch.cat([r["swap"]["blocks"] for r in by_model], dim=3)
+    bits_equal("mesh[islands:swap gather] vs a take", blocks,
+               sw["full"][:, :, sw["ids"]])
+    after = sw["full"].clone()
+    after[:, :, sw["new_ids"]] = blocks
+    bits_equal("mesh[islands:swap scatter] vs a put",
+               torch.cat([r["swap"]["pool"] for r in by_model], dim=3),
+               after)
+    del recs
+    free_card()
+    print(f"mesh checks (islands alone): {time.time() - t0:.1f} s")
+
+
+def run_nccl_mesh() -> None:
+    """A one-rank NCCL mesh (card 0) runs a Yi-6B prefill and decode: the
+    NCCL process group initialises and the step runs on the card."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import run_on_mesh
+    t0 = time.time()
+    ranks = run_on_mesh("yi-6b", ShapeSpec("prefill_4k", 4096, 1, "prefill"),
+                        model=1, layers=1, backend="nccl", device="cuda",
+                        seed=0, steps=MESH_STEPS, timeout_s=MESH_TIMEOUT)
+    run = ranks[0]["runs"][0]
+    print(f"mesh[yi-6b nccl, 1 rank]: backend {ranks[0]['backend']}, "
+          f"launches {run['launches']}, greedy tokens {run['tokens']}, "
+          f"{time.time() - t0:.1f} s")
+    if ranks[0]["backend"] != "nccl":
+        fail("the one-rank mesh did not run on nccl")
+    check_mesh_launches("mesh[nccl]", run, {"sparse_prefill_contig": 1,
+                                            "flash_decode_contig": 2})
+
+
+def mesh_phases(dev) -> None:
+    """Phase 15: the ``MESH_RUNS`` of a world size, and on 4 ranks the
+    islands alone, in one spawn each (a spawn costs the ranks' start);
+    then the NCCL mesh.  The ranks' records go to a temporary directory,
+    removed after."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.steps import IslandJob, run_mesh_jobs
+    t0 = time.time()
+    rdir = tempfile.mkdtemp(prefix="mesh-records-")
+    try:
+        for world in (4, 2):
+            t1 = time.time()
+            jobs = [mesh_job(*run, rdir) for run in MESH_RUNS
+                    if run[1] == world]
+            if world == 4:
+                jobs.append(IslandJob(YI.H, YI.HKV, YI.D, 1, rdir))
+            results = run_mesh_jobs(jobs, backend="gloo", device="cuda:0",
+                                    timeout_s=MESH_TIMEOUT)
+            print(f"mesh phase ({world} ranks: "
+                  f"{', '.join(getattr(j, 'arch', 'islands') for j in jobs)}"
+                  f"): ranks {time.time() - t1:.1f} s")
+            for job, ranks in zip(jobs, results):
+                if isinstance(job, IslandJob):
+                    check_islands_alone(ranks, dev)
+                else:
+                    check_mesh_run(job, ranks, dev)
+        run_nccl_mesh()
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    print(f"mesh phases: {time.time() - t0:.1f} s")
+
+
 def model_phases(dev, gen, results, sh: Shapes):
     """Phases 6 / 7 of a model: the kernel checks at its shapes (bf16 and
     f32 forms timed) and the float32 parity at ``PARITY``'s depth, with
@@ -4051,6 +4402,7 @@ def main() -> int:
     for sh in (YI, GEMMA):
         launches.update(model_phases(dev, gen, results, sh))
     family_phases(dev, gen)
+    mesh_phases(dev)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the device "
           f"check")
 

@@ -85,11 +85,46 @@ class TransformerConfig:
         return self._count(self.moe.experts_per_token if self.moe else 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """One architecture the port serves (the reference's ``ArchSpec``
+    fields the step builders read): ``module`` is the model family
+    ("transformer"), ``hplb`` whether S-HPLB budgets apply ("full",
+    "partial" or "none"), ``full`` / ``smoke`` its published and CPU-test
+    configs."""
+
+    arch_id: str
+    module: str
+    full: TransformerConfig
+    smoke: TransformerConfig
+    hplb: str = "full"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input shape of the reference's suite (``configs/shapes.py``):
+    ``seq_len`` tokens a row, ``global_batch`` rows, ``kind`` "train",
+    "prefill" or "decode" (one new token against a cache of ``seq_len``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 def _registry():
     from repro_torch.configs import (
         gemma3_1b, granite_moe_1b, llama4_scout, minitron_8b, smollm_135m,
         yi_6b)
-    return {name: {"full": mod.FULL, "smoke": mod.SMOKE}
+    return {name: ArchSpec(name, "transformer", mod.FULL, mod.SMOKE)
             for name, mod in (("smollm-135m", smollm_135m),
                               ("yi-6b", yi_6b),
                               ("gemma3-1b", gemma3_1b),
@@ -98,10 +133,17 @@ def _registry():
                               ("minitron-8b", minitron_8b))}
 
 
-def get_config(arch: str, smoke: bool = False) -> TransformerConfig:
-    """The FULL (published widths) or SMOKE (CPU test size) config of
-    ``arch``; raises ``KeyError`` naming the supported archs otherwise."""
+def get_spec(arch: str) -> ArchSpec:
+    """The :class:`ArchSpec` of ``arch``; raises ``KeyError`` naming the
+    supported archs otherwise."""
     reg = _registry()
     if arch not in reg:
         raise KeyError(f"unknown arch {arch!r}; the port serves {sorted(reg)}")
-    return reg[arch]["smoke" if smoke else "full"]
+    return reg[arch]
+
+
+def get_config(arch: str, smoke: bool = False) -> TransformerConfig:
+    """The FULL (published widths) or SMOKE (CPU test size) config of
+    ``arch``; raises ``KeyError`` naming the supported archs otherwise."""
+    spec = get_spec(arch)
+    return spec.smoke if smoke else spec.full

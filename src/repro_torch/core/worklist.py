@@ -283,6 +283,73 @@ def chunk_item_counts(items: np.ndarray, num_q_blocks: int) -> np.ndarray:
     return np.bincount(real[:, F_QBLK], minlength=num_q_blocks)[:num_q_blocks]
 
 
+def build_row_worklist(
+    selections: list[list[np.ndarray]],
+    *,
+    num_devices: int,
+    num_q_blocks: int,
+    num_kv_blocks: int,
+    block: int,
+    kv_head_of_head: np.ndarray | None = None,
+    pad_multiple: int = 8,
+) -> WorkList:
+    """Row-mode work-lists: partition (head, q_block) ROWS across devices.
+
+    Beyond-paper generalization of HPLB for archs whose head count does not
+    divide the model axis (gemma3-1b: 4 heads over 16 shards; llama4: 40
+    over 16): the atoms of the multiway partition are (head, q_blk) rows
+    with weight = that row's tile count, balanced by the same
+    best-partition machinery.  q/k/v are REPLICATED inside the island and
+    each shard contributes only its rows; outputs combine by psum (disjoint
+    tiles).  Item head/kv indices are GLOBAL.
+    """
+    from repro_torch.core.partition import best_partition
+
+    H = len(selections)
+    if kv_head_of_head is None:
+        kv_head_of_head = np.arange(H, dtype=np.int64)
+    rows = []        # (h, qb, tiles)
+    for h in range(H):
+        for qb in range(num_q_blocks):
+            n = len(selections[h][qb])
+            if n:
+                rows.append((h, qb, n))
+    weights = np.array([r[2] for r in rows], dtype=np.int64)
+    asg = best_partition(weights, num_devices)
+    per_dev: list[list[np.ndarray]] = [[] for _ in range(num_devices)]
+    for (h, qb, _), d in zip(rows, asg.device_of):
+        sel = np.sort(np.asarray(selections[h][qb], dtype=np.int64))
+        it = np.zeros((len(sel), ITEM_FIELDS), dtype=np.int32)
+        it[:, F_HEAD] = h
+        it[:, F_QBLK] = qb
+        it[:, F_KVBLK] = sel
+        it[0, F_FIRST] = 1
+        it[-1, F_LAST] = 1
+        it[:, F_VALID] = 1
+        it[:, F_KVHEAD] = kv_head_of_head[h]
+        per_dev[int(d)].append(it)
+    dev_items = [
+        np.concatenate(g, axis=0) if g else np.zeros((0, ITEM_FIELDS),
+                                                     np.int32)
+        for g in per_dev
+    ]
+    lengths = np.array([len(x) for x in dev_items], dtype=np.int64)
+    L_pad = int(lengths.max()) if len(lengths) else 0
+    L_pad = max(pad_multiple, -(-L_pad // pad_multiple) * pad_multiple)
+    items = np.zeros((num_devices, L_pad, ITEM_FIELDS), dtype=np.int32)
+    for d, x in enumerate(dev_items):
+        items[d, : len(x)] = x
+        if len(x):
+            pad_row = x[-1].copy()
+            pad_row[F_FIRST] = 0
+            pad_row[F_LAST] = 0
+            pad_row[F_VALID] = 0
+            items[d, len(x):] = pad_row
+    return WorkList(items=items, lengths=lengths,
+                    num_q_blocks=num_q_blocks, num_kv_blocks=num_kv_blocks,
+                    block=block)
+
+
 
 # ---------------------------------------------------------------------------
 # Cost-packed ragged decode worklists (DESIGN.md §2.8)

@@ -155,18 +155,22 @@ def init_cache_scales(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def _qkv(x, ap, cfg: TransformerConfig, positions):
-    """x [B,S,d] -> q [B,H,S,Dh], k/v [B,Hkv,S,Dh] with RoPE applied."""
-    q = common.split_heads(x @ ap["wq"], cfg.num_heads)
-    k = common.split_heads(x @ ap["wk"], cfg.num_kv_heads)
-    v = common.split_heads(x @ ap["wv"], cfg.num_kv_heads)
+    """x [B,S,d] -> q [B,H,S,Dh], k/v [B,Hkv,S,Dh] with RoPE applied (the
+    head counts are those the weights hold: a tensor-parallel rank's own
+    heads)."""
+    dh = cfg.head_dim_
+    q = common.split_heads(x @ ap["wq"], ap["wq"].shape[1] // dh)
+    k = common.split_heads(x @ ap["wk"], ap["wk"].shape[1] // dh)
+    v = common.split_heads(x @ ap["wv"], ap["wv"].shape[1] // dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_residual(x, o, lp):
+def _attn_residual(x, o, lp, cfg: TransformerConfig, mesh=None):
     """Attention output projection + residual, and the FFN's pre-norm."""
-    x = x + common.merge_heads(o) @ lp["attn"]["wo"]
+    x = x + _tp_sum(common.merge_heads(o) @ lp["attn"]["wo"],
+                    _attn_sharded(lp, cfg), mesh)
     return x, common.rmsnorm(x, lp["ln2"])
 
 
@@ -179,10 +183,43 @@ def _ffn(h, lp, cfg: TransformerConfig):
     return common.swiglu(h, mlp["gate"], mlp["up"], mlp["down"])
 
 
-def _block_out(x, o, lp, cfg: TransformerConfig):
+def _block_out(x, o, lp, cfg: TransformerConfig, mesh=None):
     """Attention output projection + residual, then the FFN."""
-    x, h = _attn_residual(x, o, lp)
-    return x + _ffn(h, lp, cfg)
+    x, h = _attn_residual(x, o, lp, cfg, mesh)
+    return x + _tp_sum(_ffn(h, lp, cfg), _ffn_sharded(lp, cfg), mesh)
+
+
+# -- the tensor-parallel form: a rank of a mesh holds its block of each
+# weight (repro_torch.sharding.specs.shard_params), and what a weight holds
+# is read from its shape.  Row-sharded products (wo, down) are summed over
+# `model`, the embedding is vocab-parallel and the logits are gathered.
+# Without a mesh every weight is whole and these are identities.
+
+def _attn_sharded(lp, cfg: TransformerConfig) -> bool:
+    return lp["attn"]["wo"].shape[0] < cfg.num_heads * cfg.head_dim_
+
+
+def _ffn_sharded(lp, cfg: TransformerConfig) -> bool:
+    return "mlp" in lp and lp["mlp"]["down"].shape[0] < cfg.d_ff
+
+
+def _tp_sum(y, sharded: bool, mesh):
+    """A row-sharded product's partial ``y``, summed over ``model``."""
+    return mesh.all_reduce(y, "model") if sharded else y
+
+
+def _embed(params, tokens, cfg: TransformerConfig, mesh=None):
+    """Token embeddings.  A vocab-parallel table (this rank's rows) looks up
+    the tokens it holds, zeros elsewhere, and sums over ``model``: one
+    rank adds the row, every other an exact zero."""
+    emb = params["embed"]
+    n = emb.shape[0]
+    if n == cfg.vocab_size:
+        return emb[tokens]
+    local = tokens - mesh.axis_index("model") * n
+    held = ((local >= 0) & (local < n)).to(emb.dtype)
+    return mesh.all_reduce(emb[local.clamp(0, n - 1)] * held[..., None],
+                           "model")
 
 
 def _tiles(n: int, tile: int) -> list[slice]:
@@ -210,7 +247,7 @@ def _prefill_qkv(x, lp, cfg: TransformerConfig, positions):
 
 
 def _prefill_out(x, o, lp, cfg: TransformerConfig,
-                 routed: int | None = None):
+                 routed: int | None = None, mesh=None):
     """``_block_out`` of prefill rows, one q block of rows at a time (see
     :func:`_prefill_qkv`).
 
@@ -220,23 +257,49 @@ def _prefill_out(x, o, lp, cfg: TransformerConfig,
     routed together.  Rows past ``routed`` (the monolithic prefill's
     padding to whole q blocks) keep the attention residual alone."""
     tiles = _tiles(x.shape[1], cfg.block_q)
+    if mesh is not None:
+        return _prefill_out_tp(x, o, lp, cfg, tiles, routed, mesh)
     if cfg.moe is None:
         parts = [_block_out(x[:, t], o[:, :, t], lp, cfg) for t in tiles]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    xs, hs = zip(*(_attn_residual(x[:, t], o[:, :, t], lp) for t in tiles))
+    xs, hs = zip(*(_attn_residual(x[:, t], o[:, :, t], lp, cfg)
+                   for t in tiles))
     x, h = torch.cat(xs, dim=1), torch.cat(hs, dim=1)
     n = x.shape[1] if routed is None else routed
     y = x[:, :n] + _ffn(h[:, :n], lp, cfg)
     return y if n == x.shape[1] else torch.cat([y, x[:, n:]], dim=1)
 
 
-def _logits(x, params, cfg: TransformerConfig):
+def _prefill_out_tp(x, o, lp, cfg: TransformerConfig, tiles, routed, mesh):
+    """:func:`_prefill_out` on a mesh rank: the same products a q block
+    of rows at a time, each row-sharded sum taken once over all rows (one
+    collective a sum, not one a tile).  The MoE FFN's experts are whole on
+    every rank, so its output needs no sum."""
+    cat = (lambda ps: ps[0] if len(ps) == 1 else torch.cat(ps, dim=1))
+    a = cat([common.merge_heads(o[:, :, t]) @ lp["attn"]["wo"]
+             for t in tiles])
+    x = x + _tp_sum(a, _attn_sharded(lp, cfg), mesh)
+    h = common.rmsnorm(x, lp["ln2"])
+    if cfg.moe is not None:
+        n = x.shape[1] if routed is None else routed
+        y = x[:, :n] + _ffn(h[:, :n], lp, cfg)
+        return y if n == x.shape[1] else torch.cat([y, x[:, n:]], dim=1)
+    f = cat([_ffn(h[:, t], lp, cfg) for t in tiles])
+    return x + _tp_sum(f, _ffn_sharded(lp, cfg), mesh)
+
+
+def _logits(x, params, cfg: TransformerConfig, mesh=None):
+    """Float32 logits; over a vocab-parallel head (this rank's columns)
+    the ranks' columns are gathered over ``model``."""
     x = common.rmsnorm(x, params["ln_f"])
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
-    return logits.to(torch.float32)
+    logits = logits.to(torch.float32)
+    if logits.shape[-1] < cfg.vocab_size:
+        logits = mesh.all_gather(logits, "model", dim=-1)
+    return logits
 
 
 def _window_of(cfg: TransformerConfig, layer: int) -> int | None:
@@ -358,7 +421,8 @@ def scatter_seq_cache_paged(pool, seq_cache, table, *, scales=None,
 
 def prefill(params, tokens, cfg: TransformerConfig, *,
             cache_len: int | None = None, sparse_items=None,
-            last_index: int | None = None, maps_out: list | None = None):
+            last_index: int | None = None, maps_out: list | None = None,
+            attn_override=None, mesh=None):
     """Monolithic prefill: ``tokens [B, S]`` (the prompt bucket) -> (logits
     ``[B, V]`` float32 at ``last_index``, default the last row; the
     sequence cache ``[L, 2, B, Hkv, cache_len, Dh]`` in the model's dtype,
@@ -374,7 +438,17 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
     maps_out=)``).  Each layer appends :func:`attention_maps` ``[B, H, S,
     S]`` float32 of the same post-RoPE q and k its attention takes; the
     attention itself still runs through the kernels.  As in the reference
-    the maps are causal but unwindowed, also on an 'L' layer."""
+    the maps are causal but unwindowed, also on an 'L' layer.
+
+    ``attn_override(l, q, k, v) -> o`` replaces layer l's attention (the
+    reference's hook, through which the step builders run the mesh
+    islands): q ``[B, H, S, Dh]``, k / v ``[B, Hkv, S, Dh]`` of the prompt
+    rows, o like q.  ``mesh``: the tensor-parallel form on a rank of a
+    :class:`repro_torch.launch.mesh.Mesh`, with ``params`` this rank's
+    blocks (:func:`repro_torch.sharding.specs.shard_params`): head counts
+    come from the weights, the row-sharded products are summed over
+    ``model``, the embedding is vocab-parallel, the logits gathered; the
+    cache holds the kv heads this rank computes."""
     B, S = tokens.shape
     max_len = S if cache_len is None else cache_len
     if max_len < S:
@@ -384,30 +458,37 @@ def prefill(params, tokens, cfg: TransformerConfig, *,
     # attention never sees and the cache never holds
     rows = -(-S // cfg.block_q) * cfg.block_q
     positions = torch.arange(rows, device=tokens.device)
-    x = params["embed"][torch.nn.functional.pad(tokens, (0, rows - S))]
-    cache = x.new_zeros((cfg.num_layers, 2, B, cfg.num_kv_heads, max_len,
-                         cfg.head_dim_))
-    o = x.new_zeros((B, cfg.num_heads, rows, cfg.head_dim_))
+    x = _embed(params, torch.nn.functional.pad(tokens, (0, rows - S)), cfg,
+               mesh)
+    dh = cfg.head_dim_
+    attn0 = params["layers"][0]["attn"]
+    cache = x.new_zeros((cfg.num_layers, 2, B, attn0["wk"].shape[1] // dh,
+                         max_len, dh))
+    o = x.new_zeros((B, attn0["wq"].shape[1] // dh, rows, dh))
     for l, lp in enumerate(params["layers"]):
         q, k, v = _prefill_qkv(x, lp, cfg, positions)
         cache[l, 0, :, :, :S] = k[:, :, :S]
         cache[l, 1, :, :, :S] = v[:, :, :S]
         if maps_out is not None:
             maps_out.append(attention_maps(q[:, :, :S], k[:, :, :S]))
-        for b in range(B):
-            qb = q[b, :, :S].contiguous()
-            kb, vb = k[b, :, :S].contiguous(), v[b, :, :S].contiguous()
-            if sparse_items is None:
-                o[b, :, :S] = kernel_ops.flash_attention(
-                    qb, kb, vb, causal=True, block_q=cfg.block_q,
-                    block_kv=cfg.block_kv, window=_window_of(cfg, l))
-            else:
-                o[b, :, :S] = kernel_ops.sparse_prefill_contiguous(
-                    qb, kb, vb, sparse_items[l], block_q=cfg.block_q,
-                    block_kv=cfg.block_kv)
-        x = _prefill_out(x, o, lp, cfg, routed=S)
+        if attn_override is not None:
+            o[:, :, :S] = attn_override(l, q[:, :, :S], k[:, :, :S],
+                                        v[:, :, :S])
+        else:
+            for b in range(B):
+                qb = q[b, :, :S].contiguous()
+                kb, vb = k[b, :, :S].contiguous(), v[b, :, :S].contiguous()
+                if sparse_items is None:
+                    o[b, :, :S] = kernel_ops.flash_attention(
+                        qb, kb, vb, causal=True, block_q=cfg.block_q,
+                        block_kv=cfg.block_kv, window=_window_of(cfg, l))
+                else:
+                    o[b, :, :S] = kernel_ops.sparse_prefill_contiguous(
+                        qb, kb, vb, sparse_items[l], block_q=cfg.block_q,
+                        block_kv=cfg.block_kv)
+        x = _prefill_out(x, o, lp, cfg, routed=S, mesh=mesh)
     last = S - 1 if last_index is None else last_index
-    return _logits(x[:, last:last + 1], params, cfg)[:, 0], cache
+    return _logits(x[:, last:last + 1], params, cfg, mesh)[:, 0], cache
 
 
 def attention_maps_of(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
@@ -570,7 +651,8 @@ def _merge_stripe_partials(parts, B: int, hkv: int, dh: int, dtype):
 
 def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
                 packed_items=None, block_ids=None, active=None,
-                scales=None, kv_dtype: str = "bf16"):
+                scales=None, kv_dtype: str = "bf16", attn_override=None,
+                mesh=None, seq_offset: int | None = None):
     """One contiguous decode step over all rows; writes ``cache [L, 2, B,
     Hkv, Smax, Dh]`` in place.
 
@@ -590,29 +672,50 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
     and a scatter back; inactive rows keep their tile and scale (a
     ``where``).  Returns ``(logits, cache, scales)`` then (both written in
     place).
+
+    ``attn_override(l, q, kc, vc[, ks, vs]) -> o [B, H, 1, Dh]`` replaces
+    layer l's attention over the written cache (the reference's hook: the
+    step builders' mesh islands).  ``mesh``: the tensor-parallel form of
+    :func:`prefill`, over this rank's cache block.  ``seq_offset``: the
+    cache holds the positions ``[seq_offset, seq_offset + Smax)`` of a
+    sequence striped over ranks; a row whose ``pos`` lies outside writes
+    nothing here.
     """
     B = token.shape[0]
     dev = token.device
     qz = scales is not None
     blk = cfg.block_kv
-    packed_items, block_ids = _decode_work(packed_items, block_ids, pos,
-                                           active, cfg, blk)
+    if attn_override is None:
+        packed_items, block_ids = _decode_work(packed_items, block_ids, pos,
+                                               active, cfg, blk)
     if qz and cache.shape[4] % blk:
         raise ValueError("a quantized slot cache needs Smax % block_kv == 0")
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
-           else active)[:, None, None]
+           else active)
+    wpos = pos
+    if seq_offset is not None:
+        local = pos - seq_offset
+        act = act & (local >= 0) & (local < cache.shape[4])
+        wpos = local.clamp(0, cache.shape[4] - 1)
+    act = act[:, None, None]
     rows = torch.arange(B, device=dev)[:, None]
-    heads = torch.arange(cfg.num_kv_heads, device=dev)[None, :]
-    at = pos.long()[:, None]
+    heads = torch.arange(cache.shape[3], device=dev)[None, :]
+    at = wpos.long()[:, None]
     if qz:   # each row's current block and the token's offset in it
-        row, blk_i, offs = rows[:, 0], (pos // blk).long(), (pos % blk).long()
+        row, blk_i = rows[:, 0], (wpos // blk).long()
+        offs = (wpos % blk).long()
     rope_pos = pos.view(B, 1, 1)
     ks = vs = None
-    x = params["embed"][token][:, None, :]                 # [B, 1, d]
+    x = _embed(params, token, cfg, mesh)[:, None, :]       # [B, 1, d]
     for l, lp in enumerate(params["layers"]):
         h = common.rmsnorm(x, lp["ln1"])
         q, k, v = _qkv(h, lp["attn"], cfg, rope_pos)
         kc, vc = cache[l, 0], cache[l, 1]                  # [B, Hkv, Smax, Dh]
+        if k.shape[1] != kc.shape[1]:
+            # whole k / v (row mode's weights) into this rank's kv-head block
+            hl = kc.shape[1]
+            lo = mesh.axis_index("model") * hl
+            k, v = k[:, lo:lo + hl], v[:, lo:lo + hl]
         if qz:
             ks, vs = scales[l, 0], scales[l, 1]            # [B, Hkv, nb]
             for c, sc, new in ((kc, ks, k), (vc, vs, v)):
@@ -631,7 +734,10 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
             for c, new in ((kc, k), (vc, v)):
                 c[rows, heads, at] = torch.where(
                     act, new[:, :, 0, :].to(c.dtype), c[rows, heads, at])
-        if packed_items is not None:
+        if attn_override is not None:
+            o = (attn_override(l, q, kc, vc, ks, vs) if qz
+                 else attn_override(l, q, kc, vc))
+        elif packed_items is not None:
             o = kernel_ops.flash_decode_packed(
                 q, kc, vc, packed_items[l], pos, block_kv=blk,
                 window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
@@ -639,8 +745,8 @@ def decode_step(params, cache, token, pos, cfg: TransformerConfig, *,
             o = kernel_ops.flash_decode(
                 q, kc, vc, block_ids[l], pos, block_kv=blk,
                 window=_window_of(cfg, l), k_scales=ks, v_scales=vs)
-        x = _block_out(x, o, lp, cfg)
-    logits = _logits(x, params, cfg)[:, 0]
+        x = _block_out(x, o, lp, cfg, mesh)
+    logits = _logits(x, params, cfg, mesh)[:, 0]
     return (logits, cache, scales) if qz else logits
 
 

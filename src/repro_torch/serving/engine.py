@@ -274,7 +274,8 @@ class Engine:
                 f"kv_replication placement, which permutes q heads freely, "
                 f"while the one-device attention pairs q slot s with kv "
                 f"head s // G (the port runs degrees that divide the KV "
-                f"heads)")
+                f"heads here; kv_replication runs on a mesh of ranks: "
+                f"repro_torch.launch.steps)")
         # dense attention has no plan and keeps the heads in place
         self.plan: HPLBPlan | None = None
         # the offline profile, and the one the live plan was derived from

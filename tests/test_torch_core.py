@@ -118,6 +118,25 @@ def test_packed_decode_items_equal(seed, shards):
                           wl.blocks_for_budget(budgets, 128))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("devices", [2, 3, 4])
+def test_row_worklists_equal(seed, devices):
+    """Row mode's (head, q block) lists over the devices: the copied
+    ``build_row_worklist`` equals the reference's, global head and kv
+    ids, pads and lengths."""
+    rng = np.random.default_rng(seed)
+    H, nq = 9, 6
+    sels = [pol.strided_policy(h, int(rng.integers(1, nq + 1)), nq, nq)
+            for h in range(H)]
+    kw = dict(num_devices=devices, num_q_blocks=nq, num_kv_blocks=nq,
+              block=128, kv_head_of_head=np.arange(H) // 3)
+    a = ref_wl.build_row_worklist(sels, **kw)
+    b = wl.build_row_worklist(sels, **kw)
+    assert np.array_equal(a.items, b.items)
+    assert np.array_equal(a.lengths, b.lengths)
+    assert int(b.lengths.sum()) == sum(len(s) for h in sels for s in h)
+
+
 def test_permute_attention_params_on_torch_weights():
     """The copied permutation applied to torch weights equals the
     reference applied to numpy weights."""

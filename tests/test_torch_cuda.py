@@ -1974,3 +1974,82 @@ def test_cuda_granite_width_f32_serve_matches_cpu(cuda):
 
     for layout in ("paged", "contiguous"):
         assert serve(cuda, layout) == serve(torch.device("cpu"), layout)
+
+
+def _mesh_islands_rank(env, record_dir):
+    """On one of 2 gloo ranks sharing the card: the prefill island over
+    this rank's heads and KV groups, and the paged island over its pool
+    stripe; its inputs and outputs saved for the parent."""
+    import os
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving import sharded_attention as isl
+    m = Mesh(env, model=2)
+    d = m.axis_index("model")
+    dev = env.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, k, v = randn(1, 8, 512, 64), randn(1, 4, 512, 64), randn(1, 4, 512, 64)
+    lists = wl.worklist_from_budgets(
+        np.array([512, 256, 384, 128, 512, 256, 128, 384]), num_devices=2,
+        seq_len=512, block=BLK, policy_fn=strided_policy, group_size=2)
+    items = torch.from_numpy(lists.items[d:d + 1, None]).to(dev)
+    pre = (0, q[:, 4 * d:4 * d + 4], k[:, 2 * d:2 * d + 2],
+           v[:, 2 * d:2 * d + 2], items)
+    out = isl.hplb_prefill_attention()(*pre)
+    qd, kp, vp = randn(4, 8, 1, 64), randn(32, 4, BLK, 64), randn(
+        32, 4, BLK, 64)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.permutation(32).reshape(4, 8).astype(
+        np.int32)).to(dev)
+    pos = torch.tensor([1000, 700, 300, 129], dtype=torch.int32, device=dev)
+    ids = torch.arange(8, dtype=torch.int32, device=dev)[None, None].expand(
+        4, 4, 8).contiguous()
+    paged = (qd, kp[16 * d:16 * d + 16], vp[16 * d:16 * d + 16], ids, table,
+             pos)
+    dec = isl.flash_decode_attention_paged(m, seq_axes=("model",))(*paged)
+    path = os.path.join(record_dir, f"rank{d}.pt")
+    torch.save({"pre": [x.cpu() if torch.is_tensor(x) else x for x in pre],
+                "out": out.cpu(), "paged": [x.cpu() for x in paged],
+                "full": (kp.cpu(), vp.cpu()), "dec": dec.cpu()}, path)
+    return path
+
+
+def test_cuda_mesh_islands_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on one card: each rank's prefill island output equals
+    the contiguous prefill kernel launched here on its inputs, bit for
+    bit; the paged island's merged output equals the paged decode over the
+    whole pool within one bf16 step, and misses it with a stripe
+    dropped."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode import merge_partials
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.serving import sharded_attention as isl
+    build.build()
+    paths = spawn(_mesh_islands_rank, world_size=2, backend="gloo",
+                  device="cuda:0", timeout_s=120, args=(str(tmp_path),))
+    recs = [torch.load(p, map_location=cuda, weights_only=False)
+            for p in paths]
+    for rec in recs:
+        l, q, k, v, items = rec["pre"]
+        want = sparse_prefill_attention(q[0].contiguous(), k[0].contiguous(),
+                                        v[0].contiguous(), items[0, l])
+        assert torch.equal(rec["out"][0], want)
+    qd, _, _, ids, table, pos = recs[0]["paged"]
+    kp, vp = recs[0]["full"]
+    want = ops.flash_decode_paged(qd, kp, vp, ids, table, pos)
+    parts = [ops.flash_decode_paged(
+        qd, r["paged"][1], r["paged"][2], ids,
+        isl.local_table(table, 16 * i, 16), pos, partials=True)
+        for i, r in enumerate(recs)]
+    merged = merge_partials(torch.stack([o.reshape(4, 4, 2, 64)
+                                         for o, _, _ in parts]),
+                            torch.stack([p[1] for p in parts]),
+                            torch.stack([p[2] for p in parts]))[0]
+    for rec in recs:
+        assert torch.equal(rec["dec"], recs[0]["dec"])
+        assert (rec["dec"].float() - want.float()).abs().max() <= 2.0 ** -6
+    assert (merged.reshape(4, 8, 1, 64).float()
+            - recs[0]["dec"].float()).abs().max() <= 2.0 ** -6
+    assert (parts[1][0].reshape(4, 8, 1, 64).float()
+            - want.float()).abs().max() > 2.0 ** -6

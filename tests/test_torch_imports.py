@@ -89,6 +89,21 @@ def test_blocked_import_covers_every_serving_module():
     assert kv_cache.IntegrityError is faults.IntegrityError
 
 
+def test_blocked_import_covers_the_mesh_modules():
+    """The multi-GPU islands' modules (the mesh, the sharding rules, the
+    islands and the step builders) are part of the port that imports
+    without JAX and the reference; the step builders run the port's own
+    islands and mesh."""
+    from repro_torch.launch import mesh, steps
+    from repro_torch.serving import sharded_attention
+    mods = set(_modules())
+    for name in ("repro_torch.launch.mesh", "repro_torch.launch.steps",
+                 "repro_torch.sharding.specs",
+                 "repro_torch.serving.sharded_attention"):
+        assert name in mods
+    assert steps.isl is sharded_attention and steps.spawn is mesh.spawn
+
+
 def test_no_source_imports_jax_or_the_reference():
     bad = []
     for path in SOURCES:

@@ -175,3 +175,61 @@ def test_prefill_then_decode_match_reference(ref_params, params):
                                atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(pool[:, :, 5].numpy(),
                                np.asarray(ref_pool)[:, :, 5], atol=1e-5)
+
+
+def test_attn_override_hooks_match_the_one_device_steps(params):
+    """``prefill`` / ``decode_step`` with an ``attn_override`` that runs
+    the kernels they run themselves give the same bits, and the override
+    sees the reference's arguments: (l, q [B, H, S, D], k, v) and (l, q
+    [B, H, 1, D], kc, vc) over the written cache."""
+    from repro_torch.kernels import ops
+    S, B = 300, 2
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, CFG.vocab_size, (B, S)))
+    want, cache_want = tfm.prefill(params, tokens, CFG, cache_len=512)
+    seen = []
+
+    def dense(l, q, k, v):
+        seen.append((l, tuple(q.shape), tuple(k.shape)))
+        o = torch.empty_like(q)
+        for b in range(q.shape[0]):
+            o[b] = ops.flash_attention(
+                q[b].contiguous(), k[b].contiguous(), v[b].contiguous(),
+                causal=True, block_q=CFG.block_q, block_kv=CFG.block_kv,
+                window=tfm._window_of(CFG, l))
+        return o
+    got, cache = tfm.prefill(params, tokens, CFG, cache_len=512,
+                             attn_override=dense)
+    assert torch.equal(got, want) and torch.equal(cache, cache_want)
+    assert seen == [(l, (B, 3, S, 32), (B, 1, S, 32)) for l in range(2)]
+    token = want.argmax(-1)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    c1 = cache.clone()
+    want = tfm.decode_step(params, c1, token, pos, CFG)
+    ids = torch.from_numpy(tfm.dense_decode_ids(
+        pos.numpy(), np.ones(B, bool), CFG.num_kv_heads, BLK))
+
+    def decode(l, q, kc, vc):
+        assert q.shape == (B, 3, 1, 32) and kc.shape == (B, 1, 512, 32)
+        return ops.flash_decode(q, kc, vc, ids, pos, block_kv=BLK,
+                                window=tfm._window_of(CFG, l))
+    c2 = cache.clone()
+    got = tfm.decode_step(params, c2, token, pos, CFG, attn_override=decode)
+    assert torch.equal(got, want) and torch.equal(c1, c2)
+
+
+def test_seq_offset_writes_only_the_held_positions(params):
+    """A rank holding positions [256, 512) of the sequence writes a row's
+    token only where it holds the row's position, at the local offset."""
+    B = 2
+    cache = torch.zeros((2, 2, B, 1, 256, 32))
+    token = torch.tensor([5, 7])
+    pos = torch.tensor([300, 100], dtype=torch.int32)
+    seen = []
+    tfm.decode_step(params, cache, token, pos, CFG, seq_offset=256,
+                    attn_override=lambda l, q, kc, vc: seen.append(l)
+                    or torch.zeros_like(q))
+    assert seen == [0, 1]
+    written = cache.abs().sum(dim=(0, 1, 3, 5))          # [B, 256]
+    assert written[0].nonzero().flatten().tolist() == [300 - 256]
+    assert written[1].abs().sum() == 0
