@@ -687,6 +687,45 @@ def tensor_core_counts(kbuild) -> None:
             fail(f"{name}: a bf16 kernel has no tensor-core instruction")
 
 
+DECODE_LIBS = ("flash_decode_paged", "flash_decode_contig", "sparse_decode")
+
+
+def decode_registers(kbuild, logs) -> None:
+    """Registers and spills of each decode function (#1, #3, #5) from the
+    build's ``ptxas`` lines, one line a function (names demangled with
+    ``cu++filt``), then how many spill; a build served from the cache
+    printed no ``ptxas`` lines, and then says so."""
+    import re
+    filt = Path(kbuild.nvcc()).with_name("cu++filt")
+    rows = []
+    for lib in DECODE_LIBS:
+        func = spill = None
+        for line in logs.get(lib, "").splitlines():
+            if "entry function" in line:
+                func = line.split("'")[1]
+            elif func and "spill stores" in line:
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line).groups()
+            elif func and spill and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                rows.append((lib, func, int(regs), *map(int, spill)))
+                func = spill = None
+    if not rows:
+        print("decode functions: registers and spills not read in this run "
+              "(no ptxas lines: the build was served from the cache)")
+        return
+    for lib, func, regs, stores, loads in rows:
+        name = (subprocess.run([str(filt), func], capture_output=True,
+                               text=True).stdout.strip()
+                if filt.exists() else "") or func
+        print(f"  registers[{lib}] {name.split('>(')[0]}>: {regs} "
+              f"registers, {stores} B spill stores, {loads} B spill loads")
+    spilling = [r for r in rows if r[3] or r[4]]
+    print(f"decode functions: {len(rows)}, {len(spilling)} spilling"
+          + (f" (at most {max(r[3] for r in spilling)} B stores)"
+             if spilling else ""))
+
+
 def random_table(gen, rows: int, nblocks, pool_blocks: int, width: int):
     """[rows, width] int32 tables: row r maps its nblocks[r] logical blocks
     to distinct random physical blocks, -1 after."""
@@ -712,9 +751,10 @@ def slot_rows(pool, table):
                                             pool.shape[3]).contiguous()
 
 
-def decode_mask(items, table, pos, sh: Shapes):
+def decode_mask(items, table, pos, sh: Shapes, window=None):
     """Boolean ``[B, H, 1, T*blk]`` mask of the (row, key) pairs the items
-    select, and the selected (physical block, kv head) tiles."""
+    select (with ``window``, only keys past ``pos - window``), and the
+    selected (physical block, kv head) tiles."""
     import numpy as np
     it_np, tb_np, pos_np = (t.cpu().numpy() for t in (items, table, pos))
     T = tb_np.shape[1]
@@ -725,19 +765,30 @@ def decode_mask(items, table, pos, sh: Shapes):
         if valid and tb_np[b, lb] >= 0:
             tiles.add((int(tb_np[b, lb]), int(h)))
             sl = slice(lb * BLK, (lb + 1) * BLK)
-            mask[b, h * sh.G:(h + 1) * sh.G, 0, sl] = kpos[sl] <= pos_np[b]
+            kept = kpos[sl] <= pos_np[b]
+            if window:
+                kept &= kpos[sl] > pos_np[b] - window
+            mask[b, h * sh.G:(h + 1) * sh.G, 0, sl] = kept
     return mask, tiles
 
 
-def decode_bound(items, table, mask, ntiles, with_table: bool, sh: Shapes,
+def kept_rows(mask, sh: Shapes) -> int:
+    """The K/V rows a decode must read: the keys ``mask`` keeps for each
+    (row, kv head), read once for its G query rows (the kernels copy only
+    those, not the rest of a selected tile)."""
+    return int(mask[:, ::sh.G].sum())
+
+
+def decode_bound(items, table, mask, with_table: bool, sh: Shapes,
                  elem: int):
-    """Bytes: q, the selected K/V tiles (``elem`` bytes an element), the
-    item table (and block table), positions and the f32 (out, m, l);
-    operations: the unmasked (query row, key) pairs, q.k on bf16 inputs at
-    the tensor rate (f32 inputs at the f32 rate), p.V in true f32 (the
-    kernel's contract) at the f32 rate.  Returns (bytes, bf16 operations,
-    f32 operations)."""
-    nbytes = (B * sh.H * sh.D * elem + ntiles * 2 * BLK * sh.D * elem
+    """Bytes: q, the kept K/V rows (:func:`kept_rows`, ``elem`` bytes an
+    element), the item table (and block table), positions and the f32
+    (out, m, l); operations: the unmasked (query row, key) pairs, q.k on
+    bf16 inputs at the tensor rate (f32 inputs at the f32 rate), p.V in
+    true f32 (the kernel's contract) at the f32 rate.  Returns (bytes, bf16
+    operations, f32 operations)."""
+    rows = kept_rows(mask, sh)
+    nbytes = (B * sh.H * sh.D * elem + rows * 2 * sh.D * elem
               + items.numel() * 4 + (table.numel() * 4 if with_table else 0)
               + B * 4 + B * sh.H * (sh.D + 2) * 4)
     flops = 2 * sh.D * int(mask.sum())
@@ -801,12 +852,36 @@ def decode_case(eng, gen, dev, sh: Shapes, mag=None):
     return pos, table, items, padded, holes, kf.to(dev), vf.to(dev), q.to(dev)
 
 
+def time_table_forms(name, launch, plain, sdpa_of, items, padded, table,
+                     pos, errs, sh: Shapes, bound_of) -> None:
+    """#1 on the padded table from per-slot block ids and in its window
+    form (``sh.window``), each timed (printed, not in the kernels line)
+    beside SDPA over the same kept (row, key) pairs (``sdpa_of(mask)``) and
+    its bound (``bound_of(items, mask, ntiles)`` -> bytes, bf16 and f32
+    operations over the kept K/V rows).  ``launch`` / ``plain`` take the
+    items and the window's keywords; ``errs`` each form's checked error."""
+    import torch
+    for tag, it, win in (("padded", padded, None),
+                         ("window", items, sh.window)):
+        kw = {} if win is None else {"window": win}
+        mask, tiles = decode_mask(it, table, pos, sh, win)
+        mask_t = torch.from_numpy(mask).to(table.device)
+        nbytes, bf, f32 = bound_of(it, mask, len(tiles))
+        measure({}, f"{name}[{tag}]",
+                lambda it=it, kw=kw: launch(it, **kw),
+                lambda it=it, kw=kw: plain(it, **kw),
+                lambda mask_t=mask_t: sdpa_of(mask_t), nbytes, bf, f32,
+                errs[tag], f" ({len(tiles)} selected tiles, "
+                f"{kept_rows(mask, sh)} K/V rows)")
+
+
 def check_decode(eng, gen, dev, results, sh: Shapes, dtypes):
     """The paged (#1) and contiguous (#3) decode kernels on the engine's
     layer-0 work at 8 rows of 3000-4096 tokens, q and caches in each of
     ``dtypes``: packed items, the padded table from per-slot block ids, -1
     table entries, a window; the two layouts bit for bit on equal cache
-    contents; each form timed beside its bound and SDPA."""
+    contents; each form timed beside its bound and SDPA (#1 also on the
+    padded table and in its window form)."""
     import torch
     from repro_torch.kernels.flash_decode import (
         flash_decode_kernel, flash_decode_paged_kernel,
@@ -860,16 +935,22 @@ def check_decode(eng, gen, dev, results, sh: Shapes, dtypes):
         elem = q.element_size()
         # library yardstick: SDPA over the same selected keys as a mask on
         # K/V gathered from the pool beforehand (the gather is not timed)
-        nbytes, bf, f32 = decode_bound(items, table, mask, len(tiles), True,
-                                       sh, elem)
+        nbytes, bf, f32 = decode_bound(items, table, mask, True, sh, elem)
         measure(results, pname,
                 lambda: paged(flash_decode_paged_kernel, items),
                 lambda: paged(packed_decode_attention_paged, items),
                 lambda: sdpa(qs, kc, vc, attn_mask=mask_t, enable_gqa=True),
                 nbytes, bf, f32, errs["paged", "packed"],
                 f" ({len(tiles)} selected tiles)")
-        nbytes, bf, f32 = decode_bound(items, table, mask, len(tiles), False,
-                                       sh, elem)
+        time_table_forms(
+            pname,
+            lambda it, **kw: paged(flash_decode_paged_kernel, it, **kw),
+            lambda it, **kw: paged(packed_decode_attention_paged, it, **kw),
+            lambda m: sdpa(qs, kc, vc, attn_mask=m, enable_gqa=True),
+            items, padded, table, pos,
+            {t: errs["paged", t] for t in ("padded", "window")}, sh,
+            lambda it, m, nt: decode_bound(it, table, m, True, sh, elem))
+        nbytes, bf, f32 = decode_bound(items, table, mask, False, sh, elem)
         measure(results, cname,
                 lambda: contig(flash_decode_kernel, items),
                 lambda: contig(packed_decode_attention, items),
@@ -1025,7 +1106,8 @@ def check_quant_decode(eng, gen, dev, results, sh: Shapes):
     """#1 and #3 over int8 / fp8 codes with per-block scales at the engine's
     layer-0 shapes (8 rows of 3000-4096 tokens): packed items, the padded
     table, -1 table entries, a window; the two layouts bit for bit; each
-    form timed beside its bound and SDPA on the dequantized bf16 K/V."""
+    form timed beside its bound and SDPA on the dequantized bf16 K/V (#1
+    also on the padded table and in its window form)."""
     import torch
     from repro_torch.kernels.flash_decode import (
         flash_decode_kernel, flash_decode_paged_kernel,
@@ -1083,12 +1165,22 @@ def check_quant_decode(eng, gen, dev, results, sh: Shapes):
         split_report(cname, lambda: contig(flash_decode_kernel, items),
                      items)
         kdc, vdc = slot_rows(kdq, table), slot_rows(vdq, table)
+        time_table_forms(
+            pname,
+            lambda it, **kw: paged(flash_decode_paged_kernel, it, **kw),
+            lambda it, **kw: paged(packed_decode_attention_paged, it, **kw),
+            lambda m: sdpa(qs, kdc, vdc, attn_mask=m, enable_gqa=True),
+            items, padded, table, pos,
+            {t: errs["paged", t] for t in ("padded", "window")}, sh,
+            lambda it, m, nt: (quant_decode_bytes(it, table, m, nt, True,
+                                                  sh),
+                               0, 4 * sh.D * int(m.sum())))
         for name, layout in ((pname, paged), (cname, contig)):
             kern = flash_decode_paged_kernel if layout is paged \
                 else flash_decode_kernel
             plain = packed_decode_attention_paged if layout is paged \
                 else packed_decode_attention
-            nbytes = quant_decode_bytes(items, table, len(tiles),
+            nbytes = quant_decode_bytes(items, table, mask, len(tiles),
                                         layout is paged, sh)
             flops = 2 * sh.D * int(mask.sum())
             measure(results, name,
@@ -1101,12 +1193,13 @@ def check_quant_decode(eng, gen, dev, results, sh: Shapes):
                          "packed"], f" ({len(tiles)} selected tiles)")
 
 
-def quant_decode_bytes(items, table, ntiles, with_table: bool, sh: Shapes):
+def quant_decode_bytes(items, table, mask, ntiles, with_table: bool,
+                       sh: Shapes):
     """Bytes of a codes-and-scales decode: q (float32, as the kernel reads
-    it), the selected code tiles at one byte and their two float32
-    scales, the item table (and block table), positions, and the f32
-    (out, m, l)."""
-    return (B * sh.H * sh.D * 4 + ntiles * 2 * (BLK * sh.D + 4)
+    it), the kept K/V rows (:func:`kept_rows`) at one byte a code, the two
+    float32 scales of each of the ``ntiles`` selected tiles, the item table
+    (and block table), positions, and the f32 (out, m, l)."""
+    return (B * sh.H * sh.D * 4 + 2 * (kept_rows(mask, sh) * sh.D + ntiles * 4)
             + items.numel() * 4 + (table.numel() * 4 if with_table else 0)
             + B * 4 + B * sh.H * (sh.D + 2) * 4)
 
@@ -3310,11 +3403,21 @@ def run_kv_corrupt(cfg, params, dev, cut) -> dict:
 
 def scrub_control(cfg, params, dev, clean) -> None:
     """Phase 13.2's planted control (cut): the scrub skipped, the
-    victim's corrupted block is put where the next request (1010 prompt
-    tokens) maps it when its decode crosses into its ninth block, which
-    the prefill does not write; that serve must part from the clean
-    tokens or trip a sentinel.  (The fault serve itself may already
-    recycle the block into another request: printed.)"""
+    victim's corrupted block (NaN in every value row) is recycled twice
+    into the next request (1010 prompt tokens: eight blocks, the last
+    holding 114).  First as its ninth block, which its decode crosses into
+    and writes one position a tick: the decode kernels copy no key past the
+    position, so the stale rows past it never reach an output.  Then as its
+    eighth, the prompt's last and partly filled block: the final chunk
+    scatters its whole 256-row bucket, padding rows included, before the
+    bf16 prefill (#2) takes the whole V tile into its P.V, so no stale row
+    is left to read.  Both serves must keep the clean tokens: on the card
+    no served path reads a recycled block's stale rows, and the scrub
+    guards the plain versions (CPU: ``tests/test_torch_faults.py``) and
+    #2's whole-tile P.V over a partly written block
+    (``test_cuda_stale_nan_past_the_length_leaks``).  (The fault serve
+    itself may already recycle the block into another request:
+    printed.)"""
     from repro_torch.serving.faults import FaultSpec
     prompts = fault_prompts(cfg)
     inj = armed(FaultSpec(seam="kv_corrupt", mode="nan", after=2))
@@ -3332,17 +3435,20 @@ def scrub_control(cfg, params, dev, clean) -> None:
           f" and parted {parted} (the scrubbed serve fails one, parts "
           f"none)")
     nxt = prompts[2]
-    free = eng.kv.alloc._free[0]
     k = eng.kv.alloc.blocks_needed(len(nxt))
-    free.remove(dirty[0])
-    free.insert(len(free) - k, dirty[0])    # popped after the prompt's
-    got, failed = fault_serve(eng, [nxt], "control: recycled dirty block")
-    parted = bool(failed) or got[0] != clean[2]
-    print(f"faults[control]: block {dirty[0]} recycled unscrubbed into the "
-          f"next request's decode block: {'parted' if parted else 'kept'} "
-          f"(failed {failed or 'none'})")
-    if not parted:
-        fail("the skipped-scrub control kept the clean tokens")
+    for where, before in (("decode block", k), ("last prefill block", k - 1)):
+        free = eng.kv.alloc._free[0]
+        free.remove(dirty[0])
+        free.insert(len(free) - before, dirty[0])   # popped after `before`
+        got, failed = fault_serve(eng, [nxt], f"control: dirty {where}")
+        parted = bool(failed) or got[0] != clean[2]
+        print(f"faults[control]: block {dirty[0]} recycled unscrubbed into "
+              f"the next request's {where}: "
+              f"{'parted' if parted else 'kept'} (failed {failed or 'none'})")
+        if parted:
+            fail(f"a serve read the recycled dirty block's stale rows as "
+                 f"its {where} (the skipped-scrub control parted from the "
+                 f"clean tokens)")
     del eng
     free_card()
 
@@ -4353,6 +4459,7 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}")
+    decode_registers(kbuild, logs)
     tensor_core_counts(kbuild)
 
     results = {}

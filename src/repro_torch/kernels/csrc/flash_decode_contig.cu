@@ -7,9 +7,10 @@
 // per-slot block ids).  K/V tiles are read in place from the slot cache
 // [B, Hkv, Smax, D], in bf16 / f32 or as int8 / fp8 codes with per-(row,
 // kv head, block) scales; nothing is copied into a pool layout.  The
-// kernel body, its design and its bound are in flash_decode.cuh, shared
-// with the paged decode, so both layouts keep one per-tile arithmetic
-// order.
+// kernel body (one CTA a tile: K/V bulk-copied before the run scans,
+// coalesced q.k, one p.V pass, the one merge), its design and its bound
+// are in flash_decode.cuh, shared with the paged decode, so both layouts
+// keep one per-tile arithmetic order.
 #include "flash_decode.cuh"
 
 // dtype: the caches' element type, 0 = bfloat16, 1 = float32 (q shares
@@ -29,8 +30,9 @@ extern "C" int flash_decode_contig(const void* q, const void* k_cache,
                                    void* stream) {
   if (block_kv < 1 || max_len % block_kv) return cudaErrorInvalidValue;
   const decode::SlotTiles tiles{Hkv, max_len / block_kv, block_kv};
-  return decode::dispatch<decode::SlotTiles>(
-      dtype, D, q, k_cache, v_cache, k_scales, v_scales, items, pos, out,
-      m_out, l_out, partials, tickets, L, Hkv, G, block_kv,
-      tiles, scale, window, static_cast<cudaStream_t>(stream));
+  const decode::Call c{q, k_cache, v_cache, k_scales, v_scales, items, pos,
+                       out, m_out, l_out, partials, tickets, L, Hkv, G,
+                       block_kv, scale, window,
+                       static_cast<cudaStream_t>(stream)};
+  return decode::dispatch(dtype, D, c, tiles);
 }

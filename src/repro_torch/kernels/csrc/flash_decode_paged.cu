@@ -7,9 +7,10 @@
 // (items from per-slot block ids).  K/V tiles come from the block pool
 // [N, Hkv, block, D] through the per-row block table [B, T] (-1 =
 // unmapped, masked), in bf16 / f32 or as int8 / fp8 codes with per-(block,
-// kv head) scales (the TPU kernel's quantized branch).  The kernel body,
-// its design and its bound are in flash_decode.cuh, shared with the
-// contiguous decode.
+// kv head) scales (the TPU kernel's quantized branch).  The kernel body
+// (one CTA a tile: K/V bulk-copied before the run scans, coalesced q.k, one
+// p.V pass, the one merge), its design and its bound are in
+// flash_decode.cuh, shared with the contiguous decode.
 #include "flash_decode.cuh"
 
 // dtype: the pools' element type, 0 = bfloat16, 1 = float32 (q shares
@@ -28,8 +29,9 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   int table_width, float scale, int window,
                                   int dtype, void* stream) {
   const decode::PoolTiles tiles{table, table_width, Hkv, block_kv};
-  return decode::dispatch<decode::PoolTiles>(
-      dtype, D, q, k_pool, v_pool, k_scales, v_scales, items, pos, out,
-      m_out, l_out, partials, tickets, L, Hkv, G, block_kv,
-      tiles, scale, window, static_cast<cudaStream_t>(stream));
+  const decode::Call c{q, k_pool, v_pool, k_scales, v_scales, items, pos,
+                       out, m_out, l_out, partials, tickets, L, Hkv, G,
+                       block_kv, scale, window,
+                       static_cast<cudaStream_t>(stream)};
+  return decode::dispatch(dtype, D, c, tiles);
 }

@@ -16,70 +16,28 @@
 // run covers keep the wrapper's zeros.  Runs are homogeneous in (row, kv
 // head), as build_decode_worklist emits them.
 //
-// What bounds it.  Per tile the work is 4 G blk D operations on 2 blk D
-// elements of K/V: at most 8 operations a byte (bf16, G = 8), under the
-// ~20 a byte where the H100's f32 CUDA cores meet its memory rate.  So the
-// kernel is bound by the bytes of the selected tiles, and runs on CUDA
-// cores in f32 (the reference's f32 dots); a launch should cost about one
-// tile's copy and walk plus the run scans and the merge.
-//
-// Design, one CTA (128 threads) per item, one tile per CTA:
-//   - Split runs.  A CTA finds its item's run by the block-wide flag scans
-//     of flash_decode.cuh (split_of under the legacy run rule).  The item
-//     is its run's split at its position in the run, computed from the
-//     initial state; a run of one item finalizes directly, a longer run's
-//     splits write their normalized f32 partial (out, m, l) to the
-//     workspace at their item and take a ticket on the run's counter, and
-//     the last ticket merges the partials in item order by the
-//     merge_partials algebra (flash_decode.py:699 of the reference),
-//     reading the other CTAs' partials through L2 (__ldcg), and resets the
-//     counter.  The counters come zeroed from the wrapper's buffer per
-//     (device, stream) and are left so; a launch repeats its bits.
-//   - Staged K/V.  A slot-cache tile is one contiguous blk x D span, so K
-//     and V each arrive by one bulk copy (cp.async.bulk, completed on an
-//     mbarrier), both issued before the run scans, so that the copies fly
-//     while the CTA scans and V arrives while q.k runs.  Keys at or past
-//     cache_len are neither copied nor read.  Where the two tiles do not
-//     fit the CTA's shared memory (f32 at D 256, or a large block_kv), K
-//     then V go through a two-slot ring of 64-key sub-tiles.  A cache not
-//     16-byte aligned is staged by the threads instead.
-//   - Coalesced q.k.  A key row is read by D / (16 B) lanes (at most 32),
-//     each holding its 16-byte slice of the G query rows in registers (q is
-//     read once per CTA) and reading 16-byte vectors of K from shared
-//     memory; the row's G dot products end in a reduce-scatter of warp
-//     shuffles (each halving step sends half the rows' sums), f32 products
-//     and sums throughout.
-//   - One p.V pass.  After the row max and the exponentials (a thread per
-//     (key, row) pair, rows met by shuffles and one cross-warp step), each
-//     thread owns a 16-byte column vector for all G rows and a key group;
-//     it walks its keys once, reads each V element from shared memory once
-//     and accumulates G rows in f32; the key groups' sums meet in shared
-//     memory.
-//   - Small code.  Each CTA runs every phase once, so a phase's first pass
-//     runs from a cold instruction cache, many times slower than warm
-//     (PERF.md §6): the once-run phases (softmax, the reductions, the
-//     merge) are loops, and the q.k and p.V bodies are unrolled only as
-//     far as their latency needs.
+// Design and bound.  The walk is the one flash_decode.cuh describes (its
+// decode_runs_kernel was built from this one): one CTA (128 threads) per
+// item walks one tile; K and V each one bulk copy (cp.async.bulk on an
+// mbarrier) issued before the run scans (split_of under the legacy run
+// rule), only the keys under cache_len, a two-slot ring of 64-key
+// sub-tiles where the tiles do not fit; q.k by the lanes of a key row
+// (16-byte vectors, q in registers) with a shuffle reduce-scatter; a
+// thread per (key, row) pair in the softmax; one p.V pass over V in shared
+// memory; a run of several splits merged by the CTA that draws its last
+// ticket with merge_splits, the one merge of the three decodes.  It is
+// bound, as they are, by the bytes of the selected tiles, and a launch by
+// one tile's chain of latencies plus the merge.  The walk stays its own
+// rather than the flash decodes' body: run through that body under the
+// legacy rule, its f32 form at Yi-6B's shapes took 1.03-1.07x this walk's
+// time on an H100 (PERF.md §6).
 #include <stdint.h>
-
-#include <initializer_list>
 
 #include "flash_decode.cuh"
 
 namespace legacy {
 
-using decode::D_BATCH;
-using decode::D_FIRST;
-using decode::D_KVBLK;
-using decode::D_KVHEAD;
-using decode::D_LAST;
-using decode::D_VALID;
-using decode::DEC_FIELDS;
-using decode::kMergeChunk;
-using decode::kNegInf;
-using decode::kThreads;
-using decode::kWarps;
-using decode::SplitWork;
+using namespace decode;
 
 // The legacy run rule: only valid items start or end a run.
 struct LegacyRuns {
@@ -90,168 +48,6 @@ struct LegacyRuns {
     return t[D_LAST] == 1 && t[D_VALID] == 1;
   }
 };
-
-// Keys a ring sub-tile holds where a whole K and V tile do not fit.
-constexpr int kRingKeys = 64;
-// Dynamic shared memory a CTA may take: the H100's 227 KB less room for
-// the kernel's static arrays.
-constexpr int kSmemBudget = 232448 - 4096;
-
-__host__ __device__ constexpr int log2i(int x) {
-  return x <= 1 ? 0 : 1 + log2i(x / 2);
-}
-
-// The thread layout of a T cache at head_dim D.
-template <typename T, int D>
-struct Layout {
-  static constexpr int kVec = 16 / sizeof(T);    // elements in 16 bytes
-  static constexpr int kVecs = D / kVec;         // 16-byte vectors a row
-  // q.k: lanes a key row, vectors a lane, key rows a warp
-  static constexpr int kRowLanes = kVecs < 32 ? kVecs : 32;
-  static constexpr int kPerLane = kVecs / kRowLanes;
-  static constexpr int kRowsPerWarp = 32 / kRowLanes;
-  // p.V: one column vector a thread, in one of kGroups key groups
-  static constexpr int kGroups = kThreads / kVecs;
-  static_assert(kVecs <= kThreads && kVecs % 4 == 0, "head_dim");
-};
-
-// 16 bytes of a tile as f32 (bf16 -> f32 is exact: the high half).
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8],
-                                       __nv_bfloat16) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __uint_as_float(w[j] << 16);
-    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4],
-                                       float) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
-// Sum v[0, N) over the lanes that differ in the bits O, O/2, ..., kTo of
-// the lane index.  While more than one value is left, each step halves
-// them: a lane with bit O set keeps (and receives the partner's sums of)
-// the upper half, the other the lower half, and `base` counts the values
-// skipped; a single value is summed whole.  Afterwards v[0, N >> halvings)
-// hold the sums of values base, base + 1, ...
-template <int C, int O, int kTo, int N>
-__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane,
-                                               int& base) {
-  if constexpr (O >= kTo && O >= 1) {
-    if constexpr (C > 1) {
-      constexpr int kHalf = C / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int j = 0; j < kHalf; ++j) {
-        const float send = up ? v[j] : v[j + kHalf];
-        const float keep = up ? v[j + kHalf] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      if (up) base += kHalf;
-      reduce_scatter<kHalf, O / 2, kTo>(v, lane, base);
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-      reduce_scatter<1, O / 2, kTo>(v, lane, base);
-    }
-  }
-}
-
-// Halving steps of reduce_scatter over `steps` offsets on N values.
-__host__ __device__ constexpr int halvings(int N, int steps) {
-  return log2i(N) < steps ? log2i(N) : steps;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device to shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// 16 bytes from device to shared memory through L2 (cp.async.cg), and the
-// wait for every such copy of the thread.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// The dynamic shared memory of one launch: at offset 0 the K/V ring (two
-// slots of `ring` keys), which the key groups' p.V sums [kGroups][MaxG][D]
-// (f32) take over once the last V sub-tile is read, and the merge's staged
-// partials [merge][G][D] (f32) after those; then the tile's scores
-// [blk][MaxG] and q [MaxG][D] in f32.
-struct Smem {
-  int ring;        // keys a ring slot holds: blk (the whole tile) or fewer
-  int merge;       // partials the merge stages at a time
-  size_t scores;   // byte offsets
-  size_t qrows;
-  size_t total;
-};
-
-template <typename T, int D, int MaxG>
-Smem smem_plan(int blk) {
-  using Ly = Layout<T, D>;
-  const size_t red = (size_t)Ly::kGroups * MaxG * D * sizeof(float);
-  const size_t part = (size_t)MaxG * D * sizeof(float);
-  for (int ring : {blk, kRingKeys, 16}) {
-    if (ring > blk) continue;
-    size_t shared = 2 * (size_t)ring * D * sizeof(T);
-    shared = shared > red ? shared : red;   // red >= part
-    Smem s;
-    s.ring = ring;
-    s.merge = (int)(shared / part < kMergeChunk ? shared / part
-                                                : kMergeChunk);
-    s.scores = (shared + 127) & ~(size_t)127;
-    s.qrows = s.scores + (((size_t)blk * MaxG * sizeof(float) + 127) &
-                          ~(size_t)127);
-    s.total = s.qrows + part;
-    if (s.total <= (size_t)kSmemBudget) return s;
-  }
-  return Smem{0, 0, 0, 0, 0};
-}
 
 template <typename T, int D, int MaxG>
 __global__ void __launch_bounds__(kThreads)
@@ -277,7 +73,6 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(128) unsigned char smem[];
   T* slots = reinterpret_cast<T*>(smem);
   float* red = reinterpret_cast<float*>(smem);      // after the ring
-  float* stage = reinterpret_cast<float*>(smem);    // after the reduction
   float* p_s = reinterpret_cast<float*>(smem + sm.scores);  // [blk][MaxG]
   float* q_s = reinterpret_cast<float*>(smem + sm.qrows);   // [MaxG][D]
   __shared__ uint64_t full[2];
@@ -336,11 +131,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kQLoads; ++r) {
     const int idx = tid + r * kThreads;
-    qv[r] = idx < G * D ? decode::to_f32(qb[idx]) : 0.f;
+    qv[r] = idx < G * D ? to_f32(qb[idx]) : 0.f;
   }
 
   int first, last;
-  if (!decode::split_of<LegacyRuns>(items, i, L, first, last)) {
+  if (!split_of<LegacyRuns>(items, i, L, first, last)) {
     // not in a run that finalizes: let the copies land, then leave
     if (bulk && tid == 0 && nk > 0) {
       mbar_wait(&full[0], 0);
@@ -508,14 +303,14 @@ __global__ void __launch_bounds__(kThreads)
       const int o = tid + r * kThreads;
       float a = 0.f;
       for (int w = 0; w < Ly::kGroups; ++w) a += red[w * MaxG * D + o];
-      part[r] = decode::normalized(a, l_s[o / D]);
+      part[r] = normalized(a, l_s[o / D]);
     }
   }
   if (nsplit == 1) {   // the run's one split: its output
 #pragma unroll
     for (int r = 0; r < kAcc; ++r)
       if (tid + r * kThreads < G * D)
-        decode::store(part[r], ob + tid + r * kThreads);
+        store(part[r], ob + tid + r * kThreads);
     return;
   }
 #pragma unroll
@@ -534,107 +329,9 @@ __global__ void __launch_bounds__(kThreads)
   if (!merges) return;
   __threadfence();
 
-  // merge_partials over the run's splits s (item first + s), in item
-  // order: a partial is real where l > 0; gm is the real partials' max m;
-  // each weighs w = exp(m - gm) * l (0 if not real); out = sum(out * w) /
-  // max(sum(w), 1e-30), or, where at most one is real, that partial's out
-  // (0 if none).  Products and sums rounded one by one, in split order, as
-  // the plain version's.  The other CTAs' partials come from L2 into
-  // shared memory (__ldcg, cp.async.cg), each chunk's copies issued
-  // together; the first chunk's outs fly during the first pass.  The code
-  // is loops: a CTA runs it once, from a cold instruction cache.
-  auto at = [&](int s) { return (size_t)(first + s); };
-  __shared__ float l_c[kMergeChunk][MaxG], m_c[kMergeChunk][MaxG],
-      w_c[kMergeChunk][MaxG];
-  __shared__ float gm_s[MaxG], den_s[MaxG];
-  __shared__ int nreal_s[MaxG], only_s[MaxG];
-  auto stage_lm = [&](int c0, int nc) {
-    for (int idx = tid; idx < nc * G; idx += kThreads) {
-      const int s = idx / G, g = idx - s * G;
-      l_c[s][g] = __ldcg(split.l + at(c0 + s) * G + g);
-      m_c[s][g] = __ldcg(split.m + at(c0 + s) * G + g);
-    }
-  };
-  // the outs of splits [c0, c0 + nc): [nc][G][D] f32, contiguous
-  auto stage_outs = [&](int c0, int nc) {
-    const float* src = split.out + at(c0) * G * D;
-    for (int idx = tid; idx < nc * G * D / 4; idx += kThreads)
-      cp_async16(stage + idx * 4, src + idx * 4);
-  };
-  stage_outs(0, min(sm.merge, nsplit));
-  // pass 1, thread g < G: row g's max m over the real partials, their
-  // count and the last one
-  float gm = kNegInf;
-  int nreal = 0, only = -1;
-  for (int c0 = 0; c0 < nsplit; c0 += kMergeChunk) {
-    const int nc = min(kMergeChunk, nsplit - c0);
-    stage_lm(c0, nc);
-    __syncthreads();
-    if (tid < G) {
-      for (int s = 0; s < nc; ++s) {
-        if (l_c[s][tid] > 0.f) {
-          gm = fmaxf(gm, m_c[s][tid]);
-          ++nreal;
-          only = c0 + s;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (tid < G) {
-    gm_s[tid] = gm;
-    nreal_s[tid] = nreal;
-    only_s[tid] = only;
-  }
-  // pass 2: the weights and the weighted outs, sm.merge splits at a time;
-  // a run of at most kMergeChunk splits keeps pass 1's (m, l)
-  const bool kept = nsplit <= kMergeChunk;
-  float num[kAcc];
-#pragma unroll
-  for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
-  float den = 0.f;   // thread g < G: the sum of row g's weights
-  for (int c0 = 0; c0 < nsplit; c0 += sm.merge) {
-    const int nc = min(sm.merge, nsplit - c0);
-    if (!kept) stage_lm(c0, nc);
-    if (c0 > 0) stage_outs(c0, nc);
-    cp_async_wait_all();
-    __syncthreads();   // also orders gm_s
-    const int lm0 = kept ? c0 : 0;   // (m, l) row of split c0
-    for (int idx = tid; idx < nc * G; idx += kThreads) {
-      const int s = idx / G, g = idx - s * G;
-      const float l = l_c[lm0 + s][g];
-      w_c[s][g] =
-          l > 0.f ? __fmul_rn(expf(m_c[lm0 + s][g] - gm_s[g]), l) : 0.f;
-    }
-    __syncthreads();
-    if (tid < G)
-      for (int s = 0; s < nc; ++s) den = __fadd_rn(den, w_c[s][tid]);
-    // columns past G * D read other partials' values, never stored
-    for (int s = 0; s < nc; ++s) {
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int o = tid + r * kThreads;
-        num[r] = __fadd_rn(num[r],
-                           __fmul_rn(stage[s * G * D + o], w_c[s][o / D]));
-      }
-    }
-    __syncthreads();
-  }
-  if (tid < G) den_s[tid] = den;
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kAcc; ++r) {
-    const int o = tid + r * kThreads;
-    if (o < G * D) {
-      const int g = o / D, one = only_s[g];
-      const float val =
-          nreal_s[g] > 1 ? num[r] / fmaxf(den_s[g], 1e-30f)
-          : one < 0      ? 0.f
-                         : __ldcg(split.out + at(one) * G * D + o);
-      decode::store(val, ob + o);
-    }
-  }
-  if (tid == 0) split.tickets[first] = 0;
+  merge_splits<MaxG, D, false>(split, first, nsplit, G,
+                                reinterpret_cast<float*>(smem), sm.merge, ob,
+                                nullptr, nullptr);
 }
 
 template <typename T, int D, int MaxG>

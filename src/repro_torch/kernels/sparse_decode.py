@@ -14,7 +14,8 @@ output is in q's dtype, zero for (row, head) pairs no run covers.
 
 The kernel splits each run across CTAs, one item a CTA, and merges the
 items' partials in item order by :func:`~repro_torch.kernels.
-flash_decode.merge_partials`; the plain version runs the same split
+flash_decode.merge_partials`, with the flash decodes' merge
+(``csrc/flash_decode.cuh``); the plain version runs the same split
 algebra (:func:`~repro_torch.kernels.flash_decode.split_decode_scan` under
 the legacy run rule), so the card and the CPU compute one arithmetic.
 """

@@ -74,8 +74,9 @@ non-finite values on the device and brings the flags back in the same
 copy as the tokens; a flagged slot is quarantined (``take_quarantine``)
 and the scheduler fails only that request, whose blocks
 :meth:`Engine._release_seq` scrubs (codes 0, scales 1) before they free:
-the decode kernels multiply a masked key's zero weight into its value row,
-so a stale NaN in a recycled block would poison its next tenant.  The
+the plain versions (and the bf16 prefill kernel's P.V over a whole tile)
+multiply a masked key's zero weight into its value row, so a stale NaN in
+a recycled block would poison its next tenant.  The
 probe's health bit quarantines too (``probe_nonfinite``).  Swap transfers
 retry ``swap_retries`` times (``swap_backoff_s`` doubling), then the
 scheduler discards and requeues the victim; ``audit`` checks the allocator,
@@ -1370,10 +1371,11 @@ class Engine:
     def _release_seq(self, rid: int, slot: int | None) -> None:
         """Batcher ``on_fail_fn``, for a quarantined or discarded sequence
         while its block table is valid: drop its host copy and SCRUB its
-        blocks (codes 0, scales 1) before they recycle.  The decode kernels
-        multiply a masked key's zero weight into its value row (0 x NaN is
-        NaN), so a stale NaN in a block handed to a later sequence would
-        poison it.  The scrub is queued on the stream ahead of any later
+        blocks (codes 0, scales 1) before they recycle.  The plain versions
+        (and the bf16 prefill kernel's P.V over a whole tile) multiply a
+        masked key's zero weight into its value row (0 x NaN is NaN), so a
+        stale NaN in a block handed to a later sequence would poison it.
+        The scrub is queued on the stream ahead of any later
         write.  Prefix sharing: only blocks about to free are scrubbed, not
         one another holder references or the tree keeps (the fault path
         invalidates the tree first, so a corrupted block is uncached by

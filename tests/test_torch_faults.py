@@ -28,7 +28,8 @@ Inside the port: a disabled (or idle) injector and ``sentinels=False``
 change no token over dense / sparse / windowed x paged / contiguous x
 bf16 / int8; the auditor flags planted faults; and the plain versions of
 #1, #3 and #2 leak a stale NaN past a sequence's length into their output
-(``0 x NaN``), as the kernels do on the card: the scrub is load-bearing.
+(``0 x NaN``), as the bf16 #2 kernel does on the card (#1 / #3 copy no key
+past the position there): the scrub is load-bearing.
 
 Each JAX engine is built once a module and re-armed between cases.
 """
@@ -506,9 +507,9 @@ def test_corrupt_shared_block_fails_all_holders():
 def test_plain_versions_leak_a_stale_nan_past_the_length(dtype):
     """A NaN past a sequence's length in its last block reaches the output
     of the plain versions of #1, #3 and #2 on the CPU (their p.V multiplies
-    a masked key's zero weight into its value row, as the kernels do on
-    the card): the engine's scrub, not the masking, keeps a recycled block
-    from poisoning its next tenant."""
+    a masked key's zero weight into its value row, as the bf16 #2 kernel
+    does on the card): the engine's scrub, not the masking, keeps a
+    recycled block from poisoning its next tenant."""
     cpu = torch.device("cpu")
     assert stale_nan_outputs(cpu, dtype, nan=False) == {
         "#1": True, "#3": True, "#2": True}
